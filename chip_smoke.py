@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the RALF sample path on one CUDA card.
+"""Drive the PyTorch port of RALF's sample paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,18 +7,32 @@ Run from the repository root.  Phases, each of which must pass:
 
   1. device   the card's name and power limit; TF32 off for matmuls and convolutions
   2. build    nvcc builds every kernel of ralf_tpu_torch/ops/csrc (sm_90a), in parallel
-  3. kernels  each kernel against its plain PyTorch version at the main path's
-              shapes, in bf16 and fp32, with its time beside the plain version's,
-              one PyTorch library call's and the least time the card could take
+  3. kernels  each kernel (K1-K4, K7, K8) against its plain PyTorch version at the
+              paths' shapes, in bf16 and fp32, with its time beside the plain
+              version's, one PyTorch library call's and the least time the card
+              could take
   4. check    the full-width RALF in fp32 on the card against the same weights on
-              the CPU (plain versions): gallery features, encode_memory, greedy tokens
-  5. slice    the full-width RALF in bf16 answers 3 requests of 128 canvases in
-              each decode configuration (bf16 shared memory through K2, and
-              kv_quant + self_quant through K3); the launch counters show K1, K2
-              and K3 ran on the path; one more request per configuration under
-              torch.profiler prints the device's busy share
+              the CPU (plain versions): gallery features, encode_memory, greedy
+              tokens of every decode configuration (shared memory through K2, K3
+              and K4; per-layer cross K/V through K7 and K8), and the per-layer
+              decode against the shared one (the same function)
+  5. slice    the full-width RALF in bf16 answers requests of 128 canvases:
+              3 in each of the two uncond configurations (the CLI default,
+              bf16 shared memory through K2; the bench configuration,
+              kv_quant + self_quant through K3), one more of each
+              under torch.profiler for the device's busy share; one per task
+              (uncond, c, cwh, partial, refinement, relation with the retry
+              decode, gt) with kv_quant + self_quant + q8_mxu (K4); one through
+              the per-layer cross K/V (K7) and one with it in int8 (K8); then
+              the plain autoreg family answers one (K2).  Each is checked for
+              forced tokens, legal tokens and finite layouts, and its launch
+              counts are read around it
   6. report   one JSON line of the kernels, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
+
+Every configuration is chosen here explicitly (q8_mxu is an argument of the
+package's decodes); no environment variable selects a kernel, so that each
+kernel keeps a path of its own.
 
 It exits non-zero, and prints no result line, when CUDA is absent or any
 check fails.  It imports nothing of the JAX package.
@@ -36,20 +50,27 @@ import traceback
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; fp32 FMA
+# dense tensor-core bf16 and int8; fp32 FMA off the tensor cores
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 TOL = {"bfloat16": (1e-3, 2**-7), "float32": (1e-5, 1e-4)}  # (atol, rtol) kernel vs plain
+AGREE = 0.99  # least share of equal greedy tokens, card against CPU (or K7 against K2)
 
-REPLACES = {
-    "encoder_attention": "ralf_tpu/ops/pallas/encoder_attention.py:213",
-    "decode_shared_attention": "ralf_tpu/ops/pallas/decode_attention.py:115",
-    "decode_shared_attention_q8": "ralf_tpu/ops/pallas/decode_attention.py:198",
+KERNELS = {  # name: (id, the TPU kernel it replaces, source)
+    "encoder_attention": ("K1", "ralf_tpu/ops/pallas/encoder_attention.py:213",
+                          "ralf_tpu_torch/ops/csrc/encoder_attention.cu"),
+    "decode_shared_attention": ("K2", "ralf_tpu/ops/pallas/decode_attention.py:115",
+                                "ralf_tpu_torch/ops/csrc/decode_attention.cu"),
+    "decode_shared_attention_q8": ("K3", "ralf_tpu/ops/pallas/decode_attention.py:198",
+                                   "ralf_tpu_torch/ops/csrc/decode_attention.cu"),
+    "decode_shared_attention_q8mxu": ("K4", "ralf_tpu/ops/pallas/decode_attention.py:294",
+                                      "ralf_tpu_torch/ops/csrc/decode_attention.cu"),
+    "decode_attention": ("K7", "ralf_tpu/ops/pallas/decode_attention.py:46",
+                         "ralf_tpu_torch/ops/csrc/decode_attention.cu"),
+    "decode_attention_q8": ("K8", "ralf_tpu/ops/pallas/decode_attention.py:382",
+                            "ralf_tpu_torch/ops/csrc/decode_attention.cu"),
 }
-SOURCES = {
-    "encoder_attention": "ralf_tpu_torch/ops/csrc/encoder_attention.cu",
-    "decode_shared_attention": "ralf_tpu_torch/ops/csrc/decode_attention.cu",
-    "decode_shared_attention_q8": "ralf_tpu_torch/ops/csrc/decode_attention.cu",
-}
-N_REQUESTS, BATCH, GALLERY = 3, 128, 256
+TASKS = ("uncond", "c", "cwh", "partial", "refinement", "relation", "gt")
+N_REQUESTS, BATCH, GALLERY, RETRIES = 3, 128, 256, 8
 
 
 class Failures(list):
@@ -76,14 +97,25 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, op_type: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def counters():
+    """The launch counter of every kernel wrapper, by kernel id."""
+    from ralf_tpu_torch.ops import decode_attention as da
+    from ralf_tpu_torch.ops import encoder_attention as ea
+
+    fns = {"encoder_attention": ea.encoder_attention}
+    fns.update((n, getattr(da, n)) for n in KERNELS if n != "encoder_attention")
+    return {KERNELS[n][0]: fn for n, fn in fns.items()}
+
+
 def kernel_cases(torch, dev):
-    """(kernel name, case label, dtype, kernel call, plain call, library call or None, bytes, ops)."""
+    """(kernel name, case label, dtype, kernel call, plain call, library call or
+    None, bytes, ops, op type of the peak, extra tolerance)."""
     import torch.nn.functional as F
 
     from ralf_tpu_torch.ops import decode_attention as da
@@ -113,7 +145,7 @@ def kernel_cases(torch, dev):
                 "encoder_attention", f"B={B} S={S} H={H} Dh={Dh} mask={masked}", dn,
                 lambda q=q, k=k, v=v, H=H, bias=bias: ea.encoder_attention(q, k, v, H, bias),
                 lambda q=q, k=k, v=v, H=H, bias=bias: ea.encoder_attention_plain(q, k, v, H, bias),
-                lib, 4 * B * S * E * isz + (4 * B * S if masked else 0), 4 * B * S * S * E,
+                lib, 4 * B * S * E * isz + (4 * B * S if masked else 0), 4 * B * S * S * E, dn, 0.0,
             ))
         for M in (680, 677):
             B, H, E = 128, 8, 256
@@ -126,14 +158,43 @@ def kernel_cases(torch, dev):
                 lambda qt=qt, mem=mem: da.decode_shared_attention_plain(qt, mem),
                 lambda qt=qt, mem=mem: F.scaled_dot_product_attention(
                     qt[:, None], mem[:, None], mem[:, None], scale=1.0),
-                B * M * E * isz + 2 * B * H * E * isz, 4 * B * H * M * E,
+                B * M * E * isz + 2 * B * H * E * isz, 4 * B * H * M * E, dn, 0.0,
             ))
             mi, ms = da.quantize_shared_memory(memf)
             cases.append((
                 "decode_shared_attention_q8", f"B={B} M={M}", dn,
                 lambda qt=qt, mi=mi, ms=ms: da.decode_shared_attention_q8(qt, mi, ms),
                 lambda qt=qt, mi=mi, ms=ms: da.decode_shared_attention_q8_plain(qt, mi, ms),
-                None, B * M * E + 4 * B * M + 2 * B * H * E * isz, 4 * B * H * M * E,
+                None, B * M * E + 4 * B * M + 2 * B * H * E * isz, 4 * B * H * M * E, dn, 0.0,
+            ))
+            # K4: int8 contractions; one flipped quantised probability moves an
+            # output by at most its row's scale ps
+            cases.append((
+                "decode_shared_attention_q8mxu", f"B={B} M={M}", dn,
+                lambda qt=qt, mi=mi, ms=ms: da.decode_shared_attention_q8mxu(qt, mi, ms),
+                lambda qt=qt, mi=mi, ms=ms: da.decode_shared_attention_q8mxu_plain(qt, mi, ms),
+                None, B * M * E + 4 * B * M + 2 * B * H * E * isz, 4 * B * H * M * E, "int8",
+                da.q8mxu_probs(qt, mi, ms)[1],
+            ))
+            Dh = E // H
+            q = torch.randn(B, H, Dh, generator=g, device=dev).to(dtype)
+            k_t, v_t = (torch.randn(B, H, Dh, M, generator=g, device=dev).to(dtype)
+                        for _ in range(2))
+            cases.append((
+                "decode_attention", f"B={B} H={H} Dh={Dh} M={M}", dn,
+                lambda q=q, k_t=k_t, v_t=v_t: da.decode_attention(q, k_t, v_t),
+                lambda q=q, k_t=k_t, v_t=v_t: da.decode_attention_plain(q, k_t, v_t),
+                lambda q=q, k_t=k_t, v_t=v_t: F.scaled_dot_product_attention(
+                    q[:, :, None], k_t.transpose(-1, -2), v_t.transpose(-1, -2)),
+                2 * B * H * Dh * M * isz + 2 * B * H * Dh * isz, 4 * B * H * Dh * M, dn, 0.0,
+            ))
+            cached = da.quantize_kv(k_t, v_t)
+            cases.append((  # the kernel's arithmetic is fp32 on an fp32 query
+                "decode_attention_q8", f"B={B} H={H} Dh={Dh} M={M}", dn,
+                lambda q=q, c=cached: da.decode_attention_q8(q, *c),
+                lambda q=q, c=cached: da.decode_attention_q8_plain(q, *c),
+                None, 2 * B * H * Dh * M + 8 * B * H + B * H * Dh * 2 * isz, 4 * B * H * Dh * M,
+                "float32", 0.0,
             ))
     return cases
 
@@ -141,21 +202,21 @@ def kernel_cases(torch, dev):
 def run_kernel_checks(torch, dev, fails: Failures) -> dict:
     """Check and time every case; returns the main-shape bf16 row of each kernel."""
     main_rows = {}
-    for name, label, dn, kern, plain, lib, nbytes, ops in kernel_cases(torch, dev):
+    for name, label, dn, kern, plain, lib, nbytes, ops, op_type, extra in kernel_cases(torch, dev):
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
         atol, rtol = TOL[dn]
         ok = bool(torch.isfinite(out.float()).all()) and bool(
-            (err <= atol + rtol * ref.float().abs()).all())
+            (err <= atol + extra + rtol * ref.float().abs()).all())
         row = {
             "max_abs_err": float(err.max()),
             "ms": time_ms(kern), "plain_ms": time_ms(plain),
             "library_ms": None if lib is None else time_ms(lib),
         }
-        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, dn)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, op_type)
         fails.check(ok, f"{name} {label} {dn}: max_abs_err {row['max_abs_err']:.3e} "
-                        f"(tol {atol} + {rtol}*|ref|)")
+                        f"(tol {atol} + {rtol}*|ref|{' + ps' if name.endswith('q8mxu') else ''})")
         print(f"  {name} {label} {dn}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"library {row['library_ms']} ms, bound {row['bound_ms'] * 1e3:.2f} us "
               f"({row['bound_by']})", flush=True)
@@ -183,6 +244,38 @@ def build_gallery_and_batches(gen, dev, n_requests: int, batch: int, gallery_siz
     return retriever, feats, list(loader)
 
 
+def layer_decode(torch, decoder, memory, token_mask, forced, tok, sampling, generator=None,
+                 shared=False, kv_quant=False):
+    """The decode loop written against TokenDecoder's own methods (stack.cross_kv,
+    embed_step, stack.step, head), as a user of the decoder writes it: the way
+    to the per-layer cross K/V of cross_kv(shared=False), which ar_decode does
+    not offer.  Returns (tokens [B, L], the first step's logits [B, V])."""
+    from ralf_tpu_torch.core.sampling import NEG_INF, sample
+
+    B, dev, L = memory.shape[0], memory.device, tok.max_token_length
+    with torch.inference_mode():
+        cache = decoder.stack.init_cache(B, L, dtype=decoder.emb.weight.dtype, device=dev)
+        cross = decoder.stack.cross_kv(memory, kv_quant, shared=shared,
+                                       dtype=decoder.emb.weight.dtype)
+        forced = torch.as_tensor(np.asarray(forced), device=dev).long()
+        pos, vocab = torch.arange(L, device=dev), torch.arange(token_mask.shape[1], device=dev)
+        keep = torch.zeros((B, L), dtype=torch.bool, device=dev)
+        prev = torch.full((B,), tok.bos_id, dtype=torch.long, device=dev)
+        toks, first = [], None
+        for t in range(L):
+            keep[:, t] = prev != tok.pad_id
+            x = decoder.stack.step(decoder.embed_step(prev, t), t, cache, cross,
+                                   keep & (pos <= t)[None], None)
+            logits = decoder.head(x)[:, 0].float()
+            first = logits if first is None else first
+            logits = torch.where(token_mask[t][None], logits, NEG_INF)
+            f = forced[:, t]
+            only_f = torch.where(vocab[None] == f[:, None], 0.0, NEG_INF)
+            prev = sample(torch.where((f >= 0)[:, None], only_f, logits), sampling, generator)
+            toks.append(prev)
+        return torch.stack(toks, 1), first
+
+
 def reference_check(torch, tok, fails: Failures) -> None:
     """fp32 full-width RALF: kernels on the card vs plain versions on the CPU."""
     from ralf_tpu_torch.core.conditioning import build_forced_tokens
@@ -196,7 +289,7 @@ def reference_check(torch, tok, fails: Failures) -> None:
     feats, conds, mems = {}, {}, {}
     for d, gen in gens.items():
         _, feats[d], batches = build_gallery_and_batches(gen, d, 1, 2, 64, np.float32)
-        conds[d], _ = gen.build_condition(batches[0])
+        conds[d], _ = gen.build_condition(batches[0], np.random.default_rng(0), task="c")
         mems[d] = gen.encode_memory(conds[d]).cpu()
     f_err = float(np.abs(feats["cuda"] - feats["cpu"]).max())
     fails.check(f_err < 1e-3, f"check: FIDNet gallery features card vs CPU max_abs_err {f_err:.3e} (tol 1e-3)")
@@ -205,44 +298,93 @@ def reference_check(torch, tok, fails: Failures) -> None:
                               f"memory {tuple(mems['cpu'].shape)}")
     greedy = SamplingConfig(name="deterministic")
     forced = build_forced_tokens(conds["cpu"], tok)
-    for kvq, sq in ((False, False), (True, True)):
+
+    def agreement(a, b):
+        return float((a.cpu() == b.cpu()).float().mean())
+
+    # shared memory through ar_decode: K2, K3, and K4 (int8 contractions)
+    for kvq, sq, mxu, least in ((False, False, False, 1.0), (True, True, False, 1.0),
+                                (True, True, True, AGREE)):
         toks = {d: gens[d].decode(mems["cpu"].to(d), forced, greedy, kv_quant=kvq,
-                                  self_quant=sq).cpu() for d in gens}
-        same = float((toks["cuda"] == toks["cpu"]).float().mean())
-        fails.check(same == 1.0, f"check: greedy tokens card vs CPU kv_quant={kvq} "
-                                 f"self_quant={sq}: {same:.4f} equal")
+                                  self_quant=sq, q8_mxu=mxu) for d in gens}
+        same = agreement(toks["cuda"], toks["cpu"])
+        fails.check(same >= least, f"check: greedy tokens card vs CPU kv_quant={kvq} "
+                                   f"self_quant={sq} q8_mxu={mxu}: {same:.4f} equal (least {least})")
+    # per-layer cross K/V through the decoder's own methods: K7, and K8 with kv_quant
+    token_mask = {d: gens[d].token_mask for d in gens}
+    per_layer = {(d, kvq): layer_decode(torch, gens[d].core.decoder, mems["cpu"].to(d),
+                                        token_mask[d], forced, tok, greedy, kv_quant=kvq)
+                 for d in gens for kvq in (False, True)}
+    for kvq in (False, True):
+        same = agreement(per_layer[("cuda", kvq)][0], per_layer[("cpu", kvq)][0])
+        fails.check(same >= AGREE, f"check: per-layer cross K/V (K{8 if kvq else 7}) greedy tokens "
+                                   f"card vs CPU kv_quant={kvq}: {same:.4f} equal (least {AGREE})")
+    # the per-layer decode (K7) and the shared one (K2) compute the same function
+    shared = layer_decode(torch, gens["cuda"].core.decoder, mems["cpu"].cuda(), token_mask["cuda"],
+                          forced, tok, greedy, shared=True)
+    l_err = float((per_layer[("cuda", False)][1] - shared[1]).abs().max())
+    same = agreement(per_layer[("cuda", False)][0], shared[0])
+    fails.check(l_err <= 1e-3 and same >= AGREE,
+                f"check: per-layer (K7) vs shared (K2) decode on the card: first-step logits "
+                f"max_abs_err {l_err:.3e} (tol 1e-3), greedy tokens {same:.4f} equal (least {AGREE})")
     print(f"  check phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def run_slice(torch, tok, fails: Failures) -> dict:
-    """Full-width bf16 RALF: 3 requests of 128 canvases per decode configuration."""
+    """Full-width bf16 requests of 128 canvases; returns the launches of each
+    kernel summed over the counted requests (warm-ups and profiles excluded)."""
     from ralf_tpu_torch.core.conditioning import build_forced_tokens
     from ralf_tpu_torch.core.sampling import SamplingConfig
+    from ralf_tpu_torch.eval.violations import calculate_violation
+    from ralf_tpu_torch.models.autoreg import AutoregGenerator
     from ralf_tpu_torch.models.base import GeneratorConfig
     from ralf_tpu_torch.models.ralf import RALFGenerator
-    from ralf_tpu_torch.ops import decode_attention as da
-    from ralf_tpu_torch.ops import encoder_attention as ea
 
     t0 = time.perf_counter()
-    gen = RALFGenerator(tok, GeneratorConfig(dtype=torch.bfloat16), "uncond", top_k=16,
-                        device="cuda", seed=0)
-    ea.encoder_attention.launches = 0
+    cfg = GeneratorConfig(dtype=torch.bfloat16)
+    gen = RALFGenerator(tok, cfg, "uncond", top_k=16, device="cuda", seed=0)
+    count = counters()
+    count["K1"].launches = 0
     _, feats, batches = build_gallery_and_batches(gen, "cuda", N_REQUESTS, BATCH, GALLERY)
-    fails.check(ea.encoder_attention.launches == 4 and feats.shape == (GALLERY, 256)
+    fails.check(count["K1"].launches == 4 and feats.shape == (GALLERY, 256)
                 and bool(np.isfinite(feats).all()),
-                f"slice: gallery table {feats.shape} from {ea.encoder_attention.launches} "
+                f"slice: gallery table {feats.shape} from {count['K1'].launches} "
                 "K1 launches (4 FIDNet layers)")
     print(f"  slice set-up {time.perf_counter() - t0:.1f} s", flush=True)
     sampling = SamplingConfig(name="top_p", top_p=0.9, temperature=1.0)
-    token_mask = gen.token_mask
     L = tok.max_token_length
-    counters = {"K1": ea.encoder_attention, "K2": da.decode_shared_attention,
-                "K3": da.decode_shared_attention_q8}
-    totals = {}
+    totals = dict.fromkeys(count, 0)
+
+    def counted(run):
+        """Run with every counter at 0 just before; its launches just after."""
+        for c in count.values():
+            c.launches = 0
+        out = run()
+        n = {k: c.launches for k, c in count.items()}
+        for k in totals:
+            totals[k] += n[k]
+        return out, n
+
+    def check_request(label, cond, toks, layout, n, expect):
+        """Forced tokens in place, legal tokens, finite layouts, and exactly the
+        expected launches (every other kernel 0)."""
+        forced = torch.as_tensor(build_forced_tokens(cond, tok), device=toks.device)
+        forced_ok = bool((toks[forced >= 0] == forced[forced >= 0]).all())
+        legal = bool(gen.token_mask[torch.arange(L, device=toks.device)[None, :], toks].all())
+        geo_ok = all(bool(torch.isfinite(layout.geo(k)).all()) for k in
+                     ("center_x", "center_y", "width", "height"))
+        want = {**dict.fromkeys(count, 0), **expect}
+        fails.check(n == want and forced_ok and legal and geo_ok and tuple(toks.shape) == (BATCH, L),
+                    f"slice {label}: launches {n} (want {want}), forced tokens in place={forced_ok}, "
+                    f"tokens legal={legal}, layouts decoded (finite={geo_ok}, "
+                    f"{int(layout.mask.sum())} elements)")
+
+    # the two uncond configurations: encode and decode timed apart
     for label, kvq, sq, cross in (("cli-default", False, False, "K2"),
                                   ("bench", True, True, "K3")):
+
         def request(batch, seed):
-            cond, _ = gen.build_condition(batch)
+            cond, _ = gen.build_condition(batch, np.random.default_rng(seed))
             forced = build_forced_tokens(cond, tok)
             torch.cuda.synchronize()
             a = time.perf_counter()
@@ -253,33 +395,69 @@ def run_slice(torch, tok, fails: Failures) -> dict:
                               torch.Generator(device="cuda").manual_seed(seed), kvq, sq)
             torch.cuda.synchronize()
             c = time.perf_counter()
-            return mem, toks, tok.decode(toks), b - a, c - b
+            return cond, mem, toks, tok.decode(toks), b - a, c - b
 
         request(batches[0], 99)  # warm-up, outside the counted run
-        for c in counters.values():
-            c.launches = 0
         outs = []
         for i, batch in enumerate(batches):
-            before = {k: c.launches for k, c in counters.items()}
-            mem, toks, layout, t_enc, t_dec = request(batch, i)
-            n = {k: c.launches - before[k] for k, c in counters.items()}
-            legal = bool(token_mask[torch.arange(L, device=toks.device)[None, :], toks].all())
-            geo_ok = all(bool(torch.isfinite(layout.geo(k)).all()) for k in
-                         ("center_x", "center_y", "width", "height"))
-            fails.check(
-                n["K1"] == 12 and n[cross] == 300 and legal and geo_ok
-                and tuple(toks.shape) == (BATCH, L) and bool(torch.isfinite(mem.float()).all()),
-                f"slice {label} request {i}: memory {tuple(mem.shape)}, launches {n}, "
-                f"tokens legal={legal}, layouts decoded (finite={geo_ok}, "
-                f"{int(layout.mask.sum())} elements)")
+            (cond, mem, toks, layout, t_enc, t_dec), n = counted(lambda: request(batch, i))
+            check_request(f"{label} request {i} (memory {tuple(mem.shape)})", cond, toks, layout,
+                          n, {"K1": 12, cross: 300})
             print(f"  {label} request {i}: encode {t_enc * 1e3:.1f} ms, decode {t_dec * 1e3:.1f} ms, "
                   f"{BATCH / (t_enc + t_dec):.1f} layouts/s", flush=True)
             outs.append(toks.cpu().numpy().tobytes())
         fails.check(len(set(outs)) == N_REQUESTS, f"slice {label}: the {N_REQUESTS} requests "
                                                   "give distinct outputs")
-        for k, c in counters.items():
-            totals[k] = totals.get(k, 0) + c.launches
         profile_request(torch, label, lambda: request(batches[0], 7))
+
+    # one request per task, kv_quant + self_quant + q8_mxu (K4), through sample()
+    for i, task in enumerate(TASKS):
+        def sample_task():
+            cond, _ = gen.build_condition(batches[0], np.random.default_rng(100 + i), task=task)
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            layout, toks = gen.sample(cond, sampling, torch.Generator(device="cuda").manual_seed(i),
+                                      return_tokens=True, max_retries=RETRIES, kv_quant=True,
+                                      self_quant=True, q8_mxu=True)
+            torch.cuda.synchronize()
+            return cond, layout, toks, time.perf_counter() - a
+
+        (cond, layout, toks, dt), n = counted(sample_task)
+        steps = RETRIES * L if task == "relation" else L  # the retry decode: R attempts per element
+        check_request(f"task {task} (constraint length {cond.const_seq.shape[1]})", cond, toks,
+                      layout, n, {"K1": 12, "K4": 6 * steps})
+        v = calculate_violation(cond, toks, layout, tok)
+        print(f"  task {task}: {dt * 1e3:.1f} ms, {BATCH / dt:.1f} layouts/s; violations "
+              f"{v['viorated']}/{v['total']} = {v['viorated'] / v['total']:.4f}", flush=True)
+
+    # the per-layer cross K/V, in bf16 (K7) and int8 (K8), through the decoder's methods
+    for kvq, kernel in ((False, "K7"), (True, "K8")):
+        def per_layer():
+            cond, _ = gen.build_condition(batches[0], np.random.default_rng(200))
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            mem = gen.encode_memory(cond)
+            toks, _ = layer_decode(torch, gen.core.decoder, mem, gen.token_mask,
+                                   build_forced_tokens(cond, tok), tok, sampling,
+                                   torch.Generator(device="cuda").manual_seed(3), kv_quant=kvq)
+            torch.cuda.synchronize()
+            return cond, toks, time.perf_counter() - a
+
+        (cond, toks, dt), n = counted(per_layer)
+        check_request(f"per-layer cross K/V kv_quant={kvq}", cond, toks, tok.decode(toks), n,
+                      {"K1": 12, kernel: 300})
+        print(f"  per-layer kv_quant={kvq}: {dt * 1e3:.1f} ms, {BATCH / dt:.1f} layouts/s", flush=True)
+
+    # the plain autoreg family, CLI default configuration (K2)
+    ar = AutoregGenerator(tok, cfg, "uncond", device="cuda", seed=0)
+
+    def autoreg():
+        cond, _ = ar.build_condition(batches[0], np.random.default_rng(300))
+        return cond, *ar.sample(cond, sampling, torch.Generator(device="cuda").manual_seed(4),
+                                return_tokens=True)
+
+    (cond, layout, toks), n = counted(autoreg)
+    check_request("autoreg uncond", cond, toks, layout, n, {"K1": 12, "K2": 300})
     print(f"  slice phase {time.perf_counter() - t0:.1f} s", flush=True)
     return totals
 
@@ -338,12 +516,10 @@ def main() -> int:
     reference_check(torch, tok, fails)
     launches = run_slice(torch, tok, fails)
 
-    ids = {"encoder_attention": "K1", "decode_shared_attention": "K2",
-           "decode_shared_attention_q8": "K3"}
-    kernels = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
-                "launches": launches[ids[n]], **main_rows[n]} for n in REPLACES]
+    kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
+                "launches": launches[kid], **main_rows[n]} for n, (kid, rep, src) in KERNELS.items()]
     for k in kernels:
-        fails.check(k["launches"] > 0, f"{k['name']} launched {k['launches']} times on the main path")
+        fails.check(k["launches"] > 0, f"{k['name']} launched {k['launches']} times on its paths")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if fails:
         print(f"chip_smoke: {len(fails)} check(s) failed: {fails}", file=sys.stderr)

@@ -1,8 +1,15 @@
-"""Autoregressive generator protocol, the counterpart of
-`ralf_tpu/models/autoreg.py`: the constraint encoder, and the generator
-shell that turns a batch into a `Condition`, encodes it and runs the
-KV-cached decode.  `RALFGenerator` (models/ralf.py) supplies the core; the
-plain autoreg family's core is not ported.
+"""The autoregressive layout generator (the plain `autoreg` family), the
+counterpart of `ralf_tpu/models/autoreg.py`:
+
+    memory = concat[ImageEncoder(image + saliency) + flag_0,
+                    ConstraintEncoder(constraint sequence) + flag_1]
+    logits = TokenDecoder(layout tokens | memory, causal)
+
+`AutoregGenerator` is the shell every AR generator shares: it turns a batch
+into a `Condition` (any task of `COND_TYPES`, or a multitask draw), encodes
+it, and runs the KV-cached constrained decode, or for `relation` the
+decode with retries (`ops/relation_decode.py`).  `RALFGenerator`
+(models/ralf.py) supplies its own core.
 """
 
 from __future__ import annotations
@@ -25,9 +32,11 @@ from ralf_tpu_torch.core.layout import Layout
 from ralf_tpu_torch.core.sampling import SamplingConfig
 from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer
 from ralf_tpu_torch.models.base import GeneratorConfig
-from ralf_tpu_torch.models.nn import TransformerEncoder
+from ralf_tpu_torch.models.nn import TokenDecoder, TransformerEncoder
 from ralf_tpu_torch.models.positional import PositionalEncoding1D
+from ralf_tpu_torch.models.resnet import ImageEncoder
 from ralf_tpu_torch.ops.decode_loop import ar_decode
+from ralf_tpu_torch.ops.relation_decode import build_relation_tensors, relation_aware_decode
 from ralf_tpu_torch.utils.device import resolve_device
 
 
@@ -45,13 +54,43 @@ class ConstraintEncoder(nn.Module):
         return self.TransformerEncoder_0(self.pos_emb(self.Embed_0(seq)), keep=keep)
 
 
+class AutoregCore(nn.Module):
+    """Image encoder + constraint encoder + two flag scalars + token decoder."""
+
+    def __init__(self, vocab_size: int, const_vocab_size: int,
+                 cfg: GeneratorConfig = GeneratorConfig()) -> None:
+        super().__init__()
+        d = cfg.d_model
+        self.encoder = ImageEncoder(cfg.backbone, d, cfg.nhead, cfg.num_encoder_layers,
+                                    cfg.dim_feedforward)
+        self.const_encoder = ConstraintEncoder(const_vocab_size, d, cfg.nhead,
+                                               cfg.num_encoder_layers, cfg.dim_feedforward)
+        self.flag_emb = nn.Parameter(torch.randn(2, 1) * 0.02)  # image rows / constraint rows
+        self.decoder = TokenDecoder(vocab_size, d, cfg.nhead, cfg.num_decoder_layers,
+                                    cfg.dim_feedforward)
+
+    def encode_memory(self, image: torch.Tensor, const_seq: torch.Tensor,
+                      const_keep: torch.Tensor) -> torch.Tensor:
+        """[B, H'W' + Lc, D]; the decoder attends every row, padded constraint
+        rows included, as the reference does."""
+        img_mem = self.encoder(image)
+        const_mem = self.const_encoder(const_seq, const_keep)
+        flag = self.flag_emb.to(img_mem.dtype)
+        return torch.cat([img_mem + flag[0], const_mem + flag[1]], dim=1)
+
+
 class AutoregGenerator:
-    """Host-side conditioning + the decode around a core module that has
-    `encode_memory` and a `decoder` (TokenDecoder).
+    """Host-side conditioning + the decode around a core module that has a
+    `decoder` (TokenDecoder); subclasses define `_build_core` and
+    `encode_memory` for their core.
 
     Weights are random from `seed` until `utils.weights.load_jax_params`
     fills `self.core`.  `device` defaults to the card and raises when there
     is none; pass device='cpu' for the plain path."""
+
+    # auxiliary_task='multitask' draws a task per batch with these weights
+    MULTITASK_CHOICES = ("uncond", "c", "cwh", "partial", "refinement", "relation")
+    MULTITASK_WEIGHTS = (1 / 12, 1 / 3, 1 / 3, 1 / 12, 1 / 3, 1 / 12)
 
     def __init__(self, tokenizer: LayoutSequenceTokenizer,
                  cfg: GeneratorConfig = GeneratorConfig(),
@@ -61,10 +100,12 @@ class AutoregGenerator:
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self.cfg = cfg
-        self.task = normalize_task(auxiliary_task)
+        self.multitask = auxiliary_task == "multitask"
+        self.task = normalize_task(None if self.multitask else auxiliary_task)
         self.vocab = ConstraintVocabulary(tokenizer)
-        self.vocab.const_len(self.task)  # raises for a task that is not ported
         self.image_hw = image_hw
+        # optional precomputed {str(id): clause list} table of the relations
+        self.relationships_table: Optional[dict] = None
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             core = self._build_core()
@@ -73,38 +114,66 @@ class AutoregGenerator:
         self.token_mask = torch.as_tensor(tokenizer.token_mask, device=self.device)
 
     def _build_core(self) -> nn.Module:
-        raise NotImplementedError
+        return AutoregCore(self.tokenizer.N_total, self.vocab.N_total, self.cfg)
 
+    def _image(self, cond: Condition) -> torch.Tensor:
+        image = cond.image
+        if not isinstance(image, torch.Tensor):
+            image = torch.from_numpy(np.asarray(image))
+        return image.to(self.device)
+
+    def _constraint(self, cond: Condition) -> tuple[torch.Tensor, torch.Tensor]:
+        return (torch.as_tensor(cond.const_seq, device=self.device).long(),
+                torch.as_tensor(cond.const_mask, device=self.device))
+
+    @torch.inference_mode()
     def encode_memory(self, cond: Condition) -> torch.Tensor:
-        raise NotImplementedError
+        return self.core.encode_memory(self._image(cond), *self._constraint(cond))
 
-    def build_condition(self, batch: dict, task: Optional[str] = None
-                        ) -> tuple[Condition, Layout]:
-        """batch: {'layout': Layout, 'image': [B, H, W, 4], optional 'id', 'retrieved'}."""
+    def build_condition(self, batch: dict, rng: np.random.Generator,
+                        task: Optional[str] = None) -> tuple[Condition, Layout]:
+        """batch: {'layout': Layout, 'image': [B, H, W, 4], optional 'id',
+        'retrieved'}; the numpy `rng` draws what the task samples."""
+        if task is None and self.multitask:
+            w = np.asarray(self.MULTITASK_WEIGHTS)
+            task = rng.choice(self.MULTITASK_CHOICES, p=w / w.sum())
         task = self.task if task is None else normalize_task(task)
-        cond, target = get_condition(batch["layout"], batch["image"], task,
-                                     ids=batch.get("id"), retrieved=batch.get("retrieved"))
-        cond.const_seq, cond.const_mask = build_constraint_sequence(cond, self.vocab)
+        cond, target = get_condition(batch["layout"], batch["image"], task, self.tokenizer, rng,
+                                     ids=batch.get("id"), retrieved=batch.get("retrieved"),
+                                     relationships=self.relationships_table)
+        cond.const_seq, cond.const_mask = build_constraint_sequence(cond, self.vocab, rng)
         return cond, target
 
     @torch.inference_mode()
     def decode(self, memory: torch.Tensor, forced, sampling: SamplingConfig,
                generator: Optional[torch.Generator] = None, kv_quant: bool = False,
-               self_quant: bool = False) -> torch.Tensor:
+               self_quant: bool = False, q8_mxu: bool = False) -> torch.Tensor:
         """The KV-cached constrained decode -> tokens [B, 5S] on the device."""
         tok = self.tokenizer
         return ar_decode(
             self.core.decoder, memory, None, self.token_mask,
             torch.as_tensor(np.asarray(forced), device=self.device),
             tok.max_token_length, tok.bos_id, tok.pad_id, sampling, generator,
-            kv_quant=kv_quant, self_quant=self_quant,
+            kv_quant=kv_quant, self_quant=self_quant, q8_mxu=q8_mxu,
         )
 
     def sample(self, cond: Condition, sampling: SamplingConfig,
                generator: Optional[torch.Generator] = None, return_tokens: bool = False,
-               kv_quant: bool = False, self_quant: bool = False):
+               use_backtrack: bool = True, max_retries: int = 8, kv_quant: bool = False,
+               self_quant: bool = False, q8_mxu: bool = False):
+        """Layouts (and tokens) for a condition; `relation` with backtracking
+        takes the decode with retries."""
         memory = self.encode_memory(cond)
         forced = build_forced_tokens(cond, self.tokenizer)
-        seq = self.decode(memory, forced, sampling, generator, kv_quant, self_quant)
+        if normalize_task(cond.task) == "relation" and use_backtrack:
+            seq = relation_aware_decode(
+                self.core.decoder, memory, self.tokenizer,
+                torch.as_tensor(forced, device=self.device),
+                build_relation_tensors(cond, self.tokenizer.max_seq_length),
+                sampling, generator, max_retries=max_retries, kv_quant=kv_quant,
+                self_quant=self_quant, q8_mxu=q8_mxu,
+            )
+        else:
+            seq = self.decode(memory, forced, sampling, generator, kv_quant, self_quant, q8_mxu)
         layout = self.tokenizer.decode(seq)
         return (layout, seq) if return_tokens else layout

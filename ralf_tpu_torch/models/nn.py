@@ -14,7 +14,13 @@ tensors):
   * `MultiHeadAttention.attend` -> K1 `ops.encoder_attention` for
     same-length self-attention with no bias or a key-padding bias;
   * `attend_shared` -> K2 `ops.decode_shared_attention`;
-  * `attend_shared_q8` -> K3 `ops.decode_shared_attention_q8`.
+  * `attend_shared_q8` -> K3 `ops.decode_shared_attention_q8`, or with
+    `q8_mxu` K4 `ops.decode_shared_attention_q8mxu`;
+  * `attend_t` with no bias -> K7 `ops.decode_attention` (the per-layer
+    cross K/V of `cross_kv(shared=False)`);
+  * `attend_t_any` over the int8 (k, v, k_scale, v_scale) caches -> K8
+    `ops.decode_attention_q8`.
+Each of them takes the bias-free case only; a bias takes the einsum path.
 """
 
 from __future__ import annotations
@@ -27,8 +33,12 @@ from torch import nn
 
 from ralf_tpu_torch.models.positional import PositionalEncoding1D, sincos_1d
 from ralf_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_q8,
     decode_shared_attention,
     decode_shared_attention_q8,
+    decode_shared_attention_q8mxu,
+    quantize_kv,
     quantize_shared_memory,
 )
 from ralf_tpu_torch.ops.encoder_attention import encoder_attention
@@ -80,6 +90,11 @@ class MultiHeadAttention(nn.Module):
         """[B, M, D] -> (k, v) each [B, M, H, Dh]."""
         return self._split(self.k_proj(kv_in)), self._split(self.v_proj(kv_in))
 
+    def project_kv_t(self, kv_in: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """[B, M, D] -> (k, v) each [B, H, Dh, M], the decode cache layout."""
+        k, v = self.project_kv(kv_in)
+        return k.permute(0, 2, 3, 1).contiguous(), v.permute(0, 2, 3, 1).contiguous()
+
     def _query(self, q_in: torch.Tensor) -> torch.Tensor:
         return self._split(self.q_proj(q_in))[:, 0]  # [B, H, Dh]
 
@@ -114,10 +129,11 @@ class MultiHeadAttention(nn.Module):
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Single query [B, 1, D] against [B, H, Dh, T] caches -> [B, 1, D]."""
         B = q_in.shape[0]
+        if bias is None:
+            out = decode_attention(self._query(q_in), k_t, v_t)
+            return self.out_proj(out.reshape(B, 1, self.d_model))
         q = self._query(q_in) * torch.tensor(self.head_dim, dtype=q_in.dtype) ** -0.5
-        logits = torch.einsum("bhd,bhdm->bhm", q.float(), k_t.float())
-        if bias is not None:
-            logits = logits + bias.float()
+        logits = torch.einsum("bhd,bhdm->bhm", q.float(), k_t.float()) + bias.float()
         probs = torch.softmax(logits, dim=-1).to(v_t.dtype)
         out = torch.einsum("bhm,bhdm->bhd", probs, v_t)
         return self.out_proj(out.reshape(B, 1, self.d_model))
@@ -153,12 +169,14 @@ class MultiHeadAttention(nn.Module):
         return self._apply_wv(ot)
 
     def attend_shared_q8(self, q_in: torch.Tensor, mem_i8: torch.Tensor,
-                         mem_scale: torch.Tensor,
-                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """attend_shared over int8 memory with per-token fp32 scales [B, M]."""
+                         mem_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                         q8_mxu: bool = False) -> torch.Tensor:
+        """attend_shared over int8 memory with per-token fp32 scales [B, M];
+        q8_mxu runs both contractions in int8 (K4) instead of K3."""
         qt = self._fold_query(q_in)
         if bias is None:
-            ot = decode_shared_attention_q8(qt, mem_i8, mem_scale)
+            kernel = decode_shared_attention_q8mxu if q8_mxu else decode_shared_attention_q8
+            ot = kernel(qt, mem_i8, mem_scale)
         else:
             memf = mem_i8.float() * mem_scale[:, :, None]
             scores = torch.einsum("bhe,bme->bhm", qt.float(), memf) + bias.float()
@@ -180,13 +198,21 @@ class MultiHeadAttention(nn.Module):
         out = torch.einsum("bhm,bhdm->bhd", probs.float(), v_i8.to(dt).float()).to(dt)
         return self.out_proj(out.reshape(B, 1, self.d_model))
 
-    def attend_t_any(self, q_in: torch.Tensor, cross,
-                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Cross-attention over the shared memory tensor or the int8
-        (mem_i8 [B, M, E], scale [B, M]) pair."""
+    def attend_t_any(self, q_in: torch.Tensor, cross, bias: Optional[torch.Tensor] = None,
+                     q8_mxu: bool = False) -> torch.Tensor:
+        """Cross-attention over the shared memory tensor, the int8 shared
+        (mem_i8 [B, M, E], scale [B, M]) pair, a per-layer (k_t, v_t) pair
+        [B, H, Dh, M], or the int8 per-layer (k_i8, v_i8, k_scale, v_scale)."""
         if isinstance(cross, torch.Tensor):
             return self.attend_shared(q_in, cross, bias)
-        return self.attend_shared_q8(q_in, cross[0], cross[1], bias)
+        if len(cross) == 2 and cross[0].dim() == 3:
+            return self.attend_shared_q8(q_in, cross[0], cross[1], bias, q8_mxu)
+        if len(cross) == 2:
+            return self.attend_t(q_in, cross[0], cross[1], bias)
+        if bias is not None:
+            raise ValueError("the int8 per-layer K/V path takes no bias")
+        out = decode_attention_q8(self._query(q_in), *cross)
+        return self.out_proj(out.reshape(q_in.shape[0], 1, self.d_model))
 
 
 class FeedForward(nn.Module):
@@ -267,24 +293,31 @@ class TransformerDecoderLayer(nn.Module):
         k, v = self.self_attn.project_kv(h)  # [B, 1, H, Dh]
         return k.permute(0, 2, 3, 1), v.permute(0, 2, 3, 1)  # [B, H, Dh, 1]
 
-    def _finish_step(self, x_t: torch.Tensor, cross,
-                     mem_bias: Optional[torch.Tensor]) -> torch.Tensor:
-        x_t = x_t + self.cross_attn.attend_t_any(self.norm2(x_t), cross, mem_bias)
+    def cross_kv(self, memory: torch.Tensor, kv_quant: bool = False):
+        """This layer's cross-attention K/V, projected once per sequence, as
+        (k_t, v_t) [B, H, Dh, M]; with kv_quant int8 with per-(B, H) scales."""
+        k, v = self.cross_attn.project_kv_t(memory)
+        return quantize_kv(k, v) if kv_quant else (k, v)
+
+    def _finish_step(self, x_t: torch.Tensor, cross, mem_bias: Optional[torch.Tensor],
+                     q8_mxu: bool) -> torch.Tensor:
+        x_t = x_t + self.cross_attn.attend_t_any(self.norm2(x_t), cross, mem_bias, q8_mxu)
         return x_t + self.ffn(self.norm3(x_t))
 
     def step(self, x_t: torch.Tensor, t: int, cache_k: torch.Tensor, cache_v: torch.Tensor,
-             self_bias_t: torch.Tensor, cross, mem_bias: Optional[torch.Tensor]) -> torch.Tensor:
+             self_bias_t: torch.Tensor, cross, mem_bias: Optional[torch.Tensor],
+             q8_mxu: bool = False) -> torch.Tensor:
         """One decode step; writes position t of the [B, H, Dh, T] caches in place."""
         h = self.norm1(x_t)
         k_t, v_t = self._new_kv(h)
         cache_k[..., t : t + 1] = k_t.to(cache_k.dtype)
         cache_v[..., t : t + 1] = v_t.to(cache_v.dtype)
         x_t = x_t + self.self_attn.attend_t(h, cache_k, cache_v, self_bias_t)
-        return self._finish_step(x_t, cross, mem_bias)
+        return self._finish_step(x_t, cross, mem_bias, q8_mxu)
 
     def step_q8(self, x_t: torch.Tensor, t: int, cache_k: torch.Tensor, cache_v: torch.Tensor,
                 cache_ks: torch.Tensor, cache_vs: torch.Tensor, self_bias_t: torch.Tensor,
-                cross, mem_bias: Optional[torch.Tensor]) -> torch.Tensor:
+                cross, mem_bias: Optional[torch.Tensor], q8_mxu: bool = False) -> torch.Tensor:
         """`step` over int8 per-token self caches: the new token's K/V are
         absmax-quantized over Dh as they are written."""
         h = self.norm1(x_t)
@@ -297,7 +330,7 @@ class TransformerDecoderLayer(nn.Module):
         cache_vs[..., t : t + 1] = vscale
         x_t = x_t + self.self_attn.attend_t_q8tok(h, cache_k, cache_v, cache_ks, cache_vs,
                                                   self_bias_t)
-        return self._finish_step(x_t, cross, mem_bias)
+        return self._finish_step(x_t, cross, mem_bias, q8_mxu)
 
 
 class TransformerDecoder(nn.Module):
@@ -341,24 +374,35 @@ class TransformerDecoder(nn.Module):
             cache["vs"] = [torch.zeros(sshape, device=device) for _ in range(n)]
         return cache
 
-    def cross_kv(self, memory: torch.Tensor, kv_quant: bool = False, dtype=None):
-        """The decode's cross-attention operand, shared by every layer: the
-        raw memory, or with kv_quant one int8 copy with per-token scales."""
-        if kv_quant:
+    def cross_kv(self, memory: torch.Tensor, kv_quant: bool = False, shared: bool = True,
+                 dtype=None):
+        """The decode's cross-attention operand.  shared (the default): the
+        raw memory, read by every layer, or with kv_quant one int8 copy with
+        per-token scales.  shared=False: a list of each layer's projected
+        K/V caches (`TransformerDecoderLayer.cross_kv`)."""
+        if shared and kv_quant:
             return quantize_shared_memory(memory)
-        return memory if dtype is None else memory.to(dtype)
+        if dtype is not None:
+            memory = memory.to(dtype)
+        if shared:
+            return memory
+        return [layer.cross_kv(memory, kv_quant) for layer in self.layers()]
 
     def step(self, x_t: torch.Tensor, t: int, cache: dict, cross,
-             self_keep: torch.Tensor, mem_keep: Optional[torch.Tensor]) -> torch.Tensor:
+             self_keep: torch.Tensor, mem_keep: Optional[torch.Tensor],
+             q8_mxu: bool = False) -> torch.Tensor:
+        """One decode step of every layer; `cross` is what `cross_kv` gave
+        (a per-layer list is indexed by layer)."""
         self_bias = keep_to_bias(self_keep)[:, None, :]  # [B, 1, T]
         mem_bias = None if mem_keep is None else keep_to_bias(mem_keep)[:, None, :]
         for i, layer in enumerate(self.layers()):
+            cross_i = cross[i] if isinstance(cross, list) else cross
             if "ks" in cache:  # int8 per-token self caches (self_quant)
                 x_t = layer.step_q8(x_t, t, cache["k"][i], cache["v"][i], cache["ks"][i],
-                                    cache["vs"][i], self_bias, cross, mem_bias)
+                                    cache["vs"][i], self_bias, cross_i, mem_bias, q8_mxu)
             else:
-                x_t = layer.step(x_t, t, cache["k"][i], cache["v"][i], self_bias, cross,
-                                 mem_bias)
+                x_t = layer.step(x_t, t, cache["k"][i], cache["v"][i], self_bias, cross_i,
+                                 mem_bias, q8_mxu)
         return x_t
 
 

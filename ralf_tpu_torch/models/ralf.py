@@ -119,8 +119,9 @@ class RALFCore(nn.Module):
 
 
 class RALFGenerator(AutoregGenerator):
-    """Generator wrapper for RALF: the autoreg conditioning and decode, plus
-    the retrieval arrays of every batch (retrieval/wrapper.py)."""
+    """Generator wrapper for RALF: the autoreg conditioning, decode and
+    sample under every task, plus the retrieval arrays of every batch
+    (retrieval/wrapper.py)."""
 
     def __init__(self, tokenizer: LayoutSequenceTokenizer,
                  cfg: GeneratorConfig = GeneratorConfig(),
@@ -169,12 +170,6 @@ class RALFGenerator(AutoregGenerator):
 
     @torch.inference_mode()
     def encode_memory(self, cond: Condition) -> torch.Tensor:
-        image = cond.image
-        if not isinstance(image, torch.Tensor):
-            image = torch.from_numpy(np.asarray(image))
-        return self.core.encode_memory(
-            image.to(self.device),
-            self._retrieved_arrays(cond.retrieved),
-            torch.as_tensor(cond.const_seq, device=self.device).long(),
-            torch.as_tensor(cond.const_mask, device=self.device),
-        )
+        """[B, 2M + K + Lc, D]: Lc, the constraint length, depends on the task."""
+        return self.core.encode_memory(self._image(cond), self._retrieved_arrays(cond.retrieved),
+                                       *self._constraint(cond))

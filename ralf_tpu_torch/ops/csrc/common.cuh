@@ -1,5 +1,5 @@
 // Shared helpers for the port's attention kernels: scalar conversions to and
-// from the fp32 compute type, and warp reductions.
+// from the fp32 compute type, and warp and block reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +25,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// x rounded to T and back: the rounding a TPU kernel applies with .astype(T)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -35,6 +39,28 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// Max / sum of x over the whole block (blockDim.x a multiple of 32, at most
+// 1024); every thread gets the result.  `red` is shared scratch of 32 floats.
+__device__ __forceinline__ float block_max(float x, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  x = warp_max(x);
+  __syncthreads();  // red may still be read from a previous reduction
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  x = lane < nwarps ? red[lane] : -INFINITY;
+  return warp_max(x);
+}
+
+__device__ __forceinline__ float block_sum(float x, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  x = warp_sum(x);
+  __syncthreads();
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  x = lane < nwarps ? red[lane] : 0.f;
+  return warp_sum(x);
 }
 
 }  // namespace ralf

@@ -32,8 +32,10 @@ def ar_decode(
     generator: Optional[torch.Generator] = None,
     kv_quant: bool = False,  # one int8 copy of the shared memory (K3 instead of K2)
     self_quant: bool = False,  # int8 per-token self-attention caches
+    q8_mxu: bool = False,  # with kv_quant: int8 contractions (K4 instead of K3)
 ) -> torch.Tensor:
-    """Sampled token sequences [B, L] (int64, BOS stripped)."""
+    """Sampled token sequences [B, L] (int64, BOS stripped).  q8_mxu has no
+    effect without kv_quant."""
     B, dev = memory.shape[0], memory.device
     dtype = decoder.emb.weight.dtype
     V = token_mask.shape[1]
@@ -50,7 +52,7 @@ def ar_decode(
         keep[:, t] = prev != pad_id  # a fed pad token is not attended
         self_keep = keep & (positions <= t)[None, :]
         x = decoder.embed_step(prev, t)
-        x = decoder.stack.step(x, t, cache, cross, self_keep, mem_keep)
+        x = decoder.stack.step(x, t, cache, cross, self_keep, mem_keep, q8_mxu)
         logits = decoder.head(x)[:, 0].float()  # [B, V]
         logits = torch.where(token_mask[t][None, :], logits, NEG_INF)
         f = forced[:, t]

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K3 against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels K1-K4, K7 and K8 against their plain PyTorch versions, on the card.
 
 The kernels have no CPU mode, so every test here needs a CUDA card and skips
 without one.  On a machine with a card (which need not have JAX):
@@ -9,11 +9,15 @@ without one.  On a machine with a card (which need not have JAX):
 does not use.)  Tolerances, kernel against plain version on the same inputs:
 float32 1e-5 + 1e-4*|ref| (both accumulate in fp32; the order of the sums
 differs), bfloat16 1e-3 + 2^-7*|ref| (one rounding of the bf16 output).
+K4 adds, per (batch, head) row, the row's probability scale ps: its int32
+sums are exact, but one rounding of p2 * 127 / ps that lands on the other
+integer moves an output by ps * |mem_i8| / 127 <= ps.
 """
 
 import pytest
 import torch
 
+from ralf_tpu_torch.models import nn as tnn
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
 
@@ -29,12 +33,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _close(out, ref, dtype):
+def _close(out, ref, dtype, extra=0.0):
     torch.cuda.synchronize()
     atol, rtol = TOL[dtype]
     assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
     err = (out.float() - ref.float()).abs()
-    assert bool((err <= atol + rtol * ref.float().abs()).all()), float(err.max())
+    assert bool((err <= atol + extra + rtol * ref.float().abs()).all()), float(err.max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -77,6 +81,49 @@ def test_decode_kernels_match_plain(dev, dtype, M):
         (n2 + 1, n3 + 1)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 31, 677, 680, 765])
+def test_q8mxu_kernel_matches_plain(dev, dtype, M):
+    g = torch.Generator(device=dev).manual_seed(M + 1)
+    qt = (torch.randn(6, 8, 256, generator=g, device=dev) / 16).to(dtype)
+    mi, ms = da.quantize_shared_memory(torch.randn(6, M, 256, generator=g, device=dev))
+    n = da.decode_shared_attention_q8mxu.launches
+    out = da.decode_shared_attention_q8mxu(qt, mi, ms)
+    assert da.decode_shared_attention_q8mxu.launches == n + 1
+    ps = da.q8mxu_probs(qt, mi, ms)[1]  # [B, H, 1]: one flipped probability per output
+    _close(out, da.decode_shared_attention_q8mxu_plain(qt, mi, ms), dtype, extra=ps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Dh,M", [(2, 8, 32, 1), (3, 8, 32, 677), (2, 4, 8, 300),
+                                      (1, 8, 32, 680)])
+def test_per_layer_decode_kernels_match_plain(dev, dtype, B, H, Dh, M):
+    g = torch.Generator(device=dev).manual_seed(M + 2)
+    q = torch.randn(B, H, Dh, generator=g, device=dev).to(dtype)
+    k_t, v_t = (torch.randn(B, H, Dh, M, generator=g, device=dev).to(dtype) for _ in range(2))
+    n7, n8 = da.decode_attention.launches, da.decode_attention_q8.launches
+    _close(da.decode_attention(q, k_t, v_t), da.decode_attention_plain(q, k_t, v_t), dtype)
+    cached = da.quantize_kv(k_t, v_t)
+    _close(da.decode_attention_q8(q, *cached), da.decode_attention_q8_plain(q, *cached), dtype)
+    assert (da.decode_attention.launches, da.decode_attention_q8.launches) == (n7 + 1, n8 + 1)
+
+
+def test_q8_mxu_switch_launches_k4(dev):
+    """attend_shared_q8 with q8_mxu on CUDA tensors goes through K4 and
+    nothing else; without it through K3."""
+    mha = tnn.MultiHeadAttention(256, 8).to(dev)
+    q_in = torch.randn(4, 1, 256, device=dev)
+    mi, ms = da.quantize_shared_memory(torch.randn(4, 50, 256, device=dev))
+    n3, n4 = da.decode_shared_attention_q8.launches, da.decode_shared_attention_q8mxu.launches
+    with torch.inference_mode():
+        mha.attend_shared_q8(q_in, mi, ms, q8_mxu=True)
+        assert (da.decode_shared_attention_q8.launches,
+                da.decode_shared_attention_q8mxu.launches) == (n3, n4 + 1)
+        mha.attend_shared_q8(q_in, mi, ms)
+    assert (da.decode_shared_attention_q8.launches,
+            da.decode_shared_attention_q8mxu.launches) == (n3 + 1, n4 + 1)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.randn(2, 8, 256, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -95,3 +142,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         da.decode_shared_attention_q8(q, mi, ms[:, :5].contiguous())
     with pytest.raises(ValueError):
         da.decode_shared_attention(q, mem.cpu())
+    with pytest.raises(ValueError):
+        da.decode_shared_attention_q8mxu(q, mi, ms[:, :5].contiguous())
+    qh = torch.randn(2, 8, 32, device=dev)
+    k_t = torch.randn(2, 8, 32, 10, device=dev)
+    with pytest.raises(TypeError):
+        da.decode_attention(qh, k_t.bfloat16(), k_t.bfloat16())
+    with pytest.raises(ValueError):
+        da.decode_attention(qh, k_t, k_t[..., :5].contiguous())
+    with pytest.raises(TypeError):
+        da.decode_attention_q8(qh, k_t, k_t, ms[:, :8].contiguous(), ms[:, :8].contiguous())

@@ -1,10 +1,12 @@
-"""The port's kernels K1-K3 against the JAX package's Pallas kernels.
+"""The port's kernels K1-K4, K7 and K8 against the JAX package's Pallas kernels.
 
 On the CPU each wrapper of `ralf_tpu_torch.ops` runs its plain PyTorch
 version; here that version is held against the Pallas kernel run with
-interpret=True on the same numpy inputs, in float32, to 1e-5.  The CUDA
-kernels themselves are held against the plain versions on the card by
-tests/test_torch_port_cuda.py and chip_smoke.py.
+interpret=True on the same numpy inputs, in float32, to 1e-5, and K2 and K3
+also in bfloat16 (where the TPU kernels round p before the second dot).
+The quantisers must agree exactly.  The CUDA kernels themselves are held
+against the plain versions on the card by tests/test_torch_port_cuda.py and
+chip_smoke.py.
 """
 
 import jax
@@ -14,8 +16,14 @@ import pytest
 import torch
 
 from ralf_tpu.ops.pallas.decode_attention import (
+    fused_decode_attention,
+    fused_decode_attention_q8,
     fused_decode_shared_attention,
     fused_decode_shared_attention_q8,
+    fused_decode_shared_attention_q8mxu,
+    q8mxu_reference,
+    quantize_kv as jax_quantize_kv,
+    quantize_q_tilde as jax_quantize_q,
     quantize_shared_memory as jax_quantize,
 )
 from ralf_tpu.ops.pallas.encoder_attention import fused_encoder_attention
@@ -99,6 +107,112 @@ def test_decode_shared_attention_q8_plain_matches_pallas(B, M):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+def _cancelling_pairs(seed, B=2, M=64, A=32.0):
+    """q_tilde sees only the first half of E; the second half of the memory
+    holds pairs of large tokens of opposite sign (+-A u) with similar p, which
+    cancel in the output, so that the rounding of p shows."""
+    rng = np.random.default_rng(seed)
+    half = 128
+    qt = np.zeros((B, 8, 256), np.float32)
+    qt[:, :, :half] = rng.normal(size=(B, 8, half)) * 0.05
+    mem = np.zeros((B, M, 256), np.float32)
+    mem[:, :, :half] = rng.normal(size=(B, M, half))
+    u = A * rng.normal(size=(B, M // 2, half))
+    mem[:, 0::2, half:], mem[:, 1::2, half:] = u, -u
+    return qt, mem
+
+
+BF16_TOL = dict(atol=1e-3, rtol=2**-7)  # one rounding of the bf16 output
+
+
+def _assert_bf16_close(out, ref, fp32_p_version):
+    """out within BF16_TOL of the Pallas kernel; the version that keeps p in
+    fp32 through the second dot is not (the check that the inputs test the
+    rounding of p at all)."""
+    ref = np.asarray(ref.astype(jnp.float32))
+    np.testing.assert_allclose(out.float().numpy(), ref, **BF16_TOL)
+    excess = np.abs(fp32_p_version.float().numpy() - ref) - (
+        BF16_TOL["atol"] + BF16_TOL["rtol"] * np.abs(ref))
+    assert excess.max() > 0.01
+
+
+def test_decode_shared_attention_bf16_rounds_p_as_pallas():
+    qt, mem = _cancelling_pairs(0)
+    tq, tm = torch.from_numpy(qt).bfloat16(), torch.from_numpy(mem).bfloat16()
+    ref = fused_decode_shared_attention(jnp.asarray(qt, jnp.bfloat16),
+                                        jnp.asarray(mem, jnp.bfloat16), interpret=True)
+    memf = tm.float()
+    p = torch.softmax(torch.einsum("bhe,bme->bhm", tq.float(), memf), -1)
+    fp32_p = torch.einsum("bhm,bme->bhe", p, memf).bfloat16()
+    _assert_bf16_close(da.decode_shared_attention(tq, tm), ref, fp32_p)
+
+
+def test_decode_shared_attention_q8_bf16_rounds_p_as_pallas():
+    qt, mem = _cancelling_pairs(0)
+    mi, ms = jax_quantize(jnp.asarray(mem))
+    tq = torch.from_numpy(qt).bfloat16()
+    tmi, tms = torch.from_numpy(np.asarray(mi)), torch.from_numpy(np.array(ms))
+    ref = fused_decode_shared_attention_q8(jnp.asarray(qt, jnp.bfloat16), mi, ms, interpret=True)
+    s = tms[:, None, :]
+    p = torch.softmax(torch.einsum("bhe,bme->bhm", tq.float(), tmi.float()) * s, -1)
+    fp32_p = torch.einsum("bhm,bme->bhe", p * s, tmi.float()).bfloat16()
+    _assert_bf16_close(da.decode_shared_attention_q8(tq, tmi, tms), ref, fp32_p)
+
+
+@pytest.mark.parametrize("B,M", [(3, 20), (2, 77)])
+def test_decode_shared_attention_q8mxu_plain_matches_pallas(B, M):
+    """K4's plain version (the port of q8mxu_reference) against the Pallas
+    kernel and the reference.  The int32 dot products are exact on both
+    sides; these inputs round no p2 * 127 / ps differently, so 1e-5 holds
+    (one such flip could move an output by up to ps)."""
+    rng = np.random.default_rng(M + 2)
+    qt = (rng.normal(size=(B, 8, 256)) / 16).astype(np.float32)
+    mem = rng.normal(size=(B, M, 256)).astype(np.float32)
+    mi, ms = jax_quantize(jnp.asarray(mem))
+    out = da.decode_shared_attention_q8mxu(
+        torch.from_numpy(qt), torch.from_numpy(np.asarray(mi)), torch.from_numpy(np.array(ms)))
+    for ref in (fused_decode_shared_attention_q8mxu(jnp.asarray(qt), mi, ms, interpret=True),
+                q8mxu_reference(jnp.asarray(qt), mi, ms)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("B,H,Dh,M", [(3, 4, 8, 20), (2, 8, 32, 77)])
+def test_decode_attention_plain_matches_pallas(B, H, Dh, M):
+    rng = np.random.default_rng(M + 3)
+    q = rng.normal(size=(B, H, Dh)).astype(np.float32)
+    k_t, v_t = (rng.normal(size=(B, H, Dh, M)).astype(np.float32) for _ in range(2))
+    ref = fused_decode_attention(*map(jnp.asarray, (q, k_t, v_t)), interpret=True)
+    out = da.decode_attention(*map(torch.from_numpy, (q, k_t, v_t)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("B,H,Dh,M", [(3, 4, 8, 20), (2, 8, 32, 77)])
+def test_decode_attention_q8_plain_matches_pallas(B, H, Dh, M):
+    rng = np.random.default_rng(M + 4)
+    q = rng.normal(size=(B, H, Dh)).astype(np.float32)
+    k_t, v_t = (rng.normal(size=(B, H, Dh, M)).astype(np.float32) for _ in range(2))
+    cached = jax_quantize_kv(jnp.asarray(k_t), jnp.asarray(v_t))
+    ref = fused_decode_attention_q8(jnp.asarray(q), *cached, interpret=True)
+    out = da.decode_attention_q8(torch.from_numpy(q), *(torch.from_numpy(np.array(a))
+                                                        for a in cached))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_quantize_kv_and_q_tilde_match_exactly():
+    rng = np.random.default_rng(6)
+    k_t, v_t = ((rng.normal(size=(3, 4, 8, 21)) * rng.uniform(0.01, 5, size=(3, 4, 1, 1)))
+                .astype(np.float32) for _ in range(2))
+    k_t[0, 0] = 0.0  # an all-zero head takes the 1e-8 floor
+    for t, j in zip(da.quantize_kv(torch.from_numpy(k_t), torch.from_numpy(v_t)),
+                    jax_quantize_kv(jnp.asarray(k_t), jnp.asarray(v_t))):
+        assert t.dtype == (torch.int8 if t.dim() == 4 else torch.float32)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    qt = (rng.normal(size=(3, 8, 256)) * rng.uniform(0.01, 5, size=(3, 8, 1))).astype(np.float32)
+    qt[1, 2] = 0.0
+    for t, j in zip(da.quantize_q_tilde(torch.from_numpy(qt)), jax_quantize_q(jnp.asarray(qt))):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
 def test_quantize_shared_memory_matches_exactly():
     rng = np.random.default_rng(3)
     mem = (rng.normal(size=(3, 41, 256)) * rng.uniform(0.01, 5, size=(3, 41, 1))).astype(np.float32)
@@ -116,17 +230,23 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     qt = torch.from_numpy((rng.normal(size=(2, 8, 256)) / 16).astype(np.float32))
     mem = torch.from_numpy(rng.normal(size=(2, 9, 256)).astype(np.float32))
     mi, ms = da.quantize_shared_memory(mem)
-    before = (ea.encoder_attention.launches, da.decode_shared_attention.launches,
-              da.decode_shared_attention_q8.launches)
-    torch.testing.assert_close(ea.encoder_attention(q, k, v, 2),
-                               ea.encoder_attention_plain(q, k, v, 2), rtol=0, atol=0)
-    torch.testing.assert_close(da.decode_shared_attention(qt, mem),
-                               da.decode_shared_attention_plain(qt, mem), rtol=0, atol=0)
-    torch.testing.assert_close(da.decode_shared_attention_q8(qt, mi, ms),
-                               da.decode_shared_attention_q8_plain(qt, mi, ms), rtol=0, atol=0)
-    after = (ea.encoder_attention.launches, da.decode_shared_attention.launches,
-             da.decode_shared_attention_q8.launches)
-    assert before == after == (0, 0, 0)
+    qh = torch.from_numpy(rng.normal(size=(2, 4, 8)).astype(np.float32))
+    k_t, v_t = (torch.from_numpy(rng.normal(size=(2, 4, 8, 9)).astype(np.float32))
+                for _ in range(2))
+    cached = da.quantize_kv(k_t, v_t)
+    counters = (ea.encoder_attention, da.decode_shared_attention, da.decode_shared_attention_q8,
+                da.decode_shared_attention_q8mxu, da.decode_attention, da.decode_attention_q8)
+    before = [c.launches for c in counters]
+    for kernel, plain, args in (
+        (ea.encoder_attention, ea.encoder_attention_plain, (q, k, v, 2)),
+        (da.decode_shared_attention, da.decode_shared_attention_plain, (qt, mem)),
+        (da.decode_shared_attention_q8, da.decode_shared_attention_q8_plain, (qt, mi, ms)),
+        (da.decode_shared_attention_q8mxu, da.decode_shared_attention_q8mxu_plain, (qt, mi, ms)),
+        (da.decode_attention, da.decode_attention_plain, (qh, k_t, v_t)),
+        (da.decode_attention_q8, da.decode_attention_q8_plain, (qh, *cached)),
+    ):
+        torch.testing.assert_close(kernel(*args), plain(*args), rtol=0, atol=0)
+    assert before == [c.launches for c in counters] == [0] * len(counters)
 
 
 def test_plain_versions_keep_the_input_dtype():
@@ -138,3 +258,8 @@ def test_plain_versions_keep_the_input_dtype():
     assert da.decode_shared_attention(qt, mem.bfloat16()).dtype == torch.bfloat16
     mi, ms = da.quantize_shared_memory(mem)
     assert da.decode_shared_attention_q8(qt, mi, ms).dtype == torch.bfloat16
+    assert da.decode_shared_attention_q8mxu(qt, mi, ms).dtype == torch.bfloat16
+    qh = torch.from_numpy(rng.normal(size=(2, 4, 8)).astype(np.float32)).bfloat16()
+    k_t = torch.from_numpy(rng.normal(size=(2, 4, 8, 9)).astype(np.float32)).bfloat16()
+    assert da.decode_attention(qh, k_t, k_t).dtype == torch.bfloat16
+    assert da.decode_attention_q8(qh, *da.quantize_kv(k_t, k_t)).dtype == torch.bfloat16

@@ -355,15 +355,14 @@ def test_uncond_conditioning_matches_jax():
     lay = _random_layout(np.random.default_rng(16), 4, 10)
     img = np.zeros((4, 8, 8, 4), np.float32)
     jc, _ = jcond.get_condition(_jlayout(lay), img, "uncond", jt, np.random.default_rng(0))
-    tc, _ = tcond.get_condition(TLayout.fromdict(lay), img, "uncond")
+    tc, _ = tcond.get_condition(TLayout.fromdict(lay), img, "uncond", tt, np.random.default_rng(0))
     js, jm = jcond.build_constraint_sequence(jc, jv, np.random.default_rng(0))
-    ts, tm = tcond.build_constraint_sequence(tc, tv)
+    ts, tm = tcond.build_constraint_sequence(tc, tv, np.random.default_rng(0))
     np.testing.assert_array_equal(ts, np.asarray(js))
     np.testing.assert_array_equal(tm, np.asarray(jm))
     np.testing.assert_array_equal(tcond.build_forced_tokens(tc, tt),
                                   np.asarray(jcond.build_forced_tokens(jc, jt)))
-    with pytest.raises(NotImplementedError):
-        tcond.get_condition(TLayout.fromdict(lay), img, "c")
+    assert tc.seq is None and (tcond.build_forced_tokens(tc, tt) == tcond.MASK_ID).all()
 
 
 @pytest.mark.parametrize("p", [0.5, 0.9, 0.99, 1.0])

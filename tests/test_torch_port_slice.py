@@ -103,7 +103,7 @@ def small_canvas(models):
     jfeats, jbatches = pipe["jax"]
     tfeats, tbatches = pipe["port"]
     jc, _ = jg.build_condition(jbatches[0], np.random.default_rng(0))
-    tc, _ = tg.build_condition(tbatches[0])
+    tc, _ = tg.build_condition(tbatches[0], np.random.default_rng(0))
     return dict(jfeats=jfeats, tfeats=tfeats, jcond=jc, tcond=tc,
                 jmem=np.asarray(jg.encode_memory(v, jc)), tmem=tg.encode_memory(tc))
 
@@ -154,7 +154,7 @@ def test_full_canvas_350x240_matches_jax(models):
     jt, tt, jg, v, tg = models
     pipe = _pipeline(models, (350, 240), batch=1, n_query=1, n_gallery=8)
     jc, _ = jg.build_condition(pipe["jax"][1][0], np.random.default_rng(0))
-    tc, _ = tg.build_condition(pipe["port"][1][0])
+    tc, _ = tg.build_condition(pipe["port"][1][0], np.random.default_rng(0))
     jmem, tmem = np.asarray(jg.encode_memory(v, jc)), tg.encode_memory(tc)
     assert tmem.shape == (1, 2 * 330 + TOP_K + 4, 32)
     np.testing.assert_allclose(tmem.numpy(), jmem, atol=MEM_TOL, rtol=MEM_TOL)
