@@ -7,15 +7,19 @@ Run from the repository root.  Phases, each of which must pass:
 
   1. device   the card's name and power limit; TF32 off for matmuls and convolutions
   2. build    nvcc builds every kernel of ralf_tpu_torch/ops/csrc (sm_90a), in parallel
-  3. kernels  each kernel (K1-K4, K7, K8) against its plain PyTorch version at the
-              paths' shapes, in bf16 and fp32, with its time beside the plain
-              version's, one PyTorch library call's and the least time the card
-              could take
+  3. kernels  each kernel (K1-K9) against its plain PyTorch version at the
+              paths' shapes, in bf16 and fp32 (K9 on the probe's int8 slab and
+              its views), with its time beside the plain version's, one
+              PyTorch library call's (for K5 and K6 an unfused sequence) and
+              the least time the card could take
   4. check    the full-width RALF in fp32 on the card against the same weights on
               the CPU (plain versions): gallery features, encode_memory, greedy
               tokens of every decode configuration (shared memory through K2, K3
               and K4; per-layer cross K/V through K7 and K8), and the per-layer
-              decode against the shared one (the same function)
+              decode against the shared one (the same function); then the same
+              model with the fused encoder (every MultiHeadAttention's
+              use_qkv_folded, K6, and FeedForward's use_pallas, K5): gallery
+              features, encode_memory and greedy tokens, card against CPU
   5. slice    the full-width RALF in bf16 answers requests of 128 canvases:
               3 in each of the two uncond configurations (the CLI default,
               bf16 shared memory through K2; the bench configuration,
@@ -24,10 +28,18 @@ Run from the repository root.  Phases, each of which must pass:
               (uncond, c, cwh, partial, refinement, relation with the retry
               decode, gt) with kv_quant + self_quant + q8_mxu (K4); one through
               the per-layer cross K/V (K7) and one with it in int8 (K8); then
-              the plain autoreg family answers one (K2).  Each is checked for
-              forced tokens, legal tokens and finite layouts, and its launch
-              counts are read around it
-  6. report   one JSON line of the kernels, the nvidia-smi line, and last
+              the plain autoreg family answers one (K2).  Then the fused
+              encoder: 3 CLI-default requests (and one profiled) with both
+              flags on every module (K6 for the 12 encoder self-attentions,
+              K5 for the image encoder's 6 FFNs; K1 none), one of the autoreg
+              family, and one full FIDNet forward over the gallery (K6 for its
+              4 + 4 post-LN layers).  Each is checked for forced tokens, legal
+              tokens and finite layouts, and its launch counts are read around it
+  6. stream   K9, the stream probe of scripts/probe_dma_rate.py: 9 distinct
+              [2048, 680, 256] int8 slabs (one to warm up, 8 timed) and their
+              int16, int32, bit-30-cleared f32 and bf16 views; GB/s per view
+              and its share of 3.35 TB/s, and distinct outputs
+  7. report   one JSON line of the kernels, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
 Every configuration is chosen here explicitly (q8_mxu is an argument of the
@@ -52,10 +64,12 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # dense tensor-core bf16 and int8; fp32 FMA off the tensor cores
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
-TOL = {"bfloat16": (1e-3, 2**-7), "float32": (1e-5, 1e-4)}  # (atol, rtol) kernel vs plain
+# (atol, rtol) kernel vs plain; K9's integer views add 1e-5 * sum|x| of the row
+TOL = {"bfloat16": (1e-3, 2**-7), "float32": (1e-5, 1e-4), "int8": (0.0, 0.0),
+       "int16": (0.0, 0.0), "int32": (0.0, 0.0)}
 AGREE = 0.99  # least share of equal greedy tokens, card against CPU (or K7 against K2)
 
-KERNELS = {  # name: (id, the TPU kernel it replaces, source)
+KERNELS = {  # name: (id, the TPU kernel it replaces, source), in the order of the ids
     "encoder_attention": ("K1", "ralf_tpu/ops/pallas/encoder_attention.py:213",
                           "ralf_tpu_torch/ops/csrc/encoder_attention.cu"),
     "decode_shared_attention": ("K2", "ralf_tpu/ops/pallas/decode_attention.py:115",
@@ -64,13 +78,28 @@ KERNELS = {  # name: (id, the TPU kernel it replaces, source)
                                    "ralf_tpu_torch/ops/csrc/decode_attention.cu"),
     "decode_shared_attention_q8mxu": ("K4", "ralf_tpu/ops/pallas/decode_attention.py:294",
                                       "ralf_tpu_torch/ops/csrc/decode_attention.cu"),
+    "fused_ffn": ("K5", "ralf_tpu/ops/pallas/encoder_ffn.py:118",
+                  "ralf_tpu_torch/ops/csrc/encoder_ffn.cu"),
+    "encoder_self_attention": ("K6", "ralf_tpu/ops/pallas/encoder_attention.py:283",
+                               "ralf_tpu_torch/ops/csrc/encoder_attention.cu"),
     "decode_attention": ("K7", "ralf_tpu/ops/pallas/decode_attention.py:46",
                          "ralf_tpu_torch/ops/csrc/decode_attention.cu"),
     "decode_attention_q8": ("K8", "ralf_tpu/ops/pallas/decode_attention.py:382",
                             "ralf_tpu_torch/ops/csrc/decode_attention.cu"),
+    "stream_sum": ("K9", "scripts/probe_dma_rate.py:46", "ralf_tpu_torch/ops/csrc/stream_sum.cu"),
 }
+LIBRARY = {  # what library_ms times: one PyTorch call, or for K5 and K6 an unfused sequence
+    "encoder_attention": "F.scaled_dot_product_attention",
+    "decode_shared_attention": "F.scaled_dot_product_attention",
+    "fused_ffn": "sequence: F.linear -> relu -> F.linear",
+    "encoder_self_attention": "sequence: F.linear to qkv -> F.scaled_dot_product_attention",
+    "decode_attention": "F.scaled_dot_product_attention on k_t.transpose(-1, -2)",
+    "stream_sum": "torch.sum(x, dims, dtype=torch.float32)",
+}
+MAIN_DTYPE = {"stream_sum": "int8"}  # the main path's case of each kernel; else bfloat16
 TASKS = ("uncond", "c", "cwh", "partial", "refinement", "relation", "gt")
 N_REQUESTS, BATCH, GALLERY, RETRIES = 3, 128, 256, 8
+STREAM_SHAPE, STREAM_SLABS = (2048, 680, 256), 9  # scripts/probe_dma_rate.py main()
 
 
 class Failures(list):
@@ -107,10 +136,23 @@ def counters():
     """The launch counter of every kernel wrapper, by kernel id."""
     from ralf_tpu_torch.ops import decode_attention as da
     from ralf_tpu_torch.ops import encoder_attention as ea
+    from ralf_tpu_torch.ops import encoder_ffn as ef
+    from ralf_tpu_torch.ops import stream_sum as ss
 
-    fns = {"encoder_attention": ea.encoder_attention}
-    fns.update((n, getattr(da, n)) for n in KERNELS if n != "encoder_attention")
-    return {KERNELS[n][0]: fn for n, fn in fns.items()}
+    return {kid: next(getattr(m, n) for m in (ea, ef, da, ss) if hasattr(m, n))
+            for n, (kid, _, _) in KERNELS.items()}
+
+
+def set_fused_encoder(module, on: bool) -> None:
+    """The fused encoder: K6 for every self-attention, K5 for every FFN with
+    S >= 16 (the JAX modules' use_qkv_folded and use_pallas fields)."""
+    from ralf_tpu_torch.models.nn import FeedForward, MultiHeadAttention
+
+    for m in module.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.use_qkv_folded = on
+        elif isinstance(m, FeedForward):
+            m.use_pallas = on
 
 
 def kernel_cases(torch, dev):
@@ -120,6 +162,8 @@ def kernel_cases(torch, dev):
 
     from ralf_tpu_torch.ops import decode_attention as da
     from ralf_tpu_torch.ops import encoder_attention as ea
+    from ralf_tpu_torch.ops import encoder_ffn as ef
+    from ralf_tpu_torch.ops import stream_sum as ss
 
     g = torch.Generator(device=dev).manual_seed(0)
     cases = []
@@ -196,12 +240,95 @@ def kernel_cases(torch, dev):
                 None, 2 * B * H * Dh * M + 8 * B * H + B * H * Dh * 2 * isz, 4 * B * H * Dh * M,
                 "float32", 0.0,
             ))
+        # K5 at the image encoder's FFN, then the constraint encoder's longest (relation)
+        for B, S in ((128, 330), (128, 89)):
+            E, Fh = 256, 1024
+            x = torch.randn(B, S, E, generator=g, device=dev).to(dtype)
+            w1 = (torch.randn(Fh, E, generator=g, device=dev) * E**-0.5).to(dtype)
+            w2 = (torch.randn(E, Fh, generator=g, device=dev) * Fh**-0.5).to(dtype)
+            b1, b2 = (torch.randn(n, generator=g, device=dev).to(dtype) for n in (Fh, E))
+            # the output rounds twice, T(T(o) + T(tail)): a flip of either moves
+            # it by rtol * |o| or rtol * |out|, and |o| <= |out| + |tail|
+            twice = TOL[dn][1] * (ef.fused_ffn_plain(x, w1, b1, w2, b2).float().abs()
+                                  + ef.ffn_tail(b1, w2, b2).abs())
+            cases.append((
+                "fused_ffn", f"B={B} S={S} E={E} F={Fh}", dn,
+                lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ef.fused_ffn(x, w1, b1, w2, b2),
+                lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ef.fused_ffn_plain(x, w1, b1, w2, b2),
+                lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: F.linear(F.relu(F.linear(x, w1, b1)),
+                                                                 w2, b2),
+                2 * B * S * E * isz + 2 * E * Fh * isz + Fh * isz + 4 * E, 4 * B * S * E * Fh,
+                dn, twice,
+            ))
+        # K6: the image encoder (per-head logits of bq), the constraint encoder
+        # with key padding, FIDNet (Dh=64) with every 3rd row fully masked
+        for B, S, H, keys in ((128, 330, 8, False), (128, 89, 8, True), (256, 11, 4, True)):
+            E, Dh = 256, 256 // H
+            x = torch.randn(B, S, E, generator=g, device=dev).to(dtype)
+            wqkv = torch.randn(3 * E, E, generator=g, device=dev) * E**-0.5
+            wqkv[:E] *= Dh**-0.5
+            wqkv = wqkv.to(dtype)
+            kb = torch.randn(B, H, S, generator=g, device=dev)
+            if keys:
+                keep = torch.rand(B, S, generator=g, device=dev) > 0.3
+                keep[::3] = False
+                kb = kb + torch.where(keep, 0.0, -1e9)[:, None, :]
+
+            def sdpa(x=x, wqkv=wqkv, kb=kb, H=H, Dh=Dh):
+                qkv = F.linear(x, wqkv).view(x.shape[0], x.shape[1], 3, H, Dh)
+                q, k, v = qkv.permute(2, 0, 3, 1, 4)
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=kb[:, :, None, :]
+                                                      .to(x.dtype), scale=1.0)
+
+            # bf16: q, k, v are rounded after fp32 sums in another order; one
+            # flipped rounding of a p or a v moves an output by <= 2^-8 max_j |v_j|
+            v_max = (x.float() @ wqkv[2 * E:].float().t()).abs().amax(dim=1, keepdim=True)
+            cases.append((
+                "encoder_self_attention", f"B={B} S={S} H={H} Dh={Dh} key_mask={keys}", dn,
+                lambda x=x, wqkv=wqkv, H=H, kb=kb: ea.encoder_self_attention(x, wqkv, H, kb),
+                lambda x=x, wqkv=wqkv, H=H, kb=kb: ea.encoder_self_attention_plain(x, wqkv, H, kb),
+                sdpa, 2 * B * S * E * isz + 3 * E * E * isz + 4 * B * H * S,
+                2 * B * S * E * 3 * E + 4 * B * S * S * E, dn,
+                2**-8 * v_max if dtype == torch.bfloat16 else 0.0,
+            ))
+    # K9 on one slab of the stream probe and its views (int8 first: the main row)
+    B = STREAM_SHAPE[0]
+    slab = torch.randint(-127, 128, STREAM_SHAPE, generator=g, device=dev, dtype=torch.int8)
+    for view in STREAM_VIEWS:
+        x = stream_view(torch, slab, view)
+        dims = tuple(range(1, x.dim()))
+        scale = x.float().abs().sum(dims)  # fp32 sums in another order: 1e-5 of sum|x|
+        cases.append((
+            "stream_sum", f"{list(x.shape)} {view}", view,
+            lambda x=x: ss.stream_sum(x), lambda x=x: ss.stream_sum_plain(x),
+            lambda x=x, dims=dims: torch.sum(x, dims, dtype=torch.float32),
+            x.numel() * x.element_size() + 4 * B, x.numel(), "float32",
+            0.0 if view == "int8" else 1e-5 * scale,
+        ))
     return cases
+
+
+STREAM_VIEWS = ("int8", "int16", "int32", "float32", "bfloat16")
+
+
+def stream_view(torch, slab, view: str):
+    """scripts/probe_dma_rate.py's views of one int8 slab [B, M, E]: itself,
+    int16 and int32 bitcasts, the f32 bitcast with bit 30 of every word
+    cleared (no NaN or Inf pattern), and a bf16 copy (twice the bytes)."""
+    if view == "float32":
+        return (slab.view(torch.int32) & ~(1 << 30)).view(torch.float32)
+    if view == "bfloat16":
+        return slab.bfloat16()
+    return slab.view(getattr(torch, view))
 
 
 def run_kernel_checks(torch, dev, fails: Failures) -> dict:
     """Check and time every case; returns the main-shape bf16 row of each kernel."""
     main_rows = {}
+    extra_names = {"decode_shared_attention_q8mxu": " + ps",
+                   "fused_ffn": " + rtol*(|ref| + |tail|)",
+                   "encoder_self_attention": " + 2^-8*max|v| in bf16",
+                   "stream_sum": " + 1e-5*sum|x|"}
     for name, label, dn, kern, plain, lib, nbytes, ops, op_type, extra in kernel_cases(torch, dev):
         out, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -212,16 +339,16 @@ def run_kernel_checks(torch, dev, fails: Failures) -> dict:
         row = {
             "max_abs_err": float(err.max()),
             "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "library_ms": None if lib is None else time_ms(lib),
+            "library_ms": None if lib is None else time_ms(lib), "library": LIBRARY.get(name),
         }
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops, op_type)
         fails.check(ok, f"{name} {label} {dn}: max_abs_err {row['max_abs_err']:.3e} "
-                        f"(tol {atol} + {rtol}*|ref|{' + ps' if name.endswith('q8mxu') else ''})")
+                        f"(tol {atol} + {rtol}*|ref|{extra_names.get(name, '')})")
         print(f"  {name} {label} {dn}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"library {row['library_ms']} ms, bound {row['bound_ms'] * 1e3:.2f} us "
-              f"({row['bound_by']})", flush=True)
-        if dn == "bfloat16" and name not in main_rows:
-            main_rows[name] = row  # the first bf16 case is the main path's shape
+              f"library {row['library_ms']} ms ({row['library']}), bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})", flush=True)
+        if dn == MAIN_DTYPE.get(name, "bfloat16") and name not in main_rows:
+            main_rows[name] = row  # the first case in its main dtype is the main path's shape
     return main_rows
 
 
@@ -327,6 +454,26 @@ def reference_check(torch, tok, fails: Failures) -> None:
     fails.check(l_err <= 1e-3 and same >= AGREE,
                 f"check: per-layer (K7) vs shared (K2) decode on the card: first-step logits "
                 f"max_abs_err {l_err:.3e} (tol 1e-3), greedy tokens {same:.4f} equal (least {AGREE})")
+
+    # the fused encoder on every module: K6 for every self-attention (FIDNet's
+    # too), K5 for the FFNs with S >= 16 (the image encoder's; task c's
+    # constraint encoder, Lc = 23)
+    fused_mems, fused_feats = {}, {}
+    for d, gen in gens.items():
+        set_fused_encoder(gen.core, True)
+        _, fused_feats[d], _ = build_gallery_and_batches(gen, d, 1, 2, 64, np.float32)
+        fused_mems[d] = gen.encode_memory(conds[d]).cpu()
+    f_err = float(np.abs(fused_feats["cuda"] - fused_feats["cpu"]).max())
+    fails.check(f_err < 1e-3, f"check: fused encoder, FIDNet gallery features card vs CPU "
+                              f"max_abs_err {f_err:.3e} (tol 1e-3)")
+    m_err = float((fused_mems["cuda"] - fused_mems["cpu"]).abs().max())
+    u_err = float((fused_mems["cuda"] - mems["cuda"]).abs().max())
+    fails.check(m_err < 1e-3, f"check: fused encoder, encode_memory card vs CPU max_abs_err "
+                              f"{m_err:.3e} (tol 1e-3; {u_err:.3e} from the unfused memory)")
+    toks = {d: gens[d].decode(fused_mems["cpu"].to(d), forced, greedy) for d in gens}
+    same = agreement(toks["cuda"], toks["cpu"])
+    fails.check(same >= AGREE, f"check: fused encoder, greedy tokens card vs CPU: {same:.4f} "
+                               f"equal (least {AGREE})")
     print(f"  check phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -345,7 +492,7 @@ def run_slice(torch, tok, fails: Failures) -> dict:
     gen = RALFGenerator(tok, cfg, "uncond", top_k=16, device="cuda", seed=0)
     count = counters()
     count["K1"].launches = 0
-    _, feats, batches = build_gallery_and_batches(gen, "cuda", N_REQUESTS, BATCH, GALLERY)
+    retriever, feats, batches = build_gallery_and_batches(gen, "cuda", N_REQUESTS, BATCH, GALLERY)
     fails.check(count["K1"].launches == 4 and feats.shape == (GALLERY, 256)
                 and bool(np.isfinite(feats).all()),
                 f"slice: gallery table {feats.shape} from {count['K1'].launches} "
@@ -379,9 +526,9 @@ def run_slice(torch, tok, fails: Failures) -> dict:
                     f"tokens legal={legal}, layouts decoded (finite={geo_ok}, "
                     f"{int(layout.mask.sum())} elements)")
 
-    # the two uncond configurations: encode and decode timed apart
-    for label, kvq, sq, cross in (("cli-default", False, False, "K2"),
-                                  ("bench", True, True, "K3")):
+    def uncond_requests(label, kvq, sq, expect):
+        """A warm-up, N_REQUESTS counted requests (encode and decode timed
+        apart) with distinct outputs, and one more under torch.profiler."""
 
         def request(batch, seed):
             cond, _ = gen.build_condition(batch, np.random.default_rng(seed))
@@ -402,13 +549,17 @@ def run_slice(torch, tok, fails: Failures) -> dict:
         for i, batch in enumerate(batches):
             (cond, mem, toks, layout, t_enc, t_dec), n = counted(lambda: request(batch, i))
             check_request(f"{label} request {i} (memory {tuple(mem.shape)})", cond, toks, layout,
-                          n, {"K1": 12, cross: 300})
-            print(f"  {label} request {i}: encode {t_enc * 1e3:.1f} ms, decode {t_dec * 1e3:.1f} ms, "
-                  f"{BATCH / (t_enc + t_dec):.1f} layouts/s", flush=True)
+                          n, expect)
+            print(f"  {label} request {i}: encode {t_enc * 1e3:.1f} ms, "
+                  f"decode {t_dec * 1e3:.1f} ms, {BATCH / (t_enc + t_dec):.1f} layouts/s", flush=True)
             outs.append(toks.cpu().numpy().tobytes())
         fails.check(len(set(outs)) == N_REQUESTS, f"slice {label}: the {N_REQUESTS} requests "
                                                   "give distinct outputs")
         profile_request(torch, label, lambda: request(batches[0], 7))
+
+    # the two uncond configurations
+    uncond_requests("cli-default", False, False, {"K1": 12, "K2": 300})
+    uncond_requests("bench", True, True, {"K1": 12, "K3": 300})
 
     # one request per task, kv_quant + self_quant + q8_mxu (K4), through sample()
     for i, task in enumerate(TASKS):
@@ -458,8 +609,86 @@ def run_slice(torch, tok, fails: Failures) -> dict:
 
     (cond, layout, toks), n = counted(autoreg)
     check_request("autoreg uncond", cond, toks, layout, n, {"K1": 12, "K2": 300})
+
+    # the fused encoder: K6 for the 6 + 6 self-attentions, K5 for the image
+    # encoder's 6 FFNs (the uncond constraint, Lc = 4, stays under S >= 16)
+    fused = {"K5": 6, "K6": 12, "K2": 300}
+    set_fused_encoder(gen.core, True)
+    uncond_requests("fused-encoder", False, False, fused)
+    set_fused_encoder(ar.core, True)
+    (cond, layout, toks), n = counted(autoreg)
+    check_request("fused-encoder autoreg uncond", cond, toks, layout, n, fused)
+
+    # FIDNet's full forward over the gallery: K6 for its 4 encoder and 4
+    # decoder layers (S = 11 and 10, Dh = 64; a layout with no element
+    # makes a fully masked decoder row)
+    from ralf_tpu_torch.core.layout import Layout
+    from ralf_tpu_torch.models.fidnet import FIDNetV3
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        fid = FIDNetV3(tok.N_label, max_bbox=tok.max_seq_length)
+    fid = fid.to(device="cuda", dtype=torch.bfloat16).eval()
+    set_fused_encoder(fid, True)
+    layouts = Layout.fromdict(retriever.layouts, device="cuda")
+
+    def fidnet():
+        with torch.inference_mode():
+            out = fid(layouts)
+        torch.cuda.synchronize()
+        return out
+
+    (disc, cls, box), n = counted(fidnet)
+    S = tok.max_seq_length
+    shapes = [tuple(t.shape) for t in (disc, cls, box)]
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (disc, cls, box))
+    want = {**dict.fromkeys(count, 0), "K6": 8}
+    fails.check(n == want and finite and shapes == [(GALLERY,), (GALLERY, S, tok.N_label),
+                                                    (GALLERY, S, 4)],
+                f"slice fused-encoder FIDNet forward over the gallery: launches {n} (want {want}), "
+                f"outputs {shapes}, finite={finite}, "
+                f"{int((~layouts.mask.any(1)).sum())} layouts with no element")
     print(f"  slice phase {time.perf_counter() - t0:.1f} s", flush=True)
     return totals
+
+
+def run_stream(torch, fails: Failures) -> int:
+    """K9 as scripts/probe_dma_rate.py runs it: per view of the slabs, one
+    call on a slab of its own to warm up, then 8 calls on 8 distinct slabs
+    between two CUDA events; returns K9's launches."""
+    from ralf_tpu_torch.ops import stream_sum as ss
+
+    t0 = time.perf_counter()
+    B, M, E = STREAM_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(1)
+    slabs = [torch.randint(-127, 128, STREAM_SHAPE, generator=g, device="cuda", dtype=torch.int8)
+             for _ in range(STREAM_SLABS)]
+    count = counters()
+    for c in count.values():
+        c.launches = 0
+    for view in STREAM_VIEWS:
+        xs = [stream_view(torch, s, view) for s in slabs]
+        nbytes = xs[0].numel() * xs[0].element_size()
+        ss.stream_sum(xs[0])
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        outs = [ss.stream_sum(x) for x in xs[1:]]
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b) / len(outs)
+        rate = nbytes / (ms * 1e-3)
+        distinct = len({o.cpu().numpy().tobytes() for o in outs}) == len(outs)
+        fails.check(distinct, f"stream {view} {list(xs[0].shape)}: {ms:.4f} ms/call, "
+                              f"{rate / 1e9:.1f} GB/s = {100 * rate / HBM_BYTES_PER_S:.1f}% of "
+                              f"3.35 TB/s ({nbytes / 1e6:.1f} MB per call); the "
+                              f"{len(outs)} outputs distinct={distinct}")
+        del xs, outs
+        torch.cuda.empty_cache()
+    n = {k: c.launches for k, c in count.items()}
+    want = {**dict.fromkeys(count, 0), "K9": 5 * STREAM_SLABS}
+    fails.check(n == want, f"stream: launches {n} (want {want})")
+    print(f"  stream phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return n["K9"]
 
 
 def profile_request(torch, label: str, run) -> None:
@@ -515,6 +744,7 @@ def main() -> int:
     tok = LayoutSequenceTokenizer(TokenizerConfig(num_labels=3, max_seq_length=10, num_bin=128))
     reference_check(torch, tok, fails)
     launches = run_slice(torch, tok, fails)
+    launches["K9"] += run_stream(torch, fails)
 
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[kid], **main_rows[n]} for n, (kid, rep, src) in KERNELS.items()]

@@ -13,6 +13,11 @@ Kernels on the sample path (each wrapper runs its plain version on CPU
 tensors):
   * `MultiHeadAttention.attend` -> K1 `ops.encoder_attention` for
     same-length self-attention with no bias or a key-padding bias;
+  * with `use_qkv_folded`, self-attention (`q_in is kv_in`) with no bias
+    or a key-padding bias -> K6 `ops.encoder_self_attention`, the
+    projections folded into the kernel (`_self_attend_folded`);
+  * `FeedForward` with `use_pallas`, on [B, S, E] with S >= 16 -> K5
+    `ops.fused_ffn`;
   * `attend_shared` -> K2 `ops.decode_shared_attention`;
   * `attend_shared_q8` -> K3 `ops.decode_shared_attention_q8`, or with
     `q8_mxu` K4 `ops.decode_shared_attention_q8mxu`;
@@ -21,6 +26,9 @@ tensors):
   * `attend_t_any` over the int8 (k, v, k_scale, v_scale) caches -> K8
     `ops.decode_attention_q8`.
 Each of them takes the bias-free case only; a bias takes the einsum path.
+`use_qkv_folded` and `use_pallas` are the JAX modules' fields of the same
+names and, as there, off by default: set them on a built model's modules to
+run its encoders through K6 and K5.  Decode steps (S = 1) never take them.
 """
 
 from __future__ import annotations
@@ -41,7 +49,8 @@ from ralf_tpu_torch.ops.decode_attention import (
     quantize_kv,
     quantize_shared_memory,
 )
-from ralf_tpu_torch.ops.encoder_attention import encoder_attention
+from ralf_tpu_torch.ops.encoder_attention import encoder_attention, encoder_self_attention
+from ralf_tpu_torch.ops.encoder_ffn import fused_ffn
 
 NEG_INF = -1e9
 LN_EPS = 1e-6  # flax LayerNorm's default epsilon (torch's is 1e-5)
@@ -71,12 +80,14 @@ def quantize_per_token(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class MultiHeadAttention(nn.Module):
-    """MHA with separable K/V projection for cache reuse."""
+    """MHA with separable K/V projection for cache reuse; `use_qkv_folded`
+    sends self-attention through K6."""
 
-    def __init__(self, d_model: int, nhead: int) -> None:
+    def __init__(self, d_model: int, nhead: int, use_qkv_folded: bool = False) -> None:
         super().__init__()
         assert d_model % nhead == 0
         self.d_model, self.nhead, self.head_dim = d_model, nhead, d_model // nhead
+        self.use_qkv_folded = use_qkv_folded
         self.q_proj = nn.Linear(d_model, d_model)
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
@@ -122,8 +133,35 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if q_in is kv_in and self.use_qkv_folded:
+            out = self._self_attend_folded(q_in, bias)
+            if out is not None:
+                return out
         k, v = self.project_kv(kv_in)
         return self.attend(q_in, k, v, bias)
+
+    def _self_attend_folded(self, x: torch.Tensor,
+                            bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """Self-attention through K6, x read once; None for a structured
+        bias (the caller then takes the unfolded path).  The projection
+        biases are recovered exactly outside the kernel, as in JAX: bk
+        cancels in the softmax; bq becomes the per-head per-key logit
+        t = x U with U[:, h] = Wk_h (bq s)_h (fp32), added to the key
+        bias; bv rides through sum(p) = 1 onto the output."""
+        key_bias = None
+        if bias is not None:
+            if not (bias.dim() == 4 and bias.shape[1] == 1 and bias.shape[2] == 1):
+                return None
+            key_bias = bias[:, 0, 0, :].float()
+        E, H, Dh = self.d_model, self.nhead, self.head_dim
+        s = Dh**-0.5
+        wqkv = torch.cat([self.q_proj.weight * s, self.k_proj.weight, self.v_proj.weight])
+        u = torch.einsum("hde,hd->eh", self.k_proj.weight.float().reshape(H, Dh, E),
+                         (self.q_proj.bias * s).float().reshape(H, Dh))
+        t = torch.einsum("bse,eh->bhs", x.float(), u)
+        key_bias = t if key_bias is None else key_bias.expand(x.shape[0], -1)[:, None, :] + t
+        out = encoder_self_attention(x, wqkv, H, key_bias.contiguous())
+        return self.out_proj(out + self.v_proj.bias.to(out.dtype))
 
     def attend_t(self, q_in: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -216,14 +254,19 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Linear -> ReLU -> Linear."""
+    """Linear -> ReLU -> Linear; `use_pallas` (the JAX field's name) sends
+    [B, S, E] inputs with S >= 16 through K5, under the JAX module's gate."""
 
-    def __init__(self, d_model: int, dim_feedforward: int) -> None:
+    def __init__(self, d_model: int, dim_feedforward: int, use_pallas: bool = False) -> None:
         super().__init__()
         self.Dense_0 = nn.Linear(d_model, dim_feedforward)
         self.Dense_1 = nn.Linear(dim_feedforward, d_model)
+        self.use_pallas = use_pallas
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_pallas and x.dim() == 3 and x.shape[1] >= 16:
+            return fused_ffn(x, self.Dense_0.weight, self.Dense_0.bias, self.Dense_1.weight,
+                             self.Dense_1.bias)
         return self.Dense_1(F.relu(self.Dense_0(x)))
 
 

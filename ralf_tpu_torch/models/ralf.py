@@ -84,7 +84,8 @@ class RALFCore(nn.Module):
         d = cfg.d_model
         self.encoder = ImageEncoder(cfg.backbone, d, cfg.nhead, cfg.num_encoder_layers,
                                     cfg.dim_feedforward)
-        self.layout_encoder = FIDNetV3(num_labels, 256, 4, 4, max_bbox=max_seq_length)
+        self.layout_encoder = FIDNetV3(num_labels, 256, 4, 4, max_bbox=max_seq_length,
+                                       aux_heads=False)
         self.layout_adapter = ViTFeedForward(256, 4 * d, d)
         self.pos_emb_1d = PositionalEncoding1D(d)
         self.attn = ViTCrossAttention(d, heads=8, dim_head=64)

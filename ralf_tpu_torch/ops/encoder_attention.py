@@ -1,16 +1,21 @@
-"""K1: fused bidirectional encoder self-attention (forward only).
+"""K1 and K6: fused bidirectional encoder self-attention (forward only).
 
-Counterpart of `ralf_tpu/ops/pallas/encoder_attention.py`
-(`fused_encoder_attention`).  `encoder_attention` launches the CUDA kernel
-of `csrc/encoder_attention.cu` on a CUDA tensor and runs
-`encoder_attention_plain` on a CPU tensor; there is no other fallback.
+Counterpart of `ralf_tpu/ops/pallas/encoder_attention.py`:
+`encoder_attention` (K1) of `fused_encoder_attention`, and
+`encoder_self_attention` (K6) of `fused_encoder_self_attention`, the same
+attention with the q/k/v projections folded into the kernel.  Each
+launches its CUDA kernel of `csrc/encoder_attention.cu` on CUDA tensors and
+runs its plain version on CPU tensors; there is no other fallback.
 
-Semantics shared by both: q, k, v are [B, S, E] with head h in columns
-h*Dh.., the softmax scale folded into q; `key_bias` [B, S] is the
-key-padding bias (0 kept, -1e9 masked, `models.nn.keep_to_bias`).  A batch
-row with no kept key attends uniformly over all S keys, as the TPU kernel
-does, instead of giving NaN.  Softmax and both contractions run in fp32;
-the output takes q's dtype.
+Semantics shared by both, those of the TPU kernels' `_attend_block`:
+q, k, v are [B, S, E] with head h in columns h*Dh.., the softmax scale
+folded into q.  A key bias becomes keep weights w = exp(bias) (K1: the
+[B, S] key-padding bias, 0 kept and -1e9 masked, `models.nn.keep_to_bias`;
+K6: [B, S] or per head [B, H, S], any real value); m is the max over the
+scores whose w > 0, p = exp(min(s - m, 0)) * w, normalised, and a row with
+no w > 0 attends uniformly over all S keys instead of giving NaN.  Both
+contractions accumulate in fp32; the normalised p is rounded to the input
+dtype before the second, and the output takes the input dtype.
 """
 
 from __future__ import annotations
@@ -28,34 +33,59 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ],
+    "ralf_encoder_self_attention": [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ],
 }
+K1_MAX_S = 1024  # a query tile's [32, S] fp32 score row in shared memory
+SMEM_PER_BLOCK = 232448  # the H100's 227 KB
+
+
+def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nhead: int,
+                 keep_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`_attend_block` in plain PyTorch: [B, S, E] -> [B, S, E]; keep_w
+    [B, 1 or H, S] fp32 (None: every key kept)."""
+    B, S, E = q.shape
+    Dh = E // nhead
+    qh, kh, vh = (t.float().reshape(B, S, nhead, Dh) for t in (q, k, v))
+    s = torch.einsum("bshd,bmhd->bhsm", qh, kh)
+    if keep_w is None:
+        keep_w = torch.ones((B, 1, S), dtype=torch.float32, device=q.device)
+    w = keep_w[:, :, None, :]  # [B, 1 or H, 1, S]
+    kept_any = w.amax(dim=-1, keepdim=True) > 0
+    s = torch.where(kept_any, s, 0.0)
+    m = torch.where(w > 0, s, -torch.inf).amax(dim=-1, keepdim=True)
+    m = torch.where(kept_any, m, 0.0)
+    p = torch.exp(torch.clamp(s - m, max=0.0)) * torch.where(kept_any, w, 1.0)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    p = p.to(v.dtype).float()
+    return torch.einsum("bhsm,bmhd->bshd", p, vh).reshape(B, S, E).to(q.dtype)
 
 
 def encoder_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nhead: int,
     key_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, [B, S, E] -> [B, S, E]."""
-    B, S, E = q.shape
-    Dh = E // nhead
-    qh = q.float().reshape(B, S, nhead, Dh)
-    kh = k.float().reshape(B, S, nhead, Dh)
-    vh = v.float().reshape(B, S, nhead, Dh)
-    logits = torch.einsum("bshd,bmhd->bhsm", qh, kh)
-    if key_bias is not None:
-        kb = key_bias.float()
-        dead = ~(torch.exp(kb) > 0).any(dim=-1)  # no key kept in the row
-        logits = logits + kb[:, None, None, :]
-        logits = torch.where(dead[:, None, None, None], torch.zeros_like(logits), logits)
-    p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhsm,bmhd->bshd", p, vh).reshape(B, S, E).to(q.dtype)
+    """Plain PyTorch version of K1, [B, S, E] -> [B, S, E]."""
+    keep_w = None if key_bias is None else torch.exp(key_bias.float())[:, None, :]
+    return attend_plain(q, k, v, nhead, keep_w)
+
+
+def _check_heads(what: str, B: int, S: int, E: int, nhead: int) -> None:
+    if E % nhead or E // nhead not in (32, 64):
+        raise ValueError(f"{what}: head width E/nhead must be 32 or 64, got {E}/{nhead}")
+    if not 1 <= B <= 65535 or S < 1:
+        raise ValueError(f"{what}: need 1 <= B <= 65535 and S >= 1, got B={B}, S={S}")
 
 
 def encoder_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nhead: int,
     key_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Multi-head softmax(q k^T + key_bias) v over [B, S, E] -> [B, S, E]."""
+    """K1: multi-head softmax(q k^T, keep weights exp(key_bias)) v over
+    [B, S, E] -> [B, S, E]."""
     if q.device.type == "cpu":
         return encoder_attention_plain(q, k, v, nhead, key_bias)
     what = "encoder_attention"
@@ -66,10 +96,9 @@ def encoder_attention(
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k, v must share one dtype")
     B, S, E = q.shape
-    if E % nhead or E // nhead not in (32, 64):
-        raise ValueError(f"{what}: head width E/nhead must be 32 or 64, got {E}/{nhead}")
-    if not 1 <= B <= 65535 or S < 1:
-        raise ValueError(f"{what}: need 1 <= B <= 65535 and S >= 1, got B={B}, S={S}")
+    _check_heads(what, B, S, E, nhead)
+    if S > K1_MAX_S:
+        raise ValueError(f"{what}: S={S} above {K1_MAX_S} (the score row lives in shared memory)")
     if key_bias is not None and (key_bias.dtype != torch.float32 or key_bias.shape != (B, S)):
         raise ValueError(f"{what}: key_bias must be float32 [B, S]")
     code = _build.dtype_code(q, what)
@@ -87,3 +116,70 @@ def encoder_attention(
 
 
 encoder_attention.launches = 0
+
+
+def encoder_self_attention_plain(
+    x: torch.Tensor, wqkv: torch.Tensor, nhead: int, key_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K6, [B, S, E] -> [B, S, E]."""
+    E = x.shape[-1]
+    qkv = (x.float() @ wqkv.float().t()).to(x.dtype)  # fp32 sums, rounded as the kernel does
+    keep_w = None
+    if key_bias is not None:
+        kb = key_bias.float()
+        keep_w = torch.exp(kb[:, None, :] if kb.dim() == 2 else kb)
+    return attend_plain(qkv[..., :E], qkv[..., E:2 * E], qkv[..., 2 * E:], nhead, keep_w)
+
+
+def self_attention_smem(S: int, Dh: int, itemsize: int) -> int:
+    """Shared memory of one K6 block (csrc/encoder_attention.cu k6_smem)."""
+    ld = Dh + 4 // itemsize
+    sq = -(-S // 32) * 32
+    return (sq + 2 * S) * ld * itemsize + S * 4 + max(32 * S, (32 + 3 * Dh) * 33) * 4
+
+
+def encoder_self_attention(
+    x: torch.Tensor, wqkv: torch.Tensor, nhead: int, key_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K6: bias-free self-attention with the projections in the kernel,
+    softmax((x Wq s)(x Wk)^T, keep weights exp(key_bias)) (x Wv), for x
+    [B, S, E] and wqkv [3E, E] = cat(q_proj.weight * s, k_proj.weight,
+    v_proj.weight) (nn.Linear's layout); key_bias fp32 [B, S] or per head
+    [B, H, S].  The projection biases are the caller's
+    (`models.nn.MultiHeadAttention._self_attend_folded`)."""
+    if x.device.type == "cpu":
+        return encoder_self_attention_plain(x, wqkv, nhead, key_bias)
+    what = "encoder_self_attention"
+    tensors = (x, wqkv) if key_bias is None else (x, wqkv, key_bias)
+    _build.require_cuda(what, *tensors)
+    if x.dim() != 3:
+        raise ValueError(f"{what}: x must be [B, S, E]")
+    B, S, E = x.shape
+    if wqkv.shape != (3 * E, E):
+        raise ValueError(f"{what}: wqkv must be [3E, E] = {(3 * E, E)}, got {tuple(wqkv.shape)}")
+    if wqkv.dtype != x.dtype:
+        raise TypeError(f"{what}: x and wqkv must share one dtype")
+    _check_heads(what, B, S, E, nhead)
+    if self_attention_smem(S, E // nhead, x.element_size()) > SMEM_PER_BLOCK:
+        raise ValueError(f"{what}: S={S} at head width {E // nhead} needs more than 227 KB "
+                         "of shared memory per block")
+    head_stride = 0
+    if key_bias is not None:
+        if key_bias.dtype != torch.float32 or key_bias.shape not in ((B, S), (B, nhead, S)):
+            raise ValueError(f"{what}: key_bias must be float32 [B, S] or [B, H, S]")
+        head_stride = S if key_bias.dim() == 3 else 0
+    code = _build.dtype_code(x, what)
+    lib = _build.library("encoder_attention", _SIGNATURES)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = lib.ralf_encoder_self_attention(
+            code, x.data_ptr(), wqkv.data_ptr(),
+            None if key_bias is None else key_bias.data_ptr(), head_stride, out.data_ptr(),
+            B, S, E, nhead, _build.stream_handle(),
+        )
+    _build.check_launch(rc, what)
+    encoder_self_attention.launches += 1
+    return out
+
+
+encoder_self_attention.launches = 0

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K4, K7 and K8 against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels K1-K9 against their plain PyTorch versions, on the card.
 
 The kernels have no CPU mode, so every test here needs a CUDA card and skips
 without one.  On a machine with a card (which need not have JAX):
@@ -11,7 +11,11 @@ float32 1e-5 + 1e-4*|ref| (both accumulate in fp32; the order of the sums
 differs), bfloat16 1e-3 + 2^-7*|ref| (one rounding of the bf16 output).
 K4 adds, per (batch, head) row, the row's probability scale ps: its int32
 sums are exact, but one rounding of p2 * 127 / ps that lands on the other
-integer moves an output by ps * |mem_i8| / 127 <= ps.
+integer moves an output by ps * |mem_i8| / 127 <= ps.  K9's row sums:
+1e-5 * sum|x| (fp32 sums in another order), exact for int8 data.  K5
+adds rtol * (|out| + |b1 W2 + b2|): its output rounds o before adding that
+tail, and then the sum.  K6 in bf16 adds 2^-8 * max_j |v_j|: its q, k, v
+are rounded after fp32 sums in another order than the plain version's.
 """
 
 import pytest
@@ -20,6 +24,8 @@ import torch
 from ralf_tpu_torch.models import nn as tnn
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
+from ralf_tpu_torch.ops import encoder_ffn as ef
+from ralf_tpu_torch.ops import stream_sum as ss
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 2**-7)}
@@ -63,6 +69,132 @@ def test_encoder_attention_kernel_matches_plain(dev, dtype, B, S, H, mask):
     out = ea.encoder_attention(q, k, v, H, bias)
     assert ea.encoder_attention.launches == n + 1
     _close(out, ea.encoder_attention_plain(q, k, v, H, bias), dtype)
+
+
+def test_encoder_attention_bf16_rounds_p(dev):
+    """K1 on keys in near-equal pairs whose values cancel (+-32 u): within
+    the bf16 tolerance of the plain version, which rounds the normalised p;
+    the version that keeps p in fp32 is not."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, S, E, H = 2, 64, 256, 8
+    q = torch.randn(B, S, E, generator=g, device=dev) * 0.5
+    k = torch.randn(B, S, E, generator=g, device=dev)
+    k[:, 1::2] = k[:, 0::2] + 0.05 * torch.randn(B, S // 2, E, generator=g, device=dev)
+    u = 32.0 * torch.randn(B, S // 2, E, generator=g, device=dev)
+    v = torch.stack([u, -u], dim=2).reshape(B, S, E)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    ref = ea.encoder_attention_plain(q, k, v, H)
+    _close(ea.encoder_attention(q, k, v, H), ref, torch.bfloat16)
+    qh, kh, vh = (t.float().reshape(B, S, H, E // H) for t in (q, k, v))
+    p = torch.softmax(torch.einsum("bshd,bmhd->bhsm", qh, kh), -1)
+    fp32_p = torch.einsum("bhsm,bmhd->bshd", p, vh).reshape(B, S, E)
+    atol, rtol = TOL[torch.bfloat16]
+    assert float(((fp32_p - ref.float()).abs() - atol - rtol * ref.float().abs()).max()) > 0.01
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,E,F", [
+    (2, 330, 256, 1024),  # image encoder
+    (3, 89, 256, 1024),   # constraint encoder, relation task
+    (1, 16, 256, 128),    # the gate's least S, a narrow F
+    (2, 37, 256, 192),    # a ragged last row tile
+])
+def test_fused_ffn_kernel_matches_plain(dev, dtype, B, S, E, F):
+    g = torch.Generator(device=dev).manual_seed(S)
+    x = torch.randn(B, S, E, generator=g, device=dev).to(dtype)
+    w1 = (torch.randn(F, E, generator=g, device=dev) * E**-0.5).to(dtype)
+    w2 = (torch.randn(E, F, generator=g, device=dev) * F**-0.5).to(dtype)
+    b1, b2 = (torch.randn(n, generator=g, device=dev).to(dtype) for n in (F, E))
+    n = ef.fused_ffn.launches
+    out = ef.fused_ffn(x, w1, b1, w2, b2)
+    assert ef.fused_ffn.launches == n + 1
+    # the output rounds twice, T(T(o) + T(tail)), as the TPU kernel and its
+    # caller do: a flip of either moves it by rtol * |o| or rtol * |out|,
+    # and |o| <= |out| + |tail|
+    ref = ef.fused_ffn_plain(x, w1, b1, w2, b2)
+    twice = TOL[dtype][1] * (ref.float().abs() + ef.ffn_tail(b1, w2, b2).abs())
+    _close(out, ref, dtype, extra=twice)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,bias", [
+    (2, 330, 8, "heads"),       # image encoder: per-head logits of bq
+    (3, 89, 8, "heads+keys"),   # constraint encoder with key padding
+    (6, 11, 4, "heads+keys"),   # FIDNet, Dh=64, every 3rd row fully masked
+    (1, 1, 8, None),            # a single token
+    (2, 97, 4, "keys"),         # a shared [B, S] bias, ragged tiles
+])
+def test_encoder_self_attention_kernel_matches_plain(dev, dtype, B, S, H, bias):
+    g = torch.Generator(device=dev).manual_seed(S + H)
+    E = 256
+    x = torch.randn(B, S, E, generator=g, device=dev).to(dtype)
+    wqkv = torch.randn(3 * E, E, generator=g, device=dev) * E**-0.5
+    wqkv[:E] *= (E // H) ** -0.5
+    wqkv = wqkv.to(dtype)
+    kb = None
+    if bias is not None:
+        keep = torch.rand(B, S, generator=g, device=dev) > 0.3
+        keep[::3] = False
+        pad = torch.where(keep, 0.0, -1e9) if "keys" in bias else torch.zeros(B, S, device=dev)
+        kb = pad[:, None, :] + torch.randn(B, H, S, generator=g, device=dev) if "heads" in bias \
+            else pad
+    n1, n6 = ea.encoder_attention.launches, ea.encoder_self_attention.launches
+    out = ea.encoder_self_attention(x, wqkv, H, kb)
+    assert (ea.encoder_attention.launches, ea.encoder_self_attention.launches) == (n1, n6 + 1)
+    # bf16: q, k, v are rounded after fp32 sums in another order; one flipped
+    # rounding of a p or a v moves an output by <= 2^-8 max_j |v_j|
+    v_max = (x.float() @ wqkv[2 * E:].float().t()).abs().amax(dim=1, keepdim=True)
+    extra = 2**-8 * v_max if dtype == torch.bfloat16 else 0.0
+    _close(out, ea.encoder_self_attention_plain(x, wqkv, H, kb), dtype, extra=extra)
+
+
+@pytest.mark.parametrize("view", ["int8", "int16", "int32", "float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 680, 256), (1, 16), (5, 7, 3)])
+def test_stream_sum_kernel_matches_plain(dev, view, shape):
+    g = torch.Generator(device=dev).manual_seed(len(shape))
+    slab = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    if view == "bfloat16":
+        x = slab.bfloat16()
+    elif view == "float32":  # bit 30 cleared: no NaN or Inf pattern
+        x = (slab.reshape(shape[0], -1)[:, : slab[0].numel() // 4 * 4].contiguous()
+             .view(torch.int32) & ~(1 << 30)).view(torch.float32)
+    elif view in ("int16", "int32"):
+        width = 2 if view == "int16" else 4
+        x = slab.reshape(shape[0], -1)[:, : slab[0].numel() // width * width].contiguous()
+        x = x.view(getattr(torch, view))
+    else:
+        x = slab
+    n = ss.stream_sum.launches
+    out = ss.stream_sum(x)
+    assert ss.stream_sum.launches == n + 1
+    torch.cuda.synchronize()
+    ref = ss.stream_sum_plain(x)
+    if view in ("int8", "bfloat16"):  # integer partial sums below 2^24: exact
+        assert torch.equal(out, ref)
+    else:
+        scale = x.double().abs().reshape(shape[0], -1).sum(1)
+        assert bool(((out.double() - ref.double()).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def test_fused_encoder_flags_launch_k5_and_k6(dev):
+    """use_qkv_folded sends self-attention through K6 (K1 untouched), a key
+    bias included; use_pallas sends the FFN through K5 at S >= 16 only."""
+    mha = tnn.MultiHeadAttention(256, 8, use_qkv_folded=True).to(dev)
+    ffn = tnn.FeedForward(256, 1024, use_pallas=True).to(dev)
+    x = torch.randn(4, 20, 256, device=dev)
+    keep = torch.ones(4, 20, dtype=torch.bool, device=dev)
+    keep[0, 5:] = False
+    n1, n5, n6 = (ea.encoder_attention.launches, ef.fused_ffn.launches,
+                  ea.encoder_self_attention.launches)
+    with torch.inference_mode():
+        out = mha(x, x, tnn.keep_to_bias(keep)[:, None, None, :])
+        assert (ea.encoder_attention.launches, ea.encoder_self_attention.launches) == (n1, n6 + 1)
+        mha.use_qkv_folded = False
+        _close(out, mha(x, x, tnn.keep_to_bias(keep)[:, None, None, :]), torch.float32,
+               extra=1e-4)  # the folded biases reassociate fp32 sums
+        ffn(x)
+        ffn(x[:, :8])
+    assert ef.fused_ffn.launches == n5 + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -152,3 +284,42 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         da.decode_attention(qh, k_t, k_t[..., :5].contiguous())
     with pytest.raises(TypeError):
         da.decode_attention_q8(qh, k_t, k_t, ms[:, :8].contiguous(), ms[:, :8].contiguous())
+    with pytest.raises(ValueError, match="above 1024"):
+        big = torch.randn(1, 1025, 256, device=dev)
+        ea.encoder_attention(big, big, big, 8)
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.randn(2, 20, 256, device=dev)
+    w1, w2 = torch.randn(1024, 256, device=dev), torch.randn(256, 1024, device=dev)
+    b1, b2 = torch.randn(1024, device=dev), torch.randn(256, device=dev)
+    with pytest.raises(ValueError, match="E must be"):
+        ef.fused_ffn(x[..., :96].contiguous(), w1[:, :96].contiguous(), b1,
+                     w2[:96].contiguous(), b2[:96].contiguous())
+    with pytest.raises(ValueError, match="E must be"):
+        ef.fused_ffn(x, w1[:100].contiguous(), b1[:100].contiguous(), w2[:, :100].contiguous(), b2)
+    with pytest.raises(TypeError):
+        ef.fused_ffn(x.bfloat16(), w1, b1, w2, b2)
+    with pytest.raises(TypeError):
+        ef.fused_ffn(x.half(), w1.half(), b1, w2.half(), b2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ef.fused_ffn(x, w2.t(), b1, w2, b2)
+    with pytest.raises(ValueError):
+        ef.fused_ffn(x, w1, b1, w2.cpu(), b2)
+    wqkv = torch.randn(768, 256, device=dev)
+    with pytest.raises(ValueError, match="wqkv"):
+        ea.encoder_self_attention(x, wqkv[:512].contiguous(), 8)
+    with pytest.raises(TypeError):
+        ea.encoder_self_attention(x, wqkv.bfloat16(), 8)
+    with pytest.raises(ValueError, match="head width"):
+        ea.encoder_self_attention(x, wqkv, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ea.encoder_self_attention(torch.randn(1, 600, 256, device=dev), wqkv, 8)
+    with pytest.raises(ValueError, match="key_bias"):
+        ea.encoder_self_attention(x, wqkv, 8, torch.zeros(2, 4, 20, device=dev))
+    with pytest.raises(ValueError, match="key_bias"):
+        ea.encoder_self_attention(x, wqkv, 8, torch.zeros(2, 20, device=dev).half())
+    with pytest.raises(TypeError):
+        ss.stream_sum(torch.zeros(4, 8, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.stream_sum(torch.zeros(8, 4, device=dev).t())

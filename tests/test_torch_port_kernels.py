@@ -1,10 +1,11 @@
-"""The port's kernels K1-K4, K7 and K8 against the JAX package's Pallas kernels.
+"""The port's kernels K1-K9 against the JAX package's Pallas kernels.
 
 On the CPU each wrapper of `ralf_tpu_torch.ops` runs its plain PyTorch
 version; here that version is held against the Pallas kernel run with
-interpret=True on the same numpy inputs, in float32, to 1e-5, and K2 and K3
-also in bfloat16 (where the TPU kernels round p before the second dot).
-The quantisers must agree exactly.  The CUDA kernels themselves are held
+interpret=True on the same numpy inputs, in float32, to 1e-5, and K1, K2,
+K3, K5 and K6 also in bfloat16 (where the TPU kernels round p, or K5's
+hidden g, before the second dot).  K9, a probe outside the package, is held
+against numpy's row sums.  The quantisers must agree exactly.  The CUDA kernels themselves are held
 against the plain versions on the card by tests/test_torch_port_cuda.py and
 chip_smoke.py.
 """
@@ -26,9 +27,15 @@ from ralf_tpu.ops.pallas.decode_attention import (
     quantize_q_tilde as jax_quantize_q,
     quantize_shared_memory as jax_quantize,
 )
-from ralf_tpu.ops.pallas.encoder_attention import fused_encoder_attention
+from ralf_tpu.ops.pallas.encoder_attention import (
+    fused_encoder_attention,
+    fused_encoder_self_attention,
+)
+from ralf_tpu.ops.pallas.encoder_ffn import fused_ffn as jax_fused_ffn
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
+from ralf_tpu_torch.ops import encoder_ffn as ef
+from ralf_tpu_torch.ops import stream_sum as ss
 
 torch.set_num_threads(2)
 TOL = dict(atol=1e-5, rtol=1e-5)  # fp32 on both sides; only the summation order differs
@@ -224,6 +231,123 @@ def test_quantize_shared_memory_matches_exactly():
     np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
 
 
+def test_encoder_attention_bf16_rounds_p_as_pallas():
+    """Keys in near-equal pairs whose values cancel (+-32 u): the rounding
+    of the normalised p shows in the output."""
+    rng = np.random.default_rng(0)
+    B, S, E, H = 2, 64, 256, 8
+    q = rng.normal(size=(B, S, E)).astype(np.float32) * 0.5
+    k = rng.normal(size=(B, S, E)).astype(np.float32)
+    k[:, 1::2] = k[:, 0::2] + 0.05 * rng.normal(size=(B, S // 2, E))
+    u = 32.0 * rng.normal(size=(B, S // 2, E))
+    v = np.zeros((B, S, E), np.float32)
+    v[:, 0::2], v[:, 1::2] = u, -u
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    ref = fused_encoder_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), H,
+                                  interpret=True)
+    qh, kh, vh = (t.float().reshape(B, S, H, E // H) for t in (tq, tk, tv))
+    p = torch.softmax(torch.einsum("bshd,bmhd->bhsm", qh, kh), -1)
+    fp32_p = torch.einsum("bhsm,bmhd->bshd", p, vh).reshape(B, S, E).bfloat16()
+    _assert_bf16_close(ea.encoder_attention(tq, tk, tv, H), ref, fp32_p)
+
+
+def _ffn_inputs(dtype_name, B=3, S=20, E=32, F=64):
+    """Weights and inputs on a coarse binary grid, so that h = x W1 is
+    exact in fp32 whatever the order of the sums.  In bf16 the hidden units
+    come in pairs f, f + F/2 with near-equal W1 rows, equal b1 and opposite
+    W2 columns (+-32): the outputs are differences of near-equal g, where
+    the rounding of g shows."""
+    rng = np.random.default_rng(7)
+    x = rng.integers(-8, 9, size=(B, S, E)) / 4.0
+    w1 = rng.integers(-8, 9, size=(F, E)) / 8.0
+    b1 = rng.integers(-16, 17, size=F) / 4.0
+    w2 = rng.integers(-8, 9, size=(E, F)) / 64.0
+    b2 = rng.integers(-8, 9, size=E) / 8.0
+    if dtype_name == "bfloat16":
+        half = F // 2
+        w1[half:] = w1[:half] + (rng.random((half, E)) < 0.1) * rng.integers(-2, 3, (half, E)) / 8
+        b1[half:] = b1[:half]
+        w2[:, :half] = rng.integers(-8, 9, size=(E, half)) * 4.0
+        w2[:, half:] = -w2[:, :half]
+    return [a.astype(np.float32) for a in (x, w1, b1, w2, b2)]
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_fused_ffn_plain_matches_pallas(dtype_name):
+    x, w1, b1, w2, b2 = _ffn_inputs(dtype_name)
+    jd, td = getattr(jnp, dtype_name), getattr(torch, dtype_name)
+    ref = jax_fused_ffn(jnp.asarray(x, jd), jnp.asarray(w1.T, jd), jnp.asarray(b1),
+                        jnp.asarray(w2.T, jd), jnp.asarray(b2), interpret=True)
+    tx, tw1, tb1, tw2, tb2 = (torch.from_numpy(a).to(td) for a in (x, w1, b1, w2, b2))
+    out = ef.fused_ffn(tx, tw1, tb1, tw2, tb2)
+    assert out.dtype == td
+    if dtype_name == "float32":
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+        return
+    # relu(x W1 + b1) W2 + b2 with g kept in fp32 agrees only in fp32
+    g = torch.relu(tx.float() @ tw1.float().t() + tb1.float())
+    unrounded_g = (g @ tw2.float().t() + tb2.float()).bfloat16()
+    _assert_bf16_close(out, ref, unrounded_g)
+
+
+def test_fused_ffn_bf16_with_fp32_biases_off_the_grid():
+    """bf16 x and weights with fp32 biases between two bf16 values, as the
+    JAX module passes its parameters: the kernel compares h with T(-b1)
+    (harmless, rounding is monotone: T(max(h, a)) = max(T(h), T(a))) and
+    the tail b1 W2 + b2 takes b1 as given, in fp32."""
+    x, w1, b1, w2, b2 = _ffn_inputs("float32")
+    b1 = b1 + 1.0 / 1024  # off the bf16 grid
+    ref = jax_fused_ffn(*(jnp.asarray(a, jnp.bfloat16) for a in (x, w1.T)), jnp.asarray(b1),
+                        jnp.asarray(w2.T, jnp.bfloat16), jnp.asarray(b2), interpret=True)
+    out = ef.fused_ffn_plain(*(torch.from_numpy(a).bfloat16() for a in (x, w1)),
+                             torch.from_numpy(b1), torch.from_numpy(w2).bfloat16(),
+                             torch.from_numpy(b2))
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Dh,S", [(4, 8, 12), (8, 32, 33), (4, 64, 11)])
+def test_encoder_self_attention_plain_matches_pallas(dtype_name, H, Dh, S):
+    """Per-head real-valued logits plus key padding, with one batch row
+    fully masked (uniform attention), at Dh 8, 32 and 64."""
+    rng = np.random.default_rng(S + Dh)
+    B, E = 4, H * Dh
+    x = rng.normal(size=(B, S, E)).astype(np.float32)
+    wqkv = (rng.normal(size=(3 * E, E)) * E**-0.5).astype(np.float32)
+    wqkv[:E] *= Dh**-0.5  # the softmax scale folded into Wq
+    keep = rng.random((B, S)) > 0.3
+    keep[:, 0] = True
+    keep[2] = False
+    bias = (rng.normal(size=(B, H, S)) + np.where(keep, 0.0, -1e9)[:, None, :]).astype(np.float32)
+    jd, td = getattr(jnp, dtype_name), getattr(torch, dtype_name)
+    for kb in (None, bias, bias[:, 0]):
+        ref = fused_encoder_self_attention(jnp.asarray(x, jd), jnp.asarray(wqkv.T, jd), H,
+                                           None if kb is None else jnp.asarray(kb),
+                                           interpret=True)
+        out = ea.encoder_self_attention(torch.from_numpy(x).to(td), torch.from_numpy(wqkv).to(td),
+                                        H, None if kb is None else torch.from_numpy(kb))
+        assert out.dtype == td
+        tol = TOL if dtype_name == "float32" else BF16_TOL
+        np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)), **tol)
+
+
+def test_stream_sum_plain_matches_numpy_on_every_view():
+    """The probe's views of one int8 slab: int16, int32, the f32 view with
+    bit 30 cleared (no NaN or Inf pattern), and the bf16 copy."""
+    rng = np.random.default_rng(8)
+    slab = rng.integers(-127, 128, size=(5, 6, 16)).astype(np.int8)
+    words = slab.view(np.int32) & np.int32(~(1 << 30))
+    views = [slab, slab.view(np.int16), slab.view(np.int32), words.view(np.float32)]
+    for a in views:
+        ref = a.astype(np.float64).reshape(5, -1).sum(1)
+        out = ss.stream_sum(torch.from_numpy(a))
+        assert out.dtype == torch.float32 and out.shape == (5,)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
+    bf = torch.from_numpy(slab).bfloat16()  # int8 values are exact in bf16
+    np.testing.assert_array_equal(ss.stream_sum(bf).numpy(), slab.reshape(5, -1).sum(1))
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     rng = np.random.default_rng(4)
     q, k, v = map(torch.from_numpy, _qkv(rng, 2, 5, 64, 2))
@@ -234,11 +358,20 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     k_t, v_t = (torch.from_numpy(rng.normal(size=(2, 4, 8, 9)).astype(np.float32))
                 for _ in range(2))
     cached = da.quantize_kv(k_t, v_t)
-    counters = (ea.encoder_attention, da.decode_shared_attention, da.decode_shared_attention_q8,
-                da.decode_shared_attention_q8mxu, da.decode_attention, da.decode_attention_q8)
+    x = q[..., :32].contiguous()
+    wqkv = torch.from_numpy(rng.normal(size=(96, 32)).astype(np.float32))
+    w1, w2 = (torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ((64, 32), (32, 64)))
+    b1, b2 = torch.zeros(64), torch.ones(32)
+    counters = (ea.encoder_attention, ea.encoder_self_attention, ef.fused_ffn,
+                da.decode_shared_attention, da.decode_shared_attention_q8,
+                da.decode_shared_attention_q8mxu, da.decode_attention, da.decode_attention_q8,
+                ss.stream_sum)
     before = [c.launches for c in counters]
     for kernel, plain, args in (
         (ea.encoder_attention, ea.encoder_attention_plain, (q, k, v, 2)),
+        (ea.encoder_self_attention, ea.encoder_self_attention_plain, (x, wqkv, 4)),
+        (ef.fused_ffn, ef.fused_ffn_plain, (x, w1, b1, w2, b2)),
+        (ss.stream_sum, ss.stream_sum_plain, (mi,)),
         (da.decode_shared_attention, da.decode_shared_attention_plain, (qt, mem)),
         (da.decode_shared_attention_q8, da.decode_shared_attention_q8_plain, (qt, mi, ms)),
         (da.decode_shared_attention_q8mxu, da.decode_shared_attention_q8mxu_plain, (qt, mi, ms)),
@@ -253,6 +386,11 @@ def test_plain_versions_keep_the_input_dtype():
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(rng, 2, 7, 64, 2))
     assert ea.encoder_attention(q, k, v, 2).dtype == torch.bfloat16
+    wqkv = torch.from_numpy(rng.normal(size=(192, 64)).astype(np.float32)).bfloat16()
+    assert ea.encoder_self_attention(q, wqkv, 2).dtype == torch.bfloat16
+    w1 = torch.from_numpy(rng.normal(size=(128, 64)).astype(np.float32)).bfloat16()
+    w2 = torch.from_numpy(rng.normal(size=(64, 128)).astype(np.float32)).bfloat16()
+    assert ef.fused_ffn(q, w1, w1[:, 0], w2, w2[:, 0]).dtype == torch.bfloat16
     qt = torch.from_numpy((rng.normal(size=(2, 8, 256)) / 16).astype(np.float32)).bfloat16()
     mem = torch.from_numpy(rng.normal(size=(2, 9, 256)).astype(np.float32))
     assert da.decode_shared_attention(qt, mem.bfloat16()).dtype == torch.bfloat16
