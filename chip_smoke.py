@@ -170,8 +170,11 @@ def kernel_cases(torch, dev):
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         isz = torch.tensor([], dtype=dtype).element_size()
+        # K1: image encoder, constraint encoder (task uncond; relation's S=89),
+        # FIDNet (Dh=64), and the largest S the wrapper takes (key tiles streamed)
         for B, S, H, masked in ((128, 330, 8, False), (1, 330, 8, False), (128, 4, 8, True),
-                                (256, 11, 4, True), (1, 11, 4, True)):
+                                (128, 89, 8, True), (256, 11, 4, True), (1, 11, 4, True),
+                                (16, 1024, 8, False)):
             E, Dh = 256, 256 // H
             q, k, v = (torch.randn(B, S, E, generator=g, device=dev) for _ in range(3))
             q = (q * Dh**-0.5).to(dtype)
@@ -191,7 +194,7 @@ def kernel_cases(torch, dev):
                 lambda q=q, k=k, v=v, H=H, bias=bias: ea.encoder_attention_plain(q, k, v, H, bias),
                 lib, 4 * B * S * E * isz + (4 * B * S if masked else 0), 4 * B * S * S * E, dn, 0.0,
             ))
-        for M in (680, 677):
+        for M in (680, 677, 4096):  # K2 also at the wrapper's largest M (slices streamed)
             B, H, E = 128, 8, 256
             qt = (torch.randn(B, H, E, generator=g, device=dev) / 16).to(dtype)
             memf = torch.randn(B, M, E, generator=g, device=dev)
@@ -204,6 +207,8 @@ def kernel_cases(torch, dev):
                     qt[:, None], mem[:, None], mem[:, None], scale=1.0),
                 B * M * E * isz + 2 * B * H * E * isz, 4 * B * H * M * E, dn, 0.0,
             ))
+            if M == 4096:
+                continue
             mi, ms = da.quantize_shared_memory(memf)
             cases.append((
                 "decode_shared_attention_q8", f"B={B} M={M}", dn,
@@ -693,8 +698,9 @@ def run_stream(torch, fails: Failures) -> int:
 
 def profile_request(torch, label: str, run) -> None:
     """One more request under torch.profiler: the summed CUDA kernel time
-    against the host wall time (the device's busy share), and the kernels
-    that take most of it.  For information; it checks nothing."""
+    against the host wall time (the device's busy share), the kernels
+    that take most of it, and the port's own kernels below those.  For
+    information; it checks nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -710,7 +716,8 @@ def profile_request(torch, label: str, run) -> None:
     busy = sum(r[0] for r in rows)
     print(f"  {label} profile: wall {wall_us / 1e3:.1f} ms, kernels {busy / 1e3:.1f} ms on the "
           f"device ({100 * busy / wall_us:.1f}% busy)", flush=True)
-    for us, n, key in sorted(rows, reverse=True)[:8]:
+    ranked = sorted(rows, reverse=True)
+    for us, n, key in ranked[:8] + [r for r in ranked[8:] if "ralf::" in r[2]]:
         print(f"    {us / 1e3:8.2f} ms {n:6d}x {key[:90]}", flush=True)
 
 

@@ -131,3 +131,11 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: all tensors must be on one CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def require_aligned(what: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels
+    that copy rows with 16-byte cp.async)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensors must start on a 16-byte boundary")

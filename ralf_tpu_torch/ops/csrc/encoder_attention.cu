@@ -25,19 +25,55 @@
 //
 // What bounds them on the H100, at the image encoder's shape (B=128, S=330,
 // E=256, bf16): K1 must move 4*B*S*E*2 = 86.5 MB (25.8 us at 3.35 TB/s)
-// against 4*B*S*S*E = 14.3 GFLOP (14.5 us at the bf16 tensor-core peak):
-// memory-bound.  K6 moves x and the output, 43.3 MB plus the per-head
-// biases, against 2*B*S*E*3E = 16.6 GFLOP of projection and the same 14.3
-// of attention (31.2 us): operation-bound.
+// against 4*B*S*S*E = 14.3 GFLOP (14.5 us at the bf16 tensor-core peak).
+// On the CUDA cores the same 14.3 GFLOP take 0.21 ms even at the 67 TFLOP/s
+// fp32 peak, so in bf16 both products run on the tensor cores.  What is
+// left is the B*H*S*S = 111.5 M scores: each takes a max, an expf (about
+// eight instructions, one on the SFU), a sum, the scaling by 1 / l and a
+// rounding, some ten times the instructions of its share of the mma, and
+// each row's max and sum cross warps through shared memory and barriers.
+// The ALU and the latency of those steps, not the bytes, bound it.  K6 moves
+// x and the output, 43.3 MB plus the per-head biases, against 2*B*S*E*3E =
+// 16.6 GFLOP of projection and the same 14.3 of attention (31.2 us):
+// operation-bound.
 //
-// Design (simple and right first; the contractions run on the CUDA cores,
-// not the tensor cores).  Because p is rounded after normalisation, a query
-// tile holds its whole [32, S] score row in shared memory (fp32; 132 KB at
+// K1 in bf16: both products on the tensor cores (mma.sync.m16n8k16, bf16
+// in, fp32 sums, ldmatrix from shared memory; K and V by 16-byte cp.async,
+// zero rows past S with keep weight 0).  Because p is rounded AFTER
+// normalisation, an online softmax alone cannot produce it:
+//   S <= 384 (every shape the model sends: 330, 4..89, 11): the score row
+//     in registers.  One block of 8 warps per (head, batch row), two blocks
+//     a SM, loads K_h and V_h into shared memory once.  Its 2 row groups of
+//     4 warps then walk the query tiles of 16 in turns, each at its own pace
+//     (a named barrier per group); the 4 warps of a group each take every
+//     4th chunk of 16 keys, so a row's scores fit in their registers.  The
+//     row max over kept keys and then the row sum go between the 4 warps
+//     through shared memory, so each score takes ONE expf and one Q K^T; p =
+//     T(exp(min(s - m, 0)) w / l) goes from the accumulator fragment into
+//     the A fragment of P V.  Variants timed on the card at B=128, S=330
+//     and dropped: one block of 16 warps a SM, and block-wide barriers, were
+//     slower; so was one warp holding all of a row's scores (192 registers
+//     a thread, 8 warps a SM); a fast exp barely helped.  The latency that
+//     16 warps a SM hide, not the arithmetic, decides.
+//   S > 384: recompute, two passes over K streamed in tiles of 64 (the
+//     registers cannot hold the row): pass A keeps each row's running max
+//     over kept keys and its rescaled sum, pass B recomputes the scores and
+//     forms p.
+// A row with no kept key takes s = m = 0, w = 1 for j < S and l = S: p =
+// T(1/S), the mean of V.  1 / l multiplies (within an ulp of the division
+// before rounding); expf stays (ex2.approx's few ulps flip roundings of p
+// that the cancelling-pairs card test shows).  In fp32 K1 keeps the
+// CUDA-core kernel below (encoder_attention_kernel<float, DH>): TF32 would
+// not be exact.
+//
+// K1 in fp32, and K6 (simple and right first; the contractions run on the
+// CUDA cores).  Because p is rounded after normalisation, a query tile
+// holds its whole [32, S] score row in shared memory (fp32; 132 KB at
 // S=1024, the most K1 takes): scores, then a warp per row turns them into
 // rounded probabilities, then the PV sums.
-//   K1: one block per (query tile of 32, head, batch row).  Pass 1 streams
-//   the head's keys through shared memory in tiles of 64 for the scores;
-//   pass 2 streams the values (again, mostly from L2).
+//   K1 fp32: one block per (query tile of 32, head, batch row).  Pass 1
+//   streams the head's keys through shared memory in tiles of 64 for the
+//   scores; pass 2 streams the values (again, mostly from L2).
 //   K6: one block per (head, batch row).  A block cannot hold a whole
 //   row's qkv [S, 3E] (507 KB in bf16 at S=330, against 227 KB of shared
 //   memory), so it splits by head: it projects q_h, k_h, v_h [S, Dh] of its
@@ -45,7 +81,10 @@
 //   of the head in [3*Dh, 32] tiles), then walks its query tiles over them.
 //   x is read once per head, 8 times at H=8, mostly from L2.
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace ralf {
 namespace {
@@ -219,6 +258,462 @@ __global__ void __launch_bounds__(kThreads) encoder_attention_kernel(
   store_rows<T, DH>(acc, out, row0, q0, S, E, col);
 }
 
+// ---- K1 in bf16 on the tensor cores (see the top of the file) ----
+
+// Row stride of a bf16 tile in shared memory, in elements: Dh + 8 makes it
+// an odd number of 16-byte units, so the 8 rows that one ldmatrix matrix
+// reads fall on distinct banks.
+template <int DH>
+__host__ __device__ constexpr int mma_ld() { return DH + 8; }
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// w_s[j] = exp(bias[j]) (1 without a bias) for j < S, 0 for S <= j < n;
+// returns true when no key of the row is kept, and then w_s[j] = 1 for j < S
+// (a dead row attends uniformly: s = m = 0, w = 1).  Ends in a barrier that
+// publishes all but the dead row's rewrite, which the caller's next barrier does.
+__device__ __forceinline__ bool mma_keep_weights(const float* bias, int S, int n, float* w_s) {
+  int kept = 0;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const float w = j >= S ? 0.f : bias == nullptr ? 1.f : expf(bias[j]);
+    w_s[j] = w;
+    kept |= w > 0.f;
+  }
+  const bool dead = !__syncthreads_or(kept);
+  if (dead) {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) w_s[j] = j < S ? 1.f : 0.f;
+  }
+  return dead;
+}
+
+// Rows r0 .. r0+n of one head (columns col ..) of src [rows of E] into dst
+// [n][ld] by 16-byte cp.async, issued by threads tid of nthreads; zeros for
+// rows at or past S.
+template <int DH>
+__device__ __forceinline__ void load_head_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                               size_t row0, int r0, int n, int S, int E, int col,
+                                               int tid, int nthreads) {
+  constexpr int kChunks = DH / 8;
+  for (int i = tid; i < n * kChunks; i += nthreads) {
+    const int r = i / kChunks, ch = i % kChunks;
+    const bool valid = r0 + r < S;
+    cp_async16(dst + r * mma_ld<DH>() + ch * 8,
+               src + (row0 + (valid ? r0 + r : 0)) * E + col + ch * 8, valid);
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void load_head_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                               size_t row0, int r0, int n, int S, int E, int col) {
+  load_head_rows<DH>(dst, src, row0, r0, n, S, E, col, threadIdx.x, blockDim.x);
+}
+
+// The Q fragments of the 16 rows at q (stride mma_ld): matrices rows 0-7 |
+// d 0-7 (a0), rows 8-15 | d 0-7 (a1), rows 0-7 | d 8-15, rows 8-15 | d 8-15.
+template <int DH>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[DH / 16][4], const __nv_bfloat16* q) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* row = q + ((lane & 7) + ((lane >> 3) & 1) * 8) * mma_ld<DH>() + (lane >> 4) * 8;
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) ldmatrix_x4(qa[ks], row + ks * 16);
+}
+
+// s[0], s[1] (n-tiles of keys 0-7 and 8-15) = Q K^T for one chunk of 16
+// keys at kt (stride mma_ld).
+template <int DH>
+__device__ __forceinline__ void chunk_scores(const uint32_t (&qa)[DH / 16][4],
+                                             const __nv_bfloat16* kt, float (&s0)[4], float (&s1)[4]) {
+  const int lane = threadIdx.x & 31;
+  s0[0] = s0[1] = s0[2] = s0[3] = s1[0] = s1[1] = s1[2] = s1[3] = 0.f;
+  // matrices: keys 0-7 | d 0-7, keys 0-7 | d 8-15, keys 8-15 | d 0-7, keys 8-15 | d 8-15
+  const __nv_bfloat16* row = kt + ((lane & 7) + (lane >> 4) * 8) * mma_ld<DH>() + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    uint32_t bk[4];
+    ldmatrix_x4(bk, row + ks * 16);
+    mma_bf16(s0, qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3], bk[0], bk[1]);
+    mma_bf16(s1, qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3], bk[2], bk[3]);
+  }
+}
+
+// o += T(p) V for one chunk of 16 keys at vt (stride mma_ld); p0, p1 are the
+// probabilities of n-tiles 0 and 1 in accumulator layout, rounded here.
+template <int DH>
+__device__ __forceinline__ void chunk_pv(const float (&p0)[4], const float (&p1)[4],
+                                         const __nv_bfloat16* vt, float (&o)[DH / 8][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t a0 = pack_bf16(p0[0], p0[1]), a1 = pack_bf16(p0[2], p0[3]);
+  const uint32_t a2 = pack_bf16(p1[0], p1[1]), a3 = pack_bf16(p1[2], p1[3]);
+  // matrices: keys 0-7 | d 0-7, keys 8-15 | d 0-7, keys 0-7 | d 8-15, keys 8-15 | d 8-15
+  const __nv_bfloat16* row = vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * mma_ld<DH>() + (lane >> 4) * 8;
+#pragma unroll
+  for (int dp = 0; dp < DH / 16; ++dp) {
+    uint32_t bv[4];
+    ldmatrix_x4_trans(bv, row + dp * 16);
+    mma_bf16(o[2 * dp], a0, a1, a2, a3, bv[0], bv[1]);
+    mma_bf16(o[2 * dp + 1], a0, a1, a2, a3, bv[2], bv[3]);
+  }
+}
+
+// The rows g and g + 8 of a warp's [16, DH] output, rounded, to out.
+template <int DH>
+__device__ __forceinline__ void store_frag_rows(const float (&o)[DH / 8][4], __nv_bfloat16* out,
+                                                size_t row0, int qr0, int S, int E, int col) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qr = qr0 + g + 8 * r;
+    if (qr >= S) continue;
+    __nv_bfloat16* dst = out + (row0 + qr) * E + col + 2 * c;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dst + n * 8) = pack_bf16(o[n][2 * r], o[n][2 * r + 1]);
+    }
+  }
+}
+
+// -- S <= 384: one pass, the scores in registers --
+//
+// One block per (head, batch row) loads K_h and V_h whole.  Then its 2 row
+// groups of 4 warps walk the query tiles of 16 in turns (group rg takes the
+// tiles rg, rg + 2, ...), each at its own pace: a group synchronises only
+// its own threads (named barrier 1 + rg) and keeps its next tile's Q in
+// flight behind the current one.  Warp (rg, ks) owns the chunks of 16 keys
+// ks, ks + 4, ...: its scores stay in registers (48 of them at S=384).  The
+// row max over kept keys and then the row sum go between the 4 warps of the
+// group through shared memory; each score takes one expf, p = T(e / l)
+// feeds the P V product from registers, and the 4 partial outputs of a row
+// are added through shared memory in a fixed order.
+constexpr int kRowGroups = 2;
+constexpr int kKeySplit = 4;
+constexpr int kGroupThreads = 32 * kKeySplit;
+constexpr int kRowsThreads = kGroupThreads * kRowGroups;
+constexpr int kRowsQ = 2 * 16 * kRowGroups;  // rows of Q in shared memory: two tiles a group
+constexpr int kRowsMaxS = 384;
+constexpr int kRowsChunks = kRowsMaxS / 16 / kKeySplit;  // chunks of 16 keys a warp holds
+template <int DH>
+__host__ __device__ constexpr int ox_ld() { return DH + 8; }  // 8 mod 32 words: float2 stores spread
+
+// Synchronises the threads of row group rg (barrier 0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int rg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "n"(kGroupThreads) : "memory");
+}
+
+template <int DH>
+size_t k1_rows_smem(int S) {
+  const size_t s16 = round16(S);
+  return (kRowsQ + 2 * s16) * mma_ld<DH>() * sizeof(__nv_bfloat16) +
+         (static_cast<size_t>(kRowGroups) * kKeySplit * 16 * ox_ld<DH>() + s16 +
+          2 * kRowGroups * kKeySplit * 16) * sizeof(float);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kRowsThreads, 2) encoder_attention_rows_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
+    __nv_bfloat16* __restrict__ out, int S, int E) {
+  constexpr int ld = mma_ld<DH>();
+  const int s16 = round16(S);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);   // [2 groups][2][16][ld]
+  __nv_bfloat16* k_s = q_s + kRowsQ * ld;                         // [s16][ld]
+  __nv_bfloat16* v_s = k_s + static_cast<size_t>(s16) * ld;       // [s16][ld]
+  float* o_x = reinterpret_cast<float*>(v_s + static_cast<size_t>(s16) * ld);  // [2][4][16][ox_ld]
+  float* w_s = o_x + kRowGroups * kKeySplit * 16 * ox_ld<DH>();   // [s16]
+  float* red_m = w_s + s16;                                       // [2][4][16]
+  float* red_l = red_m + kRowGroups * kKeySplit * 16;             // [2][4][16]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp / kKeySplit, ks = warp % kKeySplit;
+  const int tg = threadIdx.x - rg * kGroupThreads;  // thread of its row group
+  const int g = lane >> 2, c = lane & 3;
+  const size_t row0 = static_cast<size_t>(b) * S;
+  const int col = h * DH;
+  __nv_bfloat16* q_g = q_s + rg * 2 * 16 * ld;  // the group's two Q tiles
+
+  const bool dead = mma_keep_weights(key_bias == nullptr ? nullptr : key_bias + row0, S, s16, w_s);
+  if (!dead) load_head_rows<DH>(k_s, k, row0, 0, s16, S, E, col);
+  load_head_rows<DH>(v_s, v, row0, 0, s16, S, E, col);
+  load_head_rows<DH>(q_g, q, row0, rg * 16, 16, S, E, col, tg, kGroupThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // K, V, w and each group's first Q tile landed
+
+  float* my_m = red_m + (rg * kKeySplit + ks) * 16;
+  float* my_l = red_l + (rg * kKeySplit + ks) * 16;
+  const int tiles = (S + 15) / 16;
+  for (int t = rg, buf = 0; t < tiles; t += kRowGroups, buf ^= 1) {
+    const int q0 = t * 16;
+    if (t != rg) {
+      cp_async_wait<0>();
+      group_sync(rg);  // this tile's Q landed; the last tile's o_x, red_* are read
+    }
+    if (t + kRowGroups < tiles) {
+      load_head_rows<DH>(q_g + (buf ^ 1) * 16 * ld, q, row0, q0 + kRowGroups * 16, 16, S, E, col, tg,
+                         kGroupThreads);
+      cp_async_commit();
+    }
+    float s[2 * kRowsChunks][4];
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 2 * kRowsChunks; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    if (!dead) {
+      uint32_t qa[DH / 16][4];
+      load_q_frags<DH>(qa, q_g + buf * 16 * ld);
+#pragma unroll
+      for (int i = 0; i < kRowsChunks; ++i) {
+        const int key0 = (ks + kKeySplit * i) * 16;
+        if (key0 >= S) break;
+        chunk_scores<DH>(qa, k_s + key0 * ld, s[2 * i], s[2 * i + 1]);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (w_s[key0 + n * 8 + 2 * c + e] > 0.f) {
+              mt[0] = fmaxf(mt[0], s[2 * i + n][e]);
+              mt[1] = fmaxf(mt[1], s[2 * i + n][2 + e]);
+            }
+          }
+        }
+      }
+    }
+    mt[0] = quad_max(mt[0]);
+    mt[1] = quad_max(mt[1]);
+    if (c == 0) {
+      my_m[g] = mt[0];
+      my_m[g + 8] = mt[1];
+    }
+    group_sync(rg);
+    float m[2], l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -INFINITY;
+#pragma unroll
+      for (int kk = 0; kk < kKeySplit; ++kk) m[r] = fmaxf(m[r], red_m[(rg * kKeySplit + kk) * 16 + g + 8 * r]);
+      if (dead) m[r] = 0.f;  // and s = 0: e = w
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsChunks; ++i) {
+      const int key0 = (ks + kKeySplit * i) * 16;
+      if (key0 >= S) break;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float w = w_s[key0 + n * 8 + 2 * c + e];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float x = expf(fminf(s[2 * i + n][2 * r + e] - m[r], 0.f)) * w;
+            s[2 * i + n][2 * r + e] = x;
+            l[r] += x;
+          }
+        }
+      }
+    }
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+    if (c == 0) {
+      my_l[g] = l[0];
+      my_l[g + 8] = l[1];
+    }
+    group_sync(rg);
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKeySplit; ++kk) sum += red_l[(rg * kKeySplit + kk) * 16 + g + 8 * r];
+      inv[r] = 1.f / fmaxf(sum, 1e-30f);  // within an ulp of the division before rounding
+    }
+    float o[DH / 8][4];
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kRowsChunks; ++i) {
+      const int key0 = (ks + kKeySplit * i) * 16;
+      if (key0 >= S) break;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[2 * i + n][e] *= inv[e >> 1];
+      }
+      chunk_pv<DH>(s[2 * i], s[2 * i + 1], v_s + key0 * ld, o);
+    }
+    float* ox = o_x + ((rg * kKeySplit + ks) * 16 + g) * ox_ld<DH>() + 2 * c;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      *reinterpret_cast<float2*>(ox + n * 8) = make_float2(o[n][0], o[n][1]);
+      *reinterpret_cast<float2*>(ox + 8 * ox_ld<DH>() + n * 8) = make_float2(o[n][2], o[n][3]);
+    }
+    group_sync(rg);
+    // the 4 partials of each row, added in the order of ks, rounded and stored
+    for (int i = tg; i < 16 * DH / 2; i += kGroupThreads) {
+      const int rr = i / (DH / 2), cp = i % (DH / 2);
+      if (q0 + rr >= S) continue;
+      float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < kKeySplit; ++kk) {
+        const float2 x = *reinterpret_cast<const float2*>(
+            o_x + ((rg * kKeySplit + kk) * 16 + rr) * ox_ld<DH>() + 2 * cp);
+        acc.x += x.x;
+        acc.y += x.y;
+      }
+      *reinterpret_cast<uint32_t*>(out + (row0 + q0 + rr) * E + col + 2 * cp) = pack_bf16(acc.x, acc.y);
+    }
+  }
+}
+
+// -- S > 384: recompute, two passes over K streamed in tiles --
+//
+// One block of 8 warps per (query tile of 128, head, batch row); each warp
+// owns 16 query rows, their Q fragments in registers.  Key tiles of 64 take
+// turns in two slots of shared memory, the next in flight behind the current.
+//   pass A: per tile the scores, then per row the running max m over kept
+//     keys and the sum l of exp(s - m) w, rescaled when m grows (a tile with
+//     no kept key leaves m at -inf and rescales nothing: no exp(-inf + inf));
+//   pass B: the scores again, p = T(exp(min(s - m, 0)) w / l) into P V.
+constexpr int kRecWarps = 8;
+constexpr int kRecThreads = 32 * kRecWarps;
+constexpr int kRecQ = 16 * kRecWarps;  // queries a block
+constexpr int kRecK = 64;              // keys a tile
+
+template <int DH>
+size_t k1_rec_smem(int S) {
+  const int tiles = (S + kRecK - 1) / kRecK;
+  return (static_cast<size_t>(kRecQ) + 4 * kRecK) * mma_ld<DH>() * sizeof(__nv_bfloat16) +
+         static_cast<size_t>(tiles) * kRecK * sizeof(float);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kRecThreads) encoder_attention_rec_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
+    __nv_bfloat16* __restrict__ out, int S, int E) {
+  constexpr int ld = mma_ld<DH>();
+  constexpr int kN = kRecK / 8;  // n-tiles of a key tile
+  const int tiles = (S + kRecK - 1) / kRecK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRecQ][ld]
+  __nv_bfloat16* k_s = q_s + kRecQ * ld;                         // [2][kRecK][ld]
+  __nv_bfloat16* v_s = k_s + 2 * kRecK * ld;                     // [2][kRecK][ld]
+  float* w_s = reinterpret_cast<float*>(v_s + 2 * kRecK * ld);   // [tiles * kRecK]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRecQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = lane & 3;
+  const size_t row0 = static_cast<size_t>(b) * S;
+  const int col = h * DH;
+
+  const bool dead =
+      mma_keep_weights(key_bias == nullptr ? nullptr : key_bias + row0, S, tiles * kRecK, w_s);
+  // visits 0..tiles-1 are pass A (K), tiles..2*tiles-1 pass B (K and V), each
+  // into slot t % 2
+  const int visits = 2 * tiles;
+  auto issue = [&](int t) {
+    const int j = t % tiles, slot = t & 1;
+    if (!dead) load_head_rows<DH>(k_s + slot * kRecK * ld, k, row0, j * kRecK, kRecK, S, E, col);
+    if (t >= tiles) load_head_rows<DH>(v_s + slot * kRecK * ld, v, row0, j * kRecK, kRecK, S, E, col);
+  };
+  load_head_rows<DH>(q_s, q, row0, q0, kRecQ, S, E, col);
+  issue(0);
+  cp_async_commit();
+
+  const bool active = q0 + warp * 16 < S;  // a warp whose rows all lie past S only loads
+  uint32_t qa[DH / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int t = 0; t < visits; ++t) {
+    if (t + 1 < visits) issue(t + 1);
+    cp_async_commit();  // an empty group keeps the count of the wait below
+    cp_async_wait<1>();
+    __syncthreads();
+    const int key0 = (t % tiles) * kRecK;
+    const __nv_bfloat16* kt = k_s + (t & 1) * kRecK * ld;
+    const __nv_bfloat16* vt = v_s + (t & 1) * kRecK * ld;
+    if (t == 0) load_q_frags<DH>(qa, q_s + warp * 16 * ld);
+    if (t == tiles) {  // pass A is done: the row sums of the quad, and the dead row's m, l
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = 1.f / (dead ? static_cast<float>(S) : fmaxf(quad_sum(l[r]), 1e-30f));  // 1 / l
+        if (dead) m[r] = 0.f;
+      }
+    }
+    const bool pass_a = t < tiles;
+    if (active && !(pass_a && dead)) {
+      float s[kN][4];
+#pragma unroll
+      for (int n = 0; n < kN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kRecK / 16; ++kc) {
+        if (dead || key0 + kc * 16 >= S) break;  // past S: w = 0; dead: s = 0
+        chunk_scores<DH>(qa, kt + kc * 16 * ld, s[2 * kc], s[2 * kc + 1]);
+      }
+      const int nlim = min(kN, (S - key0 + 7) / 8);  // n-tiles that hold keys < S
+      if (pass_a) {
+        float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          if (n >= nlim) break;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (w_s[key0 + n * 8 + 2 * c + e] > 0.f) {
+              mt[0] = fmaxf(mt[0], s[n][e]);
+              mt[1] = fmaxf(mt[1], s[n][2 + e]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], quad_max(mt[r]));
+          if (m_new == -INFINITY) continue;  // no kept key yet: l stays 0
+          l[r] *= expf(m[r] - m_new);        // m[r] = -inf: l is 0 and exp gives 0, not NaN
+          m[r] = m_new;
+#pragma unroll
+          for (int n = 0; n < kN; ++n) {
+            if (n >= nlim) break;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              l[r] += expf(fminf(s[n][2 * r + e] - m_new, 0.f)) * w_s[key0 + n * 8 + 2 * c + e];
+            }
+          }
+        }
+      } else {
+        // l holds 1 / l here
+#pragma unroll
+        for (int kc = 0; kc < kRecK / 16; ++kc) {
+          if (key0 + kc * 16 >= S) break;
+#pragma unroll
+          for (int n = 2 * kc; n < 2 * kc + 2; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[n][e] = expf(fminf(s[n][e] - m[e >> 1], 0.f)) * w_s[key0 + n * 8 + 2 * c + (e & 1)] *
+                        l[e >> 1];
+            }
+          }
+          chunk_pv<DH>(s[2 * kc], s[2 * kc + 1], vt + kc * 16 * ld, o);
+        }
+      }
+    }
+    __syncthreads();  // the slot is consumed before visit t + 2 refills it
+  }
+  cp_async_wait<0>();
+  if (active) store_frag_rows<DH>(o, out, row0, q0 + warp * 16, S, E, col);
+}
+
 // K6 shared memory: q_s [Sq][ld] (Sq = S rounded up to kQT, zero rows past
 // S), k_s and v_s [S][ld], w_s [S], then one region that holds first the
 // projection's x tile [32][kKC + 1] and wqkv tile [3*DH][kKC + 1] (fp32) and
@@ -343,6 +838,40 @@ int launch_k1(const void* q, const void* k, const void* v, const float* key_bias
   return static_cast<int>(cudaGetLastError());
 }
 
+// allow_smem once per device and size: the attribute calls would otherwise
+// cost microseconds of host time on every launch.
+template <auto kKernel>
+int allow_smem_once(size_t smem) {
+  static size_t allowed[64] = {};  // per device, the largest size allowed so far
+  int dev = 0;
+  if (int err = cudaGetDevice(&dev)) return err;
+  if (dev < 64 && smem <= allowed[dev]) return 0;
+  if (int err = allow_smem(kKernel, smem)) return err;
+  if (dev < 64) allowed[dev] = smem;
+  return 0;
+}
+
+template <int DH>
+int launch_k1_mma(const void* q, const void* k, const void* v, const float* key_bias, void* out,
+                  int B, int S, int E, int nhead, cudaStream_t stream) {
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (S <= kRowsMaxS) {
+    const size_t smem = k1_rows_smem<DH>(S);
+    if (int err = allow_smem_once<encoder_attention_rows_kernel<DH>>(smem)) return err;
+    encoder_attention_rows_kernel<DH>
+        <<<dim3(nhead, B), kRowsThreads, smem, stream>>>(qb, kb, vb, key_bias, ob, S, E);
+  } else {
+    const size_t smem = k1_rec_smem<DH>(S);
+    if (int err = allow_smem_once<encoder_attention_rec_kernel<DH>>(smem)) return err;
+    encoder_attention_rec_kernel<DH><<<dim3((S + kRecQ - 1) / kRecQ, nhead, B), kRecThreads, smem,
+                                       stream>>>(qb, kb, vb, key_bias, ob, S, E);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DH>
 int launch_k6(const void* x, const void* wqkv, const float* key_bias, int bias_head_stride,
               void* out, int B, int S, int E, int nhead, cudaStream_t stream) {
@@ -355,12 +884,18 @@ int launch_k6(const void* x, const void* wqkv, const float* key_bias, int bias_h
   return static_cast<int>(cudaGetLastError());
 }
 
+// fp32 on the CUDA cores, bf16 on the tensor cores
 template <typename T>
 int dispatch_k1(const void* q, const void* k, const void* v, const float* key_bias, void* out,
                 int B, int S, int E, int nhead, cudaStream_t st) {
   const int dh = E / nhead;
-  if (dh == 32) return launch_k1<T, 32>(q, k, v, key_bias, out, B, S, E, nhead, st);
-  if (dh == 64) return launch_k1<T, 64>(q, k, v, key_bias, out, B, S, E, nhead, st);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (dh == 32) return launch_k1_mma<32>(q, k, v, key_bias, out, B, S, E, nhead, st);
+    if (dh == 64) return launch_k1_mma<64>(q, k, v, key_bias, out, B, S, E, nhead, st);
+  } else {
+    if (dh == 32) return launch_k1<T, 32>(q, k, v, key_bias, out, B, S, E, nhead, st);
+    if (dh == 64) return launch_k1<T, 64>(q, k, v, key_bias, out, B, S, E, nhead, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -189,6 +189,7 @@ def decode_shared_attention(q_tilde: torch.Tensor, mem: torch.Tensor) -> torch.T
     B, M = _check_shared(what, q_tilde, mem)
     if mem.dtype != q_tilde.dtype:
         raise TypeError(f"{what}: mem dtype {mem.dtype} != q_tilde dtype {q_tilde.dtype}")
+    _build.require_aligned(what, q_tilde, mem)
     code = _build.dtype_code(q_tilde, what)
     out = torch.empty_like(q_tilde)
     with torch.cuda.device(q_tilde.device):

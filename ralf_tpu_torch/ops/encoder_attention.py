@@ -102,6 +102,8 @@ def encoder_attention(
     if key_bias is not None and (key_bias.dtype != torch.float32 or key_bias.shape != (B, S)):
         raise ValueError(f"{what}: key_bias must be float32 [B, S]")
     code = _build.dtype_code(q, what)
+    if q.dtype == torch.bfloat16:
+        _build.require_aligned(what, q, k, v)
     lib = _build.library("encoder_attention", _SIGNATURES)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

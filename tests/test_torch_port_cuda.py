@@ -49,11 +49,17 @@ def _close(out, ref, dtype, extra=0.0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,mask", [
-    (2, 330, 8, False),  # image encoder
-    (3, 4, 8, True),     # constraint encoder
-    (5, 11, 4, True),    # FIDNet, Dh=64
-    (1, 1, 8, False),    # a single token
-    (2, 97, 4, True),    # ragged key and query tiles
+    (2, 330, 8, False),   # image encoder (K and V whole in shared memory)
+    (3, 4, 8, True),      # constraint encoder
+    (5, 11, 4, True),     # FIDNet, Dh=64
+    (1, 1, 8, False),     # a single token
+    (2, 97, 4, True),     # ragged key and query tiles
+    (2, 16, 8, False),    # one k-step of keys
+    (2, 64, 8, True),     # exactly one key tile
+    (3, 89, 8, True),     # the constraint encoder's longest, B=3
+    (1, 1024, 8, False),  # the largest S at Dh=32 (key tiles streamed)
+    (2, 1024, 4, True),   # the largest S at Dh=64
+    (2, 330, 4, False),   # Dh=64 past the resident size: streamed
 ])
 def test_encoder_attention_kernel_matches_plain(dev, dtype, B, S, H, mask):
     g = torch.Generator(device=dev).manual_seed(S)
@@ -69,6 +75,25 @@ def test_encoder_attention_kernel_matches_plain(dev, dtype, B, S, H, mask):
     out = ea.encoder_attention(q, k, v, H, bias)
     assert ea.encoder_attention.launches == n + 1
     _close(out, ea.encoder_attention_plain(q, k, v, H, bias), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [130, 330, 400])  # bf16: scores in registers to 384, then two passes
+def test_encoder_attention_first_key_tile_masked(dev, dtype, S):
+    """Every key of the first tile of 64 masked: in the two-pass route the
+    running max stays at -inf through that tile and must rescale nothing
+    (no exp(-inf + inf)); row 1 is fully masked and attends uniformly."""
+    g = torch.Generator(device=dev).manual_seed(S + 1)
+    B, H = 3, 8
+    q, k, v = (torch.randn(B, S, 256, generator=g, device=dev) for _ in range(3))
+    q, k, v = (q * 32**-0.5).to(dtype), k.to(dtype), v.to(dtype)
+    keep = torch.rand(B, S, generator=g, device=dev) > 0.3
+    keep[:, :64] = False
+    keep[1] = False
+    bias = torch.where(keep, 0.0, -1e9).float()
+    out = ea.encoder_attention(q, k, v, H, bias)
+    _close(out, ea.encoder_attention_plain(q, k, v, H, bias), dtype)
+    _close(out[1], v[1].float().mean(0).expand(S, -1).to(dtype), dtype)
 
 
 def test_encoder_attention_bf16_rounds_p(dev):
@@ -198,7 +223,7 @@ def test_fused_encoder_flags_launch_k5_and_k6(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M", [1, 31, 677, 680])
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 31, 677, 680, 4096])  # K2: empty, ragged, streamed slices
 def test_decode_kernels_match_plain(dev, dtype, M):
     g = torch.Generator(device=dev).manual_seed(M)
     qt = (torch.randn(6, 8, 256, generator=g, device=dev) / 16).to(dtype)
@@ -211,6 +236,31 @@ def test_decode_kernels_match_plain(dev, dtype, M):
     _close(out, da.decode_shared_attention_q8_plain(qt, mi, ms), dtype)
     assert (da.decode_shared_attention.launches, da.decode_shared_attention_q8.launches) == \
         (n2 + 1, n3 + 1)
+
+
+def test_decode_shared_attention_bf16_rounds_p_as_pallas(dev):
+    """Card twin of the CPU test of that name: q_tilde sees only the first
+    half of E, and the second half of the memory holds pairs of large tokens
+    of opposite sign (+-32 u) with similar p, which cancel in the output.
+    K2 stays within the bf16 tolerance of the plain version (held to Pallas
+    on the CPU), which rounds the normalised p; the version that keeps p in
+    fp32 misses by more than 0.01."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, M, half = 2, 64, 128
+    qt = torch.zeros(B, 8, 256, device=dev)
+    qt[:, :, :half] = torch.randn(B, 8, half, generator=g, device=dev) * 0.05
+    mem = torch.zeros(B, M, 256, device=dev)
+    mem[:, :, :half] = torch.randn(B, M, half, generator=g, device=dev)
+    u = 32.0 * torch.randn(B, M // 2, half, generator=g, device=dev)
+    mem[:, 0::2, half:], mem[:, 1::2, half:] = u, -u
+    qt, mem = qt.bfloat16(), mem.bfloat16()
+    ref = da.decode_shared_attention_plain(qt, mem)
+    _close(da.decode_shared_attention(qt, mem), ref, torch.bfloat16)
+    p = torch.softmax(torch.einsum("bhe,bme->bhm", qt.float(), mem.float()), -1)
+    fp32_p = torch.einsum("bhm,bme->bhe", p, mem.float()).bfloat16()
+    atol, rtol = TOL[torch.bfloat16]
+    excess = (fp32_p.float() - ref.float()).abs() - atol - rtol * ref.float().abs()
+    assert float(excess.max()) > 0.01
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,0 +1,202 @@
+"""The decompositions that the bf16 CUDA kernels of K1 and K2 follow, in plain torch.
+
+`csrc/encoder_attention.cu` and `csrc/decode_attention.cu` cannot run on the
+CPU, but the algebra of their tilings can.  Each function below writes one
+kernel's split of the work in plain torch, and each test holds it against the
+port's plain version (`encoder_attention_plain`, `decode_shared_attention_plain`)
+and against the JAX package's Pallas kernel in interpret mode, on the same
+numpy inputs, in float32 (to 1e-5: only the order of the sums differs) and
+bfloat16 (1e-3 + 2^-7*|ref|: one rounding of the output).
+
+K1 has two routes:
+  resident   (S <= 384) the keys split across 4 warps in chunks of 16, each
+             warp's partial max, then partial sum, combined in warp order;
+  recompute  (S > 384) key tiles of 64: pass A keeps a running max over kept
+             keys and the rescaled sum (a tile with no kept key rescales
+             nothing), pass B recomputes the scores and forms p.
+Both form p = T(exp(min(s - m, 0)) * w * (1 / l)), T the input dtype, and a
+row with no kept key attends uniformly (s = m = 0, w = 1, l = S).
+K2 splits the memory into C = 8 contiguous slices of ceil(M / 8) tokens (a
+slice may be empty), combines the slices' maxima and sums into the global m
+and l, and adds the slices' partial p . mem in slice order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ralf_tpu.ops.pallas.decode_attention import fused_decode_shared_attention
+from ralf_tpu.ops.pallas.encoder_attention import fused_encoder_attention
+from ralf_tpu_torch.ops import decode_attention as da
+from ralf_tpu_torch.ops import encoder_attention as ea
+
+torch.set_num_threads(2)
+TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=1e-3, rtol=2**-7)}
+K1_TILE = 64      # encoder_attention_rec_kernel: keys a tile
+K1_CHUNK = 16     # encoder_attention_rows_kernel: keys a chunk (one k-step of mma)
+K1_SPLIT = 4      # ... and warps that share a row group, chunk i to warp i % 4
+K2_CLUSTER = 8    # decode_shared_cluster_kernel: CTAs a batch row
+
+
+def _heads(t, nhead):
+    """[B, S, E] -> [B, H, S, Dh] in fp32."""
+    B, S, E = t.shape
+    return t.float().reshape(B, S, nhead, E // nhead).transpose(1, 2)
+
+
+def _keep_weights(key_bias, B, S, n):
+    """The kernels' w [B, n]: exp(bias) for j < S, 0 past S; a row with no
+    kept key takes w = 1 for j < S.  Also returns the dead rows [B]."""
+    w = torch.zeros(B, n)
+    w[:, :S] = 1.0 if key_bias is None else torch.exp(key_bias.float())
+    dead = ~(w > 0).any(-1)
+    live_cols = (torch.arange(n) < S).float().expand(B, n)
+    return torch.where(dead[:, None], live_cols, w), dead
+
+
+def _pad_keys(t, n):
+    """[B, H, S, Dh] -> [B, H, n, Dh], zero rows past S."""
+    return torch.nn.functional.pad(t, (0, 0, 0, n - t.shape[2]))
+
+
+def k1_recompute(q, k, v, nhead, key_bias=None, tile=K1_TILE):
+    """K1 over key tiles of `tile`, two passes over K."""
+    B, S, E = q.shape
+    n = -(-S // tile) * tile
+    qh = _heads(q, nhead)
+    kh, vh = (_pad_keys(_heads(t, nhead), n) for t in (k, v))
+    w, dead = _keep_weights(key_bias, B, S, n)
+    deadr = dead[:, None, None]
+    m = torch.full(qh.shape[:3], -torch.inf)
+    l = torch.zeros(qh.shape[:3])
+    for j0 in range(0, n, tile):  # pass A
+        s = qh @ kh[:, :, j0:j0 + tile].transpose(-1, -2)
+        wt = w[:, None, None, j0:j0 + tile]
+        m_new = torch.maximum(m, torch.where(wt > 0, s, -torch.inf).amax(-1))
+        live = m_new > -torch.inf  # no kept key yet: l stays 0, no exp(-inf + inf)
+        e = torch.exp(torch.clamp(s - m_new[..., None], max=0.0)) * wt
+        l = torch.where(live, l * torch.exp(m - m_new) + e.sum(-1), l)
+        m = m_new
+    m = torch.where(deadr, 0.0, m)
+    inv = 1.0 / torch.where(deadr, float(S), l.clamp_min(1e-30))
+    o = torch.zeros_like(qh)
+    for j0 in range(0, n, tile):  # pass B
+        s = torch.where(deadr[..., None], 0.0, qh @ kh[:, :, j0:j0 + tile].transpose(-1, -2))
+        p = torch.exp(torch.clamp(s - m[..., None], max=0.0)) * w[:, None, None, j0:j0 + tile]
+        p = (p * inv[..., None]).to(v.dtype).float()
+        o = o + p @ vh[:, :, j0:j0 + tile]
+    return o.transpose(1, 2).reshape(B, S, E).to(q.dtype)
+
+
+def k1_resident(q, k, v, nhead, key_bias=None, chunk=K1_CHUNK, split=K1_SPLIT):
+    """K1 with every score of a row held at once, the keys split `split`
+    ways in interleaved chunks of `chunk`: partial maxima, then partial sums,
+    then partial outputs, each combined in split order."""
+    B, S, E = q.shape
+    n = -(-S // chunk) * chunk
+    qh = _heads(q, nhead)
+    kh, vh = (_pad_keys(_heads(t, nhead), n) for t in (k, v))
+    w, dead = _keep_weights(key_bias, B, S, n)
+    deadr = dead[:, None, None]
+    s = torch.where(deadr[..., None], 0.0, qh @ kh.transpose(-1, -2))  # [B, H, S, n]
+    wb = w[:, None, None, :]
+    owner = (torch.arange(n) // chunk) % split  # the warp that holds key j
+    parts = [owner == r for r in range(split)]
+    m = torch.stack([torch.where((wb > 0) & pr, s, -torch.inf).amax(-1) for pr in parts]).amax(0)
+    m = torch.where(deadr, 0.0, m)
+    e = torch.exp(torch.clamp(s - m[..., None], max=0.0)) * wb
+    l = sum(torch.where(pr, e, 0.0).sum(-1) for pr in parts)
+    p = (e * (1.0 / l.clamp_min(1e-30))[..., None]).to(v.dtype).float()
+    o = sum(torch.where(pr, p, 0.0) @ vh for pr in parts)
+    return o.transpose(1, 2).reshape(B, S, E).to(q.dtype)
+
+
+def k2_cluster(q_tilde, mem, clusters=K2_CLUSTER):
+    """K2 over `clusters` contiguous slices of ceil(M / clusters) tokens."""
+    B, M, E = mem.shape
+    per = -(-M // clusters)
+    qf = q_tilde.float()
+    slices, stats = [], []
+    for r in range(clusters):
+        b0, b1 = min(M, r * per), min(M, (r + 1) * per)
+        x = mem[:, b0:b1].float()
+        s = torch.einsum("bhe,bme->bhm", qf, x)
+        if b1 > b0:
+            m_r = s.amax(-1)
+            l_r = torch.exp(s - m_r[..., None]).sum(-1)
+        else:  # an empty slice: m = -inf, l = 0, o = 0
+            m_r = torch.full(qf.shape[:2], -torch.inf)
+            l_r = torch.zeros(qf.shape[:2])
+        slices.append((s, x))
+        stats.append((m_r, l_r))
+    m = torch.stack([m_r for m_r, _ in stats]).amax(0)
+    l = sum(torch.where(m_r == -torch.inf, 0.0, l_r * torch.exp(m_r - m)) for m_r, l_r in stats)
+    o = torch.zeros_like(qf)
+    for s, x in slices:
+        p = (torch.exp(s - m[..., None]) / l[..., None]).to(mem.dtype).float()
+        o = o + torch.einsum("bhm,bme->bhe", p, x)
+    return o.to(q_tilde.dtype)
+
+
+def _assert_close(out, ref, dtype_name):
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), **TOL[dtype_name])
+
+
+K1_CASES = {
+    # (B, S, nhead, mask)
+    "first_tile_masked": (3, 100, 8, "first_tile"),  # plus a fully masked row
+    "unmasked": (2, 33, 8, "none"),
+    "fidnet": (4, 11, 4, "keys"),                    # Dh=64, with a dead row
+}
+
+
+def _k1_inputs(case):
+    B, S, nhead, mask = K1_CASES[case]
+    rng = np.random.default_rng(S + B)
+    q = (rng.normal(size=(B, S, 256)) * (256 // nhead) ** -0.5).astype(np.float32)
+    k, v = (rng.normal(size=(B, S, 256)).astype(np.float32) for _ in range(2))
+    bias = None
+    if mask != "none":
+        keep = rng.random((B, S)) > 0.3
+        keep[:, -1] = True
+        if mask == "first_tile":
+            keep[:, :K1_TILE] = False
+        keep[1] = False
+        bias = np.where(keep, 0.0, -1e9).astype(np.float32)
+    return q, k, v, nhead, bias
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
+@pytest.mark.parametrize("route", ["recompute", "resident"])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_k1_tiling_matches_plain_and_pallas(case, route, dtype_name):
+    q, k, v, nhead, bias = _k1_inputs(case)
+    jd, td = getattr(jnp, dtype_name), getattr(torch, dtype_name)
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in (q, k, v))
+    tb = None if bias is None else torch.from_numpy(bias)
+    tiled = (k1_recompute if route == "recompute" else k1_resident)(tq, tk, tv, nhead, tb)
+    assert tiled.dtype == td and bool(torch.isfinite(tiled.float()).all())
+    _assert_close(tiled, ea.encoder_attention_plain(tq, tk, tv, nhead, tb).float(), dtype_name)
+    ref = fused_encoder_attention(*(jnp.asarray(a, jd) for a in (q, k, v)), nhead,
+                                  None if bias is None else jnp.asarray(bias), interpret=True)
+    _assert_close(tiled, ref.astype(jnp.float32), dtype_name)
+    if bias is not None:  # the fully masked row is the mean of V
+        mean_v = tv[1].float().mean(0).expand_as(tiled[1]).to(td).float()
+        _assert_close(tiled[1], mean_v, dtype_name)
+
+
+@pytest.mark.parametrize("M", [1, 5, 77, 200])  # empty slices (M < 8), ragged (8 does not divide M)
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_k2_tiling_matches_plain_and_pallas(M, dtype_name):
+    rng = np.random.default_rng(M)
+    qt = (rng.normal(size=(2, 8, 256)) / 16).astype(np.float32)
+    mem = rng.normal(size=(2, M, 256)).astype(np.float32)
+    jd, td = getattr(jnp, dtype_name), getattr(torch, dtype_name)
+    tq, tm = torch.from_numpy(qt).to(td), torch.from_numpy(mem).to(td)
+    tiled = k2_cluster(tq, tm)
+    assert tiled.dtype == td and bool(torch.isfinite(tiled.float()).all())
+    _assert_close(tiled, da.decode_shared_attention_plain(tq, tm).float(), dtype_name)
+    ref = fused_decode_shared_attention(jnp.asarray(qt, jd), jnp.asarray(mem, jd), interpret=True)
+    _assert_close(tiled, ref.astype(jnp.float32), dtype_name)
+
