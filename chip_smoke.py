@@ -26,7 +26,8 @@ Run from the repository root.  Phases, each of which must pass:
               kv_quant + self_quant through K3), one more of each
               under torch.profiler for the device's busy share; one per task
               (uncond, c, cwh, partial, refinement, relation with the retry
-              decode, gt) with kv_quant + self_quant + q8_mxu (K4); one through
+              decode, gt) with kv_quant + self_quant + q8_mxu (K4), and the
+              uncond one once more under torch.profiler; one through
               the per-layer cross K/V (K7) and one with it in int8 (K8); then
               the plain autoreg family answers one (K2).  Then the fused
               encoder: 3 CLI-default requests (and one profiled) with both
@@ -194,21 +195,22 @@ def kernel_cases(torch, dev):
                 lambda q=q, k=k, v=v, H=H, bias=bias: ea.encoder_attention_plain(q, k, v, H, bias),
                 lib, 4 * B * S * E * isz + (4 * B * S if masked else 0), 4 * B * S * S * E, dn, 0.0,
             ))
-        for M in (680, 677, 4096):  # K2 also at the wrapper's largest M (slices streamed)
+        # K2, K3, K4 also at the wrapper's largest M (K2: slices streamed; K3,
+        # K4: slices of 512 tokens) and K3, K4 at a small M (CTAs with no token)
+        for M in (680, 677, 4096, 5):
             B, H, E = 128, 8, 256
             qt = (torch.randn(B, H, E, generator=g, device=dev) / 16).to(dtype)
             memf = torch.randn(B, M, E, generator=g, device=dev)
             mem = memf.to(dtype)
-            cases.append((
-                "decode_shared_attention", f"B={B} M={M}", dn,
-                lambda qt=qt, mem=mem: da.decode_shared_attention(qt, mem),
-                lambda qt=qt, mem=mem: da.decode_shared_attention_plain(qt, mem),
-                lambda qt=qt, mem=mem: F.scaled_dot_product_attention(
-                    qt[:, None], mem[:, None], mem[:, None], scale=1.0),
-                B * M * E * isz + 2 * B * H * E * isz, 4 * B * H * M * E, dn, 0.0,
-            ))
-            if M == 4096:
-                continue
+            if M != 5:
+                cases.append((
+                    "decode_shared_attention", f"B={B} M={M}", dn,
+                    lambda qt=qt, mem=mem: da.decode_shared_attention(qt, mem),
+                    lambda qt=qt, mem=mem: da.decode_shared_attention_plain(qt, mem),
+                    lambda qt=qt, mem=mem: F.scaled_dot_product_attention(
+                        qt[:, None], mem[:, None], mem[:, None], scale=1.0),
+                    B * M * E * isz + 2 * B * H * E * isz, 4 * B * H * M * E, dn, 0.0,
+                ))
             mi, ms = da.quantize_shared_memory(memf)
             cases.append((
                 "decode_shared_attention_q8", f"B={B} M={M}", dn,
@@ -225,6 +227,8 @@ def kernel_cases(torch, dev):
                 None, B * M * E + 4 * B * M + 2 * B * H * E * isz, 4 * B * H * M * E, "int8",
                 da.q8mxu_probs(qt, mi, ms)[1],
             ))
+            if M in (4096, 5):
+                continue
             Dh = E // H
             q = torch.randn(B, H, Dh, generator=g, device=dev).to(dtype)
             k_t, v_t = (torch.randn(B, H, Dh, M, generator=g, device=dev).to(dtype)
@@ -585,6 +589,8 @@ def run_slice(torch, tok, fails: Failures) -> dict:
         v = calculate_violation(cond, toks, layout, tok)
         print(f"  task {task}: {dt * 1e3:.1f} ms, {BATCH / dt:.1f} layouts/s; violations "
               f"{v['viorated']}/{v['total']} = {v['viorated'] / v['total']:.4f}", flush=True)
+        if task == "uncond":  # K4's share of a task request's device time
+            profile_request(torch, "task uncond (q8_mxu)", sample_task)
 
     # the per-layer cross K/V, in bf16 (K7) and int8 (K8), through the decoder's methods
     for kvq, kernel in ((False, "K7"), (True, "K8")):

@@ -14,8 +14,9 @@
 //   p = softmax((q_tilde . mem_i8[m]) * s[m]);  o = sum_m T(p[m] * s[m]) mem_i8[m]
 //
 // K4 replaces fused_decode_shared_attention_q8mxu (_shared_kernel_q8mxu):
-// K3 with both contractions int8 x int8 -> int32.  The query arrives
-// absmax-quantised per head (qi, qs); the kernel quantises p * s per row:
+// K3 with both contractions int8 x int8 -> int32.  The kernel quantises the
+// query per head, as quantize_q_tilde (qs = max(amax, 1e-8) / 127, qi =
+// clip(rint(q / qs), -127, 127)), and p * s per row:
 //
 //   sc = int(qi . mem_i8[m]) * qs * s[m];  p2 = softmax(sc) * s
 //   ps = max(max_m p2, 1e-30);  pi = clip(round(p2 * (127 / ps)), -127, 127)
@@ -25,7 +26,8 @@
 // round p before their second dot; every sum is fp32 (int32 in K4).  The TPU
 // kernels take s (and K4's qs) broadcast to [B, H, M] (and [B, H, 128]) for
 // their tiling, and K4 repeats the 8 heads 4x to fill an int8 tile of 32
-// rows; these read s as [B, M] and qs as [B, H] and compute the 8 real heads.
+// rows, an artifact of that tile; these read s as [B, M], pad the 8 heads
+// with zero rows to the 16 of an mma tile, and compute the 8 real heads.
 //
 // Over PER-LAYER cross K/V caches in the [B, H, Dh, M] decode layout:
 //
@@ -66,9 +68,7 @@
 // A CTA with no tokens (M < 8 leaves some) gives m = -inf, l = 0 and o = 0.
 // A slice larger than its buffer (192 tokens in bf16, 96 in fp32; M > 1536
 // and M > 768) streams in chunks and reads all but its last chunk a second
-// time for p . mem, mostly from L2.  The kernel is templated on the memory
-// type; an int8 instance with per-token scales (K3) would add the scale to
-// the scores and to p, as decode_shared_attention_kernel does.
+// time for p . mem, mostly from L2.
 // What holds it back on the card: a slice stays in shared memory until the
 // cluster's softmax is known, so at most 62 clusters (four CTAs a SM) are
 // resident and B=128 rows run in three waves (62, 62, 4).  Each row then
@@ -78,22 +78,49 @@
 // copy the next row's slice while they work on this one (two buffers, two
 // CTAs a SM) was slower, and clusters of 4 (two waves of 64 rows) no faster.
 //
-// K3, K4 (simple and right first): one block of 256 threads per
-// batch row.  The query [8, 256] sits in shared memory; the memory streams
-// through shared memory in tiles of 32 tokens (a row is 348 KB in bf16 and
-// does not fit whole).  Because the TPU rounds the NORMALISED p, which an
-// online softmax does not know until the last tile, the kernels take two
-// passes over the memory: pass 1 writes the [8, M] scores into dynamic
-// shared memory (thread (h, j) = (warp, lane) takes one score per tile),
-// warp h turns row h into rounded probabilities, and pass 2 streams the
-// memory again while thread e accumulates o[0..7, e].  The second pass
-// doubles the memory reads (partly from the 50 MB L2).  K4's scores are
-// __dp4a dot products of packed int8 (exact), its PV sums int32.  K7/K8: one
-// block per (b, h) over a [Dh, M] cache pair, M contiguous: threads stride M
-// for the scores (coalesced along M), a block-wide softmax, then warp w sums
-// rows d = w, w + 8, ... of p . v.  K3, K4, K7, K8: no split of M across
+// K3 and K4: K2's cluster over the int8 memory, one kernel templated on
+// kMxu.  Each CTA copies its slice (85 tokens at M=680: 21.8 KB of int8,
+// rows padded to 272 bytes so that ldmatrix and 16-byte loads meet no bank
+// conflict) once with 16-byte cp.async, and its scales s with 4-byte loads
+// (the [B, M] fp32 scales are not 16-byte aligned at odd M).  At M <= 4096
+// a slice is at most 512 tokens, 139 KB, so it always fits whole: no
+// streamed chunks.  The scores and p . mem are built straight from the
+// int8 bytes in shared memory (no bf16 copy of the slice), which keeps a
+// CTA at 30-36 KB at M=680:
+//   K3 bf16  scores by mma m16n8k16: ldmatrix on the int8 rows hands thread
+//            (g, c) bytes 4c..4c+3 of token g, widened exactly to bf16 as b0
+//            and b1 (an int8 is exact in bf16, as the TPU's astype); the
+//            query's A fragment takes the same 4 positions of E.  p . mem by
+//            mma with ldmatrix.trans on pairs of int8 columns: thread (g, c)
+//            gets tokens 2c, 2c+1 at columns 2g and 2g+1 (bytes 0, 2 and 1,
+//            3), one n-tile of even and one of odd columns;
+//   K3 fp32  FMAs (no TF32), as K2's fp32 path;
+//   K4       the CTA quantises its row's query itself (warp h, head h; the
+//            IEEE division and rint of quantize_q_tilde, so qi and qs are
+//            bit for bit the wrapper's old ones) and one call is one launch.
+//            Scores by mma m16n8k32 s8, the slice's rows as they are the
+//            K-major B operand (non-transposed ldmatrix); sc = float(dot) *
+//            qs * s.  A second exchange through distributed shared memory
+//            gives ps from each CTA's max |p2|.  p . mem by m16n8k32 s8 too:
+//            sm_90 has no 8-bit ldmatrix.trans, but the 16-bit one on pairs
+//            of int8 columns, with __byte_perm, hands thread (g, c) tokens
+//            2c, 2c+1, 8+2c, 9+2c of column 2g or 2g+1, which is a B
+//            fragment whose k order the A fragment of pi (two 16-bit loads)
+//            follows; so no transposed copy of the slice and no __dp4a.
+//            The int32 partials are summed exactly, then times ps / 127.
+// p * s is rounded (K4: quantised) only after the cluster's m and l are
+// known, as the TPU kernels do; expf, not ex2.approx, whose ulps would flip
+// roundings.  CTAs with no token give m = -inf, l = 0, max |p2| = 0 and zero
+// partials.  The same bound as K2 holds: 8 CTAs of 256 threads at 64
+// registers, four a SM by registers, and the same chain of cluster barriers
+// (K4: one more).
+//
+// K7/K8: one block per (b, h) over a [Dh, M] cache pair, M contiguous:
+// threads stride M for the scores (coalesced along M), a block-wide softmax,
+// then warp w sums rows d = w, w + 8, ... of p . v.  No split of M across
 // blocks and no copy in flight behind the compute: the times sit well above
-// the bound.
+// the bound.  Every launcher sets its shared-memory attribute once per
+// device and size (allow_smem_once).
 
 #include <cooperative_groups.h>
 
@@ -107,93 +134,7 @@ namespace {
 
 constexpr int kHeads = 8;
 constexpr int kWidth = 256;   // E = d_model
-constexpr int kTile = 32;     // memory tokens per tile (one per lane)
 constexpr int kThreads = 256;
-constexpr int kWords = kWidth / 4;  // int8 row packed in 32-bit words
-
-static_assert(kThreads == kHeads * kTile, "one score per thread");
-static_assert(kThreads == kWidth, "one output column per thread");
-
-// Row h of the [kHeads, M] scores becomes probabilities in place, by warp h:
-// p = exp(s - max) / sum, times s[m] when kScaled, rounded to T.
-template <typename T, bool kScaled>
-__device__ __forceinline__ void softmax_row(float* row, const float* scale, int M, int lane) {
-  float m = -INFINITY;
-  for (int j = lane; j < M; j += 32) m = fmaxf(m, row[j]);
-  m = warp_max(m);
-  float l = 0.f;
-  for (int j = lane; j < M; j += 32) {
-    const float e = expf(row[j] - m);
-    row[j] = e;
-    l += e;
-  }
-  l = warp_sum(l);
-  for (int j = lane; j < M; j += 32) {
-    const float p = row[j] / l;
-    row[j] = round_to<T>(kScaled ? p * scale[j] : p);
-  }
-}
-
-template <typename T, typename MemT, bool kScaled>
-__global__ void __launch_bounds__(kThreads) decode_shared_attention_kernel(
-    const T* __restrict__ q_tilde, const MemT* __restrict__ mem,
-    const float* __restrict__ mem_scale, T* __restrict__ out, int M) {
-  extern __shared__ float sc[];  // [kHeads][M]: scores, then rounded probabilities
-  __shared__ float q_s[kHeads][kWidth];
-  __shared__ float mem_s[kTile][kWidth + 1];  // +1: conflict-free row-per-lane reads
-  __shared__ float scale_s[kTile];
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int h = tid >> 5;  // this warp's head
-  const size_t mem0 = static_cast<size_t>(b) * M;
-
-  for (int i = tid; i < kHeads * kWidth; i += kThreads) {
-    q_s[i / kWidth][i % kWidth] = to_f32(q_tilde[static_cast<size_t>(b) * kHeads * kWidth + i]);
-  }
-
-  // pass 1: scores
-  for (int j0 = 0; j0 < M; j0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-#pragma unroll 4
-    for (int jj = 0; jj < kTile; ++jj) {
-      mem_s[jj][tid] = j0 + jj < M ? to_f32(mem[(mem0 + j0 + jj) * kWidth + tid]) : 0.f;
-    }
-    if (kScaled && tid < kTile) scale_s[tid] = j0 + tid < M ? mem_scale[mem0 + j0 + tid] : 0.f;
-    __syncthreads();
-    if (j0 + lane < M) {
-      float dot = 0.f;
-#pragma unroll 16
-      for (int e = 0; e < kWidth; ++e) dot = fmaf(q_s[h][e], mem_s[lane][e], dot);
-      sc[h * M + j0 + lane] = kScaled ? dot * scale_s[lane] : dot;
-    }
-  }
-  __syncthreads();
-  softmax_row<T, kScaled>(sc + h * M, kScaled ? mem_scale + mem0 : nullptr, M, lane);
-
-  // pass 2: o[hh, tid] = sum_j p[hh, j] mem[j, tid]
-  float acc[kHeads];
-#pragma unroll
-  for (int hh = 0; hh < kHeads; ++hh) acc[hh] = 0.f;
-  for (int j0 = 0; j0 < M; j0 += kTile) {
-    __syncthreads();  // the probabilities are written / the previous tile is consumed
-    const int n = min(kTile, M - j0);
-    for (int jj = 0; jj < n; ++jj) mem_s[jj][tid] = to_f32(mem[(mem0 + j0 + jj) * kWidth + tid]);
-    __syncthreads();
-#pragma unroll
-    for (int hh = 0; hh < kHeads; ++hh) {
-      const float* p = sc + hh * M + j0;
-      float o = acc[hh];
-      for (int jj = 0; jj < n; ++jj) o = fmaf(p[jj], mem_s[jj][tid], o);
-      acc[hh] = o;
-    }
-  }
-#pragma unroll
-  for (int hh = 0; hh < kHeads; ++hh) {
-    out[(static_cast<size_t>(b) * kHeads + hh) * kWidth + tid] = from_f32<T>(acc[hh]);
-  }
-}
 
 // ---- K2 over a cluster of 8 CTAs per batch row (see the top of the file) ----
 
@@ -423,85 +364,337 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Loads rows j0 .. j0 + kTile of one batch row's int8 memory as packed words
-// (zeros past M); 4-byte aligned because a row is 256 bytes.
-__device__ __forceinline__ void load_i8_tile(int32_t (*tile)[kWords + 1], const int8_t* mem,
-                                             size_t mem0, int j0, int M, int tid) {
-  const int32_t* src = reinterpret_cast<const int32_t*>(mem);
-  for (int i = tid; i < kTile * kWords; i += kThreads) {
-    const int jj = i / kWords, w = i % kWords;
-    tile[jj][w] = j0 + jj < M ? src[(mem0 + j0 + jj) * kWords + w] : 0;
-  }
+// ---- K3 and K4 over a cluster of 8 CTAs per batch row (see the top of the file) ----
+
+constexpr int kRowI8 = kWidth + 16;  // bytes a token row of the int8 slice takes in shared memory
+constexpr int kQLd = kWidth + 16;    // elements a query row takes in shared memory
+
+__host__ __device__ constexpr int round32(int n) { return (n + 31) / 32 * 32; }
+// row strides: scores (floats; 8 modulo 32 words, as K2's) and K4's pi (bytes)
+__host__ __device__ constexpr int q8_sc_ld(int per) { return round32(per) + 8; }
+__host__ __device__ constexpr int q8_pi_ld(int per) { return round32(per) + 16; }
+
+// Byte offsets of a CTA's dynamic shared memory for slices of `per` tokens:
+// the slice [per][kRowI8] int8 (later the partial o [8][256] fp32 or int32),
+// the scores sc [8][q8_sc_ld], the scales s [round32(per)], the query [8][kQLd]
+// (K3: q_tilde in T; K4: its int8 quantisation) and K4's pi [8][q8_pi_ld].
+struct Q8Smem {
+  size_t sc, scale, q, pi, total;
+};
+
+template <typename T, bool kMxu>
+__host__ __device__ Q8Smem q8_smem(int per) {
+  const size_t slice = static_cast<size_t>(per) * kRowI8, o_part = kHeads * kWidth * 4;
+  Q8Smem s;
+  s.sc = ((slice > o_part ? slice : o_part) + 15) / 16 * 16;
+  s.scale = s.sc + static_cast<size_t>(kHeads) * q8_sc_ld(per) * sizeof(float);
+  s.q = s.scale + static_cast<size_t>(round32(per)) * sizeof(float);
+  s.pi = s.q + static_cast<size_t>(kHeads) * kQLd * (kMxu ? 1 : sizeof(T));
+  s.total = s.pi + (kMxu ? static_cast<size_t>(kHeads) * q8_pi_ld(per) : 0);
+  return s;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) decode_shared_attention_q8mxu_kernel(
-    const int8_t* __restrict__ qi, const float* __restrict__ qs, const int8_t* __restrict__ mem,
-    const float* __restrict__ mem_scale, T* __restrict__ out, int M) {
-  extern __shared__ float sc[];  // [kHeads][M]: scores, then the quantised p2
-  __shared__ int32_t q_s[kHeads][kWords];
-  __shared__ int32_t mem_s[kTile][kWords + 1];  // +1 word: conflict-free row-per-lane reads
-  __shared__ float ps_s[kHeads];
+// byte i of w, an int8, as a float
+__device__ __forceinline__ float i8_at(uint32_t w, int i) {
+  return static_cast<float>(static_cast<int8_t>(w >> (8 * i)));
+}
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int h = tid >> 5;
-  const size_t mem0 = static_cast<size_t>(b) * M;
-  const float* s = mem_scale + mem0;
-  const float qs_h = qs[b * kHeads + h];
+// K3 (kMxu false) and K4 (kMxu true); see the top of the file.
+template <typename T, bool kMxu>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 4)
+    decode_shared_q8_cluster_kernel(const T* __restrict__ q_tilde, const int8_t* __restrict__ mem,
+                                    const float* __restrict__ mem_scale, T* __restrict__ out,
+                                    int M) {
+  namespace cg = cooperative_groups;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int per = (M + kCluster - 1) / kCluster;
+  const int begin = min(M, rank * per), cnt = min(M, begin + per) - begin;  // this CTA's tokens
+  const int sc_ld = q8_sc_ld(per), pad = round32(per);
+  const Q8Smem lay = q8_smem<T, kMxu>(per);
+  extern __shared__ __align__(16) unsigned char q8_smem_buf[];
+  int8_t* mem_s = reinterpret_cast<int8_t*>(q8_smem_buf);
+  float* sc = reinterpret_cast<float*>(q8_smem_buf + lay.sc);
+  float* scale_s = reinterpret_cast<float*>(q8_smem_buf + lay.scale);
+  T* q_s = reinterpret_cast<T*>(q8_smem_buf + lay.q);
+  int8_t* qi_s = reinterpret_cast<int8_t*>(q8_smem_buf + lay.q);
+  int8_t* pi_s = reinterpret_cast<int8_t*>(q8_smem_buf + lay.pi);
+  __shared__ float red_m[kCluster][kHeads], red_l[kCluster][kHeads], red_p[kCluster][kHeads];
+  __shared__ float qs_s[kHeads], ps_s[kHeads];
 
-  const int32_t* qw = reinterpret_cast<const int32_t*>(qi + static_cast<size_t>(b) * kHeads * kWidth);
-  for (int i = tid; i < kHeads * kWords; i += kThreads) q_s[i / kWords][i % kWords] = qw[i];
+  // this CTA has started; before the first write into another CTA's shared
+  // memory, each waits until all 8 have
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  // pass 1: int32 scores, dequantised
-  for (int j0 = 0; j0 < M; j0 += kTile) {
-    __syncthreads();
-    load_i8_tile(mem_s, mem, mem0, j0, M, tid);
-    __syncthreads();
-    if (j0 + lane < M) {
-      int dot = 0;
-#pragma unroll 16
-      for (int w = 0; w < kWords; ++w) dot = __dp4a(q_s[h][w], mem_s[lane][w], dot);
-      sc[h * M + j0 + lane] = static_cast<float>(dot) * qs_h * s[j0 + lane];
+  // the slice, once, with 16-byte cp.async; in flight while the query and the
+  // scales load
+  const int8_t* src = mem + (static_cast<size_t>(b) * M + begin) * kWidth;
+  for (int i = tid; i < cnt * (kWidth / 16); i += kThreads) {
+    const int r = i / (kWidth / 16), ch = i % (kWidth / 16);
+    cp_async16(mem_s + r * kRowI8 + ch * 16, src + r * kWidth + ch * 16, true);
+  }
+  cp_async_commit();
+  const float* sb = mem_scale + static_cast<size_t>(b) * M + begin;  // 4-byte loads: any M
+  for (int j = tid; j < pad; j += kThreads) scale_s[j] = j < cnt ? sb[j] : 0.f;
+  const T* qb = q_tilde + static_cast<size_t>(b) * kHeads * kWidth;
+  if constexpr (kMxu) {
+    // warp h quantises head h exactly as quantize_q_tilde: qs = max(amax, 1e-8) / 127,
+    // qi = clip(rint(x / qs), -127, 127), IEEE division, rint half to even
+    float x[8];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      x[i] = to_f32(qb[warp * kWidth + lane * 8 + i]);
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+    const float qs = fmaxf(warp_max(amax), 1e-8f) / 127.0f;
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int v = static_cast<int>(fminf(fmaxf(rintf(x[i] / qs), -127.f), 127.f));
+      w[i >> 2] |= (static_cast<uint32_t>(v) & 0xffu) << (8 * (i & 3));
+    }
+    *reinterpret_cast<uint2*>(qi_s + warp * kQLd + lane * 8) = make_uint2(w[0], w[1]);
+    if (lane == 0) qs_s[warp] = qs;
+  } else {
+    for (int i = tid; i < kHeads * kWidth; i += kThreads) q_s[i / kWidth * kQLd + i % kWidth] = qb[i];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // scores of the slice's tokens into sc: K3 (q . mem_i8) * s, K4 float(qi . mem_i8) * qs * s
+  if constexpr (kF32 && !kMxu) {
+    const float4* q4 = reinterpret_cast<const float4*>(q_s + warp * kQLd);  // head = warp
+    for (int j = lane; j < cnt; j += 32) {
+      const int4* m16 = reinterpret_cast<const int4*>(mem_s + j * kRowI8);
+      float dot = 0.f;
+#pragma unroll 4
+      for (int ch = 0; ch < kWidth / 16; ++ch) {
+        const int4 v = m16[ch];
+        const uint32_t words[4] = {static_cast<uint32_t>(v.x), static_cast<uint32_t>(v.y),
+                                   static_cast<uint32_t>(v.z), static_cast<uint32_t>(v.w)};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float4 a = q4[ch * 4 + k];
+          dot = fmaf(a.x, i8_at(words[k], 0), dot);
+          dot = fmaf(a.y, i8_at(words[k], 1), dot);
+          dot = fmaf(a.z, i8_at(words[k], 2), dot);
+          dot = fmaf(a.w, i8_at(words[k], 3), dot);
+        }
+      }
+      sc[warp * sc_ld + j] = dot * scale_s[j];
+    }
+  } else {
+    // tensor cores, warp by tiles of 8 tokens; A is the query, heads 0-7 as
+    // rows 0-7 (rows 8-15 zero); B comes from ldmatrix on the int8 rows:
+    // lane l gives token nt*8 + l%8 (rows past cnt repeat the last; their
+    // scores are dropped) and 16-byte chunk l/8 of a 64-byte group, so
+    // register i holds bytes 4c .. 4c+3 of chunk i of token g
+    for (int nt = warp; nt < (cnt + 7) / 8; nt += kThreads / 32) {
+      const int8_t* row = mem_s + min(nt * 8 + (lane & 7), cnt - 1) * kRowI8 + (lane >> 3) * 16;
+      float dot[2];
+      if constexpr (kMxu) {
+        // m16n8k32 s8: chunks 2i and 2i+1 are b0 and b1 of one k-step as they come;
+        // a0 and a2 are bytes 4c and 16 + 4c of the step's 32 in row g of qi
+        int acc[2][4] = {};
+        const int8_t* qr = qi_s + g * kQLd + 4 * c;
+#pragma unroll
+        for (int grp = 0; grp < kWidth / 64; ++grp) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, row + grp * 64);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int8_t* qk = qr + grp * 64 + i * 32;
+            mma_s8(acc[i], *reinterpret_cast<const uint32_t*>(qk), 0u,
+                   *reinterpret_cast<const uint32_t*>(qk + 16), 0u, bk[2 * i], bk[2 * i + 1]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) dot[e] = static_cast<float>(acc[0][e] + acc[1][e]) * qs_s[g];
+      } else {
+        // m16n8k16 bf16, one k-step per chunk, its 16 positions of E taken in
+        // the order the chunk's bytes arrive: thread c holds E 4c .. 4c+3 of
+        // token g, as b0 = (4c, 4c+1) and b1 = (4c+2, 4c+3) widened exactly to
+        // bf16, so A takes a0 = q[g][4c, 4c+1] and a2 = q[g][4c+2, 4c+3]
+        float acc[2][4] = {};
+        const T* qr = q_s + g * kQLd + 4 * c;
+#pragma unroll
+        for (int grp = 0; grp < kWidth / 64; ++grp) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, row + grp * 64);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint2 a = *reinterpret_cast<const uint2*>(qr + grp * 64 + i * 16);
+            mma_bf16(acc[i & 1], a.x, 0u, a.y, 0u, pack_bf16(i8_at(bk[i], 0), i8_at(bk[i], 1)),
+                     pack_bf16(i8_at(bk[i], 2), i8_at(bk[i], 3)));
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) dot[e] = acc[0][e] + acc[1][e];
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = nt * 8 + 2 * c + e;
+        if (j < cnt) sc[g * sc_ld + j] = dot[e] * scale_s[j];  // row g is head g
+      }
+    }
+  }
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every CTA has started
+
+  // softmax over the cluster, warp h on head h, as K2: each CTA writes its
+  // max and sum into every CTA's shared memory, m = max_r m_r and
+  // l = sum_r l_r exp(m_r - m); a CTA with no token gives m_r = -inf, l_r = 0
+  float* row = sc + warp * sc_ld;
+  float mx = -INFINITY;
+  for (int j = lane; j < cnt; j += 32) mx = fmaxf(mx, row[j]);
+  mx = warp_max(mx);
+  float l = 0.f;
+  for (int j = lane; j < cnt; j += 32) l += expf(row[j] - mx);
+  l = warp_sum(l);
+  if (lane < kCluster) {
+    *cluster.map_shared_rank(&red_m[rank][warp], lane) = mx;
+    *cluster.map_shared_rank(&red_l[rank][warp], lane) = l;
+  }
+  cluster.sync();
+  const float m_r = lane < kCluster ? red_m[lane][warp] : -INFINITY;
+  const float l_r = lane < kCluster ? red_l[lane][warp] : 0.f;
+  const float m_all = warp_max(m_r);
+  const float l_all = warp_sum(m_r == -INFINITY ? 0.f : l_r * expf(m_r - m_all));
+  if constexpr (kMxu) {
+    // p2 = (exp(sc - m) / l) * s; its row max crosses the cluster the same
+    // way; pi = clip(rint(p2 * (127 / ps)), -127, 127), 0 past cnt
+    float pmax = 0.f;
+    for (int j = lane; j < cnt; j += 32) {
+      const float p2 = expf(row[j] - m_all) / l_all * scale_s[j];
+      row[j] = p2;
+      pmax = fmaxf(pmax, fabsf(p2));
+    }
+    pmax = warp_max(pmax);
+    if (lane < kCluster) *cluster.map_shared_rank(&red_p[rank][warp], lane) = pmax;
+    cluster.sync();
+    const float ps = fmaxf(warp_max(lane < kCluster ? red_p[lane][warp] : 0.f), 1e-30f);
+    const float inv = 127.0f / ps;
+    int8_t* pr = pi_s + warp * q8_pi_ld(per);
+    for (int j = lane; j < pad; j += 32) {
+      pr[j] = j < cnt ? static_cast<int8_t>(fminf(fmaxf(rintf(row[j] * inv), -127.f), 127.f)) : 0;
+    }
+    if (lane == 0) ps_s[warp] = ps;
+  } else {
+    // p = T((exp(sc - m) / l) * s), the TPU kernel's rounding; 0 past cnt
+    for (int j = lane; j < sc_ld; j += 32) {
+      row[j] = j < cnt ? round_to<T>(expf(row[j] - m_all) / l_all * scale_s[j]) : 0.f;
     }
   }
   __syncthreads();
 
-  // warp h: p2 = softmax * s, then its absmax quantisation
-  float* row = sc + h * M;
-  softmax_row<float, true>(row, s, M, lane);
-  float ps = 0.f;
-  for (int j = lane; j < M; j += 32) ps = fmaxf(ps, fabsf(row[j]));
-  ps = fmaxf(warp_max(ps), 1e-30f);
-  const float inv = 127.0f / ps;
-  for (int j = lane; j < M; j += 32) row[j] = fminf(fmaxf(rintf(row[j] * inv), -127.f), 127.f);
-  if (lane == 0) ps_s[h] = ps;
-
-  // pass 2: int32 o[hh, tid] = sum_j pi[hh, j] mem_i8[j, tid]
-  int acc[kHeads];
+  // the partial o = p . slice into o_part [8][256] over the slice's buffer
+  float* o_part = reinterpret_cast<float*>(q8_smem_buf);
+  int* oi_part = reinterpret_cast<int*>(q8_smem_buf);
+  if constexpr (kF32 && !kMxu) {
+    float acc[kHeads] = {};
+    for (int j = 0; j < cnt; ++j) {
+      const float x = static_cast<float>(mem_s[j * kRowI8 + tid]);
 #pragma unroll
-  for (int hh = 0; hh < kHeads; ++hh) acc[hh] = 0;
-  for (int j0 = 0; j0 < M; j0 += kTile) {
-    __syncthreads();
-    load_i8_tile(mem_s, mem, mem0, j0, M, tid);
-    __syncthreads();
-    const int n = min(kTile, M - j0);
+      for (int h = 0; h < kHeads; ++h) acc[h] = fmaf(sc[h * sc_ld + j], x, acc[h]);
+    }
+    __syncthreads();  // every thread is done with mem_s, which o_part overwrites
 #pragma unroll
-    for (int hh = 0; hh < kHeads; ++hh) {
-      const float* p = sc + hh * M + j0;
-      int o = acc[hh];
-      for (int jj = 0; jj < n; ++jj) {
-        o += static_cast<int>(p[jj]) * static_cast<int>(reinterpret_cast<const int8_t*>(mem_s[jj])[tid]);
+    for (int h = 0; h < kHeads; ++h) o_part[h * kWidth + tid] = acc[h];
+  } else {
+    // warp w: columns 32w .. 32w+31 as 4 n-tiles; ldmatrix.trans on pairs of
+    // int8 columns gives thread (g, c) tokens 2c, 2c+1 at columns 2g and
+    // 2g+1 of a matrix (bytes 0, 2 and 1, 3 of the word), so n-tile
+    // t = 2 half + par holds columns 32w + 16 half + 2n + par
+    float accf[4][4] = {};
+    int acci[4][4] = {};
+    if constexpr (kMxu) {
+      // m16n8k32 s8 by k-steps of 32 tokens: B's k 4c .. 4c+3 are tokens 2c,
+      // 2c+1, 8+2c, 9+2c (and 16 more for b1), as the four matrices of tokens
+      // 0-7, 8-15, 16-23, 24-31 hand them out; A's pi follows that order
+      const int8_t* pr = pi_s + g * q8_pi_ld(per) + 2 * c;
+      for (int k0 = 0; k0 < cnt; k0 += 32) {
+        auto pair = [&](int k) { return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(pr + k)); };
+        const uint32_t a0 = pair(k0) | pair(k0 + 8) << 16, a2 = pair(k0 + 16) | pair(k0 + 24) << 16;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, mem_s + min(k0 + lane, cnt - 1) * kRowI8 + warp * 32 + half * 16);
+#pragma unroll
+          for (int par = 0; par < 2; ++par) {
+            const uint32_t sel = par ? 0x7531u : 0x6420u;
+            mma_s8(acci[2 * half + par], a0, 0u, a2, 0u, __byte_perm(bv[0], bv[1], sel),
+                   __byte_perm(bv[2], bv[3], sel));
+          }
+        }
       }
-      acc[hh] = o;
+    } else {
+      // m16n8k16 bf16 by k-steps of 16 tokens; matrices: tokens 0-7 | 16
+      // columns, tokens 8-15 | the same, then the next 16 columns; rows past
+      // cnt repeat the last (their p is 0)
+      for (int k0 = 0; k0 < cnt; k0 += 16) {
+        const float* p = sc + g * sc_ld + k0 + 2 * c;  // zeros past cnt
+        const float2 lo = *reinterpret_cast<const float2*>(p);
+        const float2 hi = *reinterpret_cast<const float2*>(p + 8);
+        const uint32_t a0 = pack_bf16(lo.x, lo.y), a2 = pack_bf16(hi.x, hi.y);
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, mem_s + min(k0 + (lane & 7) + ((lane >> 3) & 1) * 8, cnt - 1) * kRowI8 +
+                                  warp * 32 + (lane >> 4) * 16);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int par = 0; par < 2; ++par) {
+            const uint32_t w0 = bv[2 * half], w1 = bv[2 * half + 1];
+            mma_bf16(accf[2 * half + par], a0, 0u, a2, 0u,
+                     pack_bf16(i8_at(w0, par), i8_at(w0, par + 2)),
+                     pack_bf16(i8_at(w1, par), i8_at(w1, par + 2)));
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with mem_s, which o_part overwrites
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int e = g * kWidth + warp * 32 + 16 * (t >> 1) + 4 * c + (t & 1);  // n = 2c, then 2c+1
+      if constexpr (kMxu) {
+        oi_part[e] = acci[t][0];
+        oi_part[e + 2] = acci[t][1];
+      } else {
+        o_part[e] = accf[t][0];
+        o_part[e + 2] = accf[t][1];
+      }
     }
   }
+  cluster.sync();
+
+  // CTA r: columns 32r .. 32r+31 of every head, summed over the 8 partials
+  // (K4: exactly, in int32, then times ps / 127 in the TPU kernel's order)
+  const int hh = warp, cc = rank * 32 + lane;
+  float sum = 0.f;
+  if constexpr (kMxu) {
+    int part[kCluster];
 #pragma unroll
-  for (int hh = 0; hh < kHeads; ++hh) {
-    out[(static_cast<size_t>(b) * kHeads + hh) * kWidth + tid] =
-        from_f32<T>(static_cast<float>(acc[hh]) * (ps_s[hh] * (1.0f / 127.0f)));
+    for (int r = 0; r < kCluster; ++r) part[r] = *cluster.map_shared_rank(oi_part + hh * kWidth + cc, r);
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    int isum = 0;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) isum += part[r];
+    sum = static_cast<float>(isum) * (ps_s[hh] * (1.0f / 127.0f));
+  } else {
+    float part[kCluster];
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) part[r] = *cluster.map_shared_rank(o_part + hh * kWidth + cc, r);
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) sum += part[r];
   }
+  out[(static_cast<size_t>(b) * kHeads + hh) * kWidth + cc] = from_f32<T>(sum);
+  // no CTA leaves while another still reads its shared memory
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // K7 / K8: one block per (b, h); k_t and v_t are [B*H, Dh, M], q and out [B*H, Dh].
@@ -544,26 +737,12 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   }
 }
 
-size_t scores_bytes(int M) { return static_cast<size_t>(kHeads) * M * sizeof(float); }
-
 // Allows `smem` bytes of dynamic shared memory (above the default 48 KB
 // the kernel must opt in); returns the cudaError_t.
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t smem) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-}
-
-template <typename T, typename MemT, bool kScaled>
-int launch_shared(const void* q_tilde, const void* mem, const float* mem_scale, void* out, int B,
-                  int M, cudaStream_t stream) {
-  auto kernel = decode_shared_attention_kernel<T, MemT, kScaled>;
-  const size_t smem = scores_bytes(M);
-  if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<B, kThreads, smem, stream>>>(static_cast<const T*>(q_tilde),
-                                        static_cast<const MemT*>(mem), mem_scale,
-                                        static_cast<T*>(out), M);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // allow_smem once per device and size: the attribute calls would otherwise
@@ -590,13 +769,14 @@ int launch_shared_cluster(const void* q_tilde, const void* mem, void* out, int B
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_q8mxu(const int8_t* qi, const float* qs, const int8_t* mem, const float* mem_scale,
-                 void* out, int B, int M, cudaStream_t stream) {
-  auto kernel = decode_shared_attention_q8mxu_kernel<T>;
-  const size_t smem = scores_bytes(M);
-  if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<B, kThreads, smem, stream>>>(qi, qs, mem, mem_scale, static_cast<T*>(out), M);
+template <typename T, bool kMxu>
+int launch_shared_q8(const void* q_tilde, const int8_t* mem_i8, const float* mem_scale, void* out,
+                     int B, int M, cudaStream_t stream) {
+  auto kernel = decode_shared_q8_cluster_kernel<T, kMxu>;
+  const size_t smem = q8_smem<T, kMxu>((M + kCluster - 1) / kCluster).total;
+  if (int err = allow_smem_once<decode_shared_q8_cluster_kernel<T, kMxu>>(smem)) return err;
+  kernel<<<dim3(kCluster, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q_tilde), mem_i8, mem_scale, static_cast<T*>(out), M);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -605,7 +785,7 @@ int launch_kv(const void* q, const void* k_t, const void* v_t, void* out, int BH
               float scale, cudaStream_t stream) {
   auto kernel = decode_attention_kernel<QT, KT, OT>;
   const size_t smem = static_cast<size_t>(Dh + M) * sizeof(float);
-  if (int err = allow_smem(kernel, smem)) return err;
+  if (int err = allow_smem_once<decode_attention_kernel<QT, KT, OT>>(smem)) return err;
   kernel<<<BH, kThreads, smem, stream>>>(static_cast<const QT*>(q), static_cast<const KT*>(k_t),
                                          static_cast<const KT*>(v_t), static_cast<OT*>(out), Dh,
                                          M, scale);
@@ -627,29 +807,27 @@ extern "C" int ralf_decode_shared_attention(int dtype, const void* q_tilde, cons
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K3: as K2 over mem_i8 [B, M, 256] int8 with mem_scale [B, M] fp32.
-extern "C" int ralf_decode_shared_attention_q8(int dtype, const void* q_tilde, const void* mem_i8,
-                                               const float* mem_scale, void* out, int B, int M,
-                                               void* stream) {
+// K3: as K2 over mem_i8 [B, M, 256] int8 (16-byte aligned) with mem_scale [B, M] fp32.
+extern "C" int ralf_decode_shared_attention_q8(int dtype, const void* q_tilde,
+                                               const int8_t* mem_i8, const float* mem_scale,
+                                               void* out, int B, int M, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ralf::kFloat32)
-    return ralf::launch_shared<float, int8_t, true>(q_tilde, mem_i8, mem_scale, out, B, M, st);
+    return ralf::launch_shared_q8<float, false>(q_tilde, mem_i8, mem_scale, out, B, M, st);
   if (dtype == ralf::kBFloat16)
-    return ralf::launch_shared<__nv_bfloat16, int8_t, true>(q_tilde, mem_i8, mem_scale, out, B,
-                                                            M, st);
+    return ralf::launch_shared_q8<__nv_bfloat16, false>(q_tilde, mem_i8, mem_scale, out, B, M, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K4: qi [B, 8, 256] int8 with qs [B, 8] fp32, mem_i8 [B, M, 256] int8 with
-// mem_scale [B, M] fp32; out [B, 8, 256] of the dtype code.
-extern "C" int ralf_decode_shared_attention_q8mxu(int dtype, const int8_t* qi, const float* qs,
+// K4: K3's arguments; the kernel quantises q_tilde itself.
+extern "C" int ralf_decode_shared_attention_q8mxu(int dtype, const void* q_tilde,
                                                   const int8_t* mem_i8, const float* mem_scale,
                                                   void* out, int B, int M, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ralf::kFloat32)
-    return ralf::launch_q8mxu<float>(qi, qs, mem_i8, mem_scale, out, B, M, st);
+    return ralf::launch_shared_q8<float, true>(q_tilde, mem_i8, mem_scale, out, B, M, st);
   if (dtype == ralf::kBFloat16)
-    return ralf::launch_q8mxu<__nv_bfloat16>(qi, qs, mem_i8, mem_scale, out, B, M, st);
+    return ralf::launch_shared_q8<__nv_bfloat16, true>(q_tilde, mem_i8, mem_scale, out, B, M, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

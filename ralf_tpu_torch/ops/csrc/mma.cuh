@@ -1,6 +1,7 @@
 // Tensor-core and async-copy building blocks for Hopper (sm_90a) shared by
-// the attention kernels K1 and K2: 16-byte cp.async with zero fill,
-// ldmatrix, and mma.sync.m16n8k16 with bf16 inputs and fp32 sums.
+// the attention kernels K1-K4: 16-byte cp.async with zero fill, ldmatrix,
+// mma.sync.m16n8k16 with bf16 inputs and fp32 sums, and m16n8k32 with int8
+// inputs and int32 sums.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4):
 //   A [16 x 16] row-major, 4 regs of bf16x2: a0 (row g, cols 2c, 2c+1),
@@ -60,6 +61,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a . b on the tensor cores, int8 x int8 -> int32 (m16n8k32).  Each
+// register holds 4 int8, lowest k first: a0 (row g, k 4c .. 4c+3), a1 (row
+// g+8, the same k), a2 (row g, k 16+4c ..), a3 (row g+8, ...); b0 (k 4c ..
+// 4c+3, col g), b1 (k 16+4c .., col g); d as in m16n8k16.
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 

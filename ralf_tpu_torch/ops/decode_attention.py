@@ -13,8 +13,9 @@ memory serves every decoder layer:
   * K3 `decode_shared_attention_q8` over int8 memory with per-token scales
     (`fused_decode_shared_attention_q8`, `quantize_shared_memory`);
   * K4 `decode_shared_attention_q8mxu`: K3 with both contractions int8 x
-    int8 -> int32 (`fused_decode_shared_attention_q8mxu`,
-    `quantize_q_tilde`; its plain version is the port of `q8mxu_reference`).
+    int8 -> int32 (`fused_decode_shared_attention_q8mxu`; its plain version
+    is the port of `q8mxu_reference`, and `quantize_q_tilde` the quantiser
+    that the kernel applies to the query itself).
 
 Over PER-LAYER cross K/V caches in the [B, H, Dh, M] layout
 (`cross_kv(shared=False)`):
@@ -39,14 +40,14 @@ import torch
 from ralf_tpu_torch.ops import _build
 
 NUM_HEADS, WIDTH = 8, 256  # the shared-memory kernels' fixed H and E (the flagship decoder)
-MAX_MEMORY = 4096  # tokens: the [8, M] scores (or p [M]) live in shared memory
+MAX_MEMORY = 4096  # tokens: the scores (K3, K4: and an 8th of the memory) live in shared memory
 MAX_HEAD_DIM = 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ralf_decode_shared_attention": [_I, _P, _P, _P, _I, _I, _P],
     "ralf_decode_shared_attention_q8": [_I, _P, _P, _P, _P, _I, _I, _P],
-    "ralf_decode_shared_attention_q8mxu": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
+    "ralf_decode_shared_attention_q8mxu": [_I, _P, _P, _P, _P, _I, _I, _P],
     "ralf_decode_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "ralf_decode_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -62,7 +63,11 @@ def _lib():
 def _absmax_int8(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric absmax int8 over `dims`: x = scale * xi, scale with the dims kept."""
     xf = x.float()
-    scale = xf.abs().amax(dim=dims, keepdim=True).clamp_min(1e-8) / 127.0
+    amax = xf.abs().amax(dim=dims, keepdim=True).clamp_min(1e-8)
+    # a true division, as JAX's and K4's in-kernel quantiser: on CUDA, torch
+    # divides by a Python number by multiplying with its reciprocal, which
+    # moves scale by an ulp and then qi at exact .5 ties
+    scale = amax / amax.new_full((), 127.0)
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
@@ -213,6 +218,7 @@ def decode_shared_attention_q8(
     _build.require_cuda(what, q_tilde, mem_i8, mem_scale)
     B, M = _check_shared(what, q_tilde, mem_i8)
     _check_int8_memory(what, mem_i8, mem_scale, B, M)
+    _build.require_aligned(what, mem_i8)
     code = _build.dtype_code(q_tilde, what)
     out = torch.empty_like(q_tilde)
     with torch.cuda.device(q_tilde.device):
@@ -229,20 +235,21 @@ def decode_shared_attention_q8mxu(
     q_tilde: torch.Tensor, mem_i8: torch.Tensor, mem_scale: torch.Tensor
 ) -> torch.Tensor:
     """K4: K3's contract with both contractions int8 x int8 -> int32; the
-    query is absmax-quantised per head here, before the kernel."""
+    kernel absmax-quantises the query per head itself, bit for bit as
+    `quantize_q_tilde`, so one call is one launch."""
     if q_tilde.device.type == "cpu":
         return decode_shared_attention_q8mxu_plain(q_tilde, mem_i8, mem_scale)
     what = "decode_shared_attention_q8mxu"
     _build.require_cuda(what, q_tilde, mem_i8, mem_scale)
     B, M = _check_shared(what, q_tilde, mem_i8)
     _check_int8_memory(what, mem_i8, mem_scale, B, M)
+    _build.require_aligned(what, mem_i8)
     code = _build.dtype_code(q_tilde, what)
-    qi, qs = quantize_q_tilde(q_tilde)
     out = torch.empty_like(q_tilde)
     with torch.cuda.device(q_tilde.device):
         rc = _lib().ralf_decode_shared_attention_q8mxu(
-            code, qi.data_ptr(), qs.contiguous().data_ptr(), mem_i8.data_ptr(),
-            mem_scale.data_ptr(), out.data_ptr(), B, M, _build.stream_handle(),
+            code, q_tilde.data_ptr(), mem_i8.data_ptr(), mem_scale.data_ptr(),
+            out.data_ptr(), B, M, _build.stream_handle(),
         )
     _build.check_launch(rc, what)
     decode_shared_attention_q8mxu.launches += 1

@@ -223,7 +223,8 @@ def test_fused_encoder_flags_launch_k5_and_k6(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M", [1, 7, 8, 9, 31, 677, 680, 4096])  # K2: empty, ragged, streamed slices
+# K2: empty, ragged, streamed slices; K3: empty, ragged, 512-token slices
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 31, 677, 680, 4096])
 def test_decode_kernels_match_plain(dev, dtype, M):
     g = torch.Generator(device=dev).manual_seed(M)
     qt = (torch.randn(6, 8, 256, generator=g, device=dev) / 16).to(dtype)
@@ -264,7 +265,7 @@ def test_decode_shared_attention_bf16_rounds_p_as_pallas(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M", [1, 31, 677, 680, 765])
+@pytest.mark.parametrize("M", [1, 5, 31, 677, 680, 765, 4096])  # empty .. 512-token slices
 def test_q8mxu_kernel_matches_plain(dev, dtype, M):
     g = torch.Generator(device=dev).manual_seed(M + 1)
     qt = (torch.randn(6, 8, 256, generator=g, device=dev) / 16).to(dtype)
@@ -274,6 +275,72 @@ def test_q8mxu_kernel_matches_plain(dev, dtype, M):
     assert da.decode_shared_attention_q8mxu.launches == n + 1
     ps = da.q8mxu_probs(qt, mi, ms)[1]  # [B, H, 1]: one flipped probability per output
     _close(out, da.decode_shared_attention_q8mxu_plain(qt, mi, ms), dtype, extra=ps)
+
+
+def test_decode_shared_attention_q8_bf16_rounds_p_as_pallas(dev):
+    """Card twin of the CPU test of that name, over the int8 memory: K3
+    stays within the bf16 tolerance of the plain version, which rounds p * s
+    after the global normalisation as the TPU kernel does; the version that
+    keeps p * s in fp32 misses by more than 0.01."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, M, half = 2, 64, 128
+    qt = torch.zeros(B, 8, 256, device=dev)
+    qt[:, :, :half] = torch.randn(B, 8, half, generator=g, device=dev) * 0.05
+    mem = torch.zeros(B, M, 256, device=dev)
+    mem[:, :, :half] = torch.randn(B, M, half, generator=g, device=dev)
+    u = 32.0 * torch.randn(B, M // 2, half, generator=g, device=dev)
+    mem[:, 0::2, half:], mem[:, 1::2, half:] = u, -u
+    mi, ms = da.quantize_shared_memory(mem)
+    qt = qt.bfloat16()
+    ref = da.decode_shared_attention_q8_plain(qt, mi, ms)
+    _close(da.decode_shared_attention_q8(qt, mi, ms), ref, torch.bfloat16)
+    s = ms[:, None, :]
+    p = torch.softmax(torch.einsum("bhe,bme->bhm", qt.float(), mi.float()) * s, -1)
+    fp32_p = torch.einsum("bhm,bme->bhe", p * s, mi.float()).bfloat16()
+    atol, rtol = TOL[torch.bfloat16]
+    excess = (fp32_p.float() - ref.float()).abs() - atol - rtol * ref.float().abs()
+    assert float(excess.max()) > 0.01
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8mxu_call_is_one_kernel(dev, dtype):
+    """K4 quantises the query inside the kernel: one wrapper call runs
+    exactly one CUDA kernel (and no copy), counted by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    qt = (torch.randn(4, 8, 256, generator=g, device=dev) / 16).to(dtype)
+    mi, ms = da.quantize_shared_memory(torch.randn(4, 680, 256, generator=g, device=dev))
+    da.decode_shared_attention_q8mxu(qt, mi, ms)  # builds and loads the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        da.decode_shared_attention_q8mxu(qt, mi, ms)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "decode_shared_q8_cluster_kernel" in kernels[0], kernels
+
+
+def test_quantisers_on_the_card_match_the_cpu_bit_for_bit(dev):
+    """The absmax quantisers divide by 127 truly on the card too (as JAX and
+    K4's kernel do): bf16 inputs put elements at amax / 2, where x / qs is an
+    exact .5 tie that an ulp of qs would move."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    qt = (torch.randn(64, 8, 256, generator=g, device=dev) / 16).bfloat16()
+    mem = torch.randn(64, 300, 256, generator=g, device=dev).bfloat16()
+    for fn, x in ((da.quantize_q_tilde, qt), (da.quantize_shared_memory, mem)):
+        for card, cpu in zip(fn(x), fn(x.cpu())):
+            assert torch.equal(card.cpu(), cpu)
+
+
+def test_int8_cluster_kernels_reject_unaligned_memory(dev):
+    qt = torch.randn(2, 8, 256, device=dev)
+    mi, ms = da.quantize_shared_memory(torch.randn(2, 10, 256, device=dev))
+    shifted = torch.empty(mi.numel() + 1, dtype=torch.int8, device=dev)[1:].view(2, 10, 256)
+    shifted.copy_(mi)
+    for kernel in (da.decode_shared_attention_q8, da.decode_shared_attention_q8mxu):
+        with pytest.raises(ValueError, match="16-byte"):
+            kernel(qt, shifted, ms)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,4 +1,4 @@
-"""The decompositions that the bf16 CUDA kernels of K1 and K2 follow, in plain torch.
+"""The decompositions that the CUDA kernels of K1-K4 follow, in plain torch.
 
 `csrc/encoder_attention.cu` and `csrc/decode_attention.cu` cannot run on the
 CPU, but the algebra of their tilings can.  Each function below writes one
@@ -18,7 +18,15 @@ Both form p = T(exp(min(s - m, 0)) * w * (1 / l)), T the input dtype, and a
 row with no kept key attends uniformly (s = m = 0, w = 1, l = S).
 K2 splits the memory into C = 8 contiguous slices of ceil(M / 8) tokens (a
 slice may be empty), combines the slices' maxima and sums into the global m
-and l, and adds the slices' partial p . mem in slice order.
+and l, and adds the slices' partial p . mem in slice order.  K3 and K4 split
+the int8 memory the same way: K3 forms p = T((exp(sc - m) / l) * s) from the
+merged m and l; K4 also merges the slices' max |p2| into ps before it
+quantises p2, and sums the slices' int32 partials exactly.  K4's quantised
+probabilities add a tolerance of the row's ps: its int32 sums are exact, but
+one rounding of p2 * 127 / ps that lands on the other integer (the slices
+sum l in another order) moves an output by ps * |mem_i8| / 127 <= ps.  The
+quantiser that K4 runs inside the kernel is held bit for bit against
+`quantize_q_tilde` on exact .5 ties.
 """
 
 import jax.numpy as jnp
@@ -26,7 +34,13 @@ import numpy as np
 import pytest
 import torch
 
-from ralf_tpu.ops.pallas.decode_attention import fused_decode_shared_attention
+from ralf_tpu.ops.pallas.decode_attention import (
+    fused_decode_shared_attention,
+    fused_decode_shared_attention_q8,
+    fused_decode_shared_attention_q8mxu,
+    quantize_q_tilde as jax_quantize_q,
+    quantize_shared_memory as jax_quantize,
+)
 from ralf_tpu.ops.pallas.encoder_attention import fused_encoder_attention
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
@@ -200,3 +214,133 @@ def test_k2_tiling_matches_plain_and_pallas(M, dtype_name):
     ref = fused_decode_shared_attention(jnp.asarray(qt, jd), jnp.asarray(mem, jd), interpret=True)
     _assert_close(tiled, ref.astype(jnp.float32), dtype_name)
 
+
+
+def _slices(M, clusters):
+    """The contiguous slices [b0, b1) of ceil(M / clusters) tokens; some may be empty."""
+    per = -(-M // clusters)
+    return [(min(M, r * per), min(M, (r + 1) * per)) for r in range(clusters)]
+
+
+def _merge_softmax_stats(slice_scores, shape):
+    """Each slice's max and sum of exp(sc - max), merged into the global m and
+    l; an empty slice gives m = -inf, l = 0."""
+    stats = []
+    for sc in slice_scores:
+        if sc.shape[-1]:
+            m_r = sc.amax(-1)
+            stats.append((m_r, torch.exp(sc - m_r[..., None]).sum(-1)))
+        else:
+            stats.append((torch.full(shape, -torch.inf), torch.zeros(shape)))
+    m = torch.stack([m_r for m_r, _ in stats]).amax(0)
+    l = sum(torch.where(m_r == -torch.inf, 0.0, l_r * torch.exp(m_r - m)) for m_r, l_r in stats)
+    return m, l
+
+
+def k3_cluster(q_tilde, mem_i8, mem_scale, clusters=K2_CLUSTER):
+    """K3 over `clusters` contiguous slices: sc = (q . mem_i8) * s per slice,
+    p = T((exp(sc - m) / l) * s) with the merged m and l, partials in slice order."""
+    M = mem_i8.shape[1]
+    qf = q_tilde.float()
+    parts = []
+    for b0, b1 in _slices(M, clusters):
+        x, s = mem_i8[:, b0:b1].float(), mem_scale[:, None, b0:b1].float()
+        parts.append((torch.einsum("bhe,bme->bhm", qf, x) * s, x, s))
+    m, l = _merge_softmax_stats([sc for sc, _, _ in parts], qf.shape[:2])
+    o = torch.zeros_like(qf)
+    for sc, x, s in parts:
+        p = (torch.exp(sc - m[..., None]) / l[..., None] * s).to(q_tilde.dtype).float()
+        o = o + torch.einsum("bhm,bme->bhe", p, x)
+    return o.to(q_tilde.dtype)
+
+
+def k4_cluster(q_tilde, mem_i8, mem_scale, clusters=K2_CLUSTER):
+    """K4 over `clusters` contiguous slices: the quantised query, int32
+    scores times qs then s, the merged m and l, each slice's max |p2| merged
+    into ps, pi = clip(round(p2 * (127 / ps))), the int32 partials summed
+    exactly, then times ps / 127."""
+    M = mem_i8.shape[1]
+    qi, qs = da.quantize_q_tilde(q_tilde)
+    parts = []
+    for b0, b1 in _slices(M, clusters):
+        x, s = mem_i8[:, b0:b1].long(), mem_scale[:, None, b0:b1].float()
+        dot = torch.einsum("bhe,bme->bhm", qi.long(), x)  # exact
+        parts.append((dot.float() * qs[:, :, None] * s, x, s))
+    m, l = _merge_softmax_stats([sc for sc, _, _ in parts], qi.shape[:2])
+    p2 = [torch.exp(sc - m[..., None]) / l[..., None] * s for sc, _, s in parts]
+    maxima = [p.abs().amax(-1) if p.shape[-1] else torch.zeros(qi.shape[:2]) for p in p2]
+    ps = torch.stack(maxima).amax(0).clamp_min(1e-30)[..., None]  # [B, H, 1]
+    acc = torch.zeros(qi.shape, dtype=torch.long)
+    for p, (_, x, _) in zip(p2, parts):
+        pi = torch.clamp(torch.round(p * (127.0 / ps)), -127, 127).long()
+        acc = acc + torch.einsum("bhm,bme->bhe", pi, x)
+    return (acc.float() * (ps * (1.0 / 127.0))).to(q_tilde.dtype), ps
+
+
+def _q8_inputs(M, dtype_name):
+    rng = np.random.default_rng(M + 11)
+    B = 2
+    qt = (rng.normal(size=(B, 8, 256)) / 16).astype(np.float32)
+    mi, ms = jax_quantize(jnp.asarray(rng.normal(size=(B, M, 256)).astype(np.float32)))
+    tq = torch.from_numpy(qt).to(getattr(torch, dtype_name))
+    return qt, mi, ms, tq, torch.from_numpy(np.array(mi)), torch.from_numpy(np.array(ms))
+
+
+Q8_MEMORIES = [5, 677, 680, 4096]  # CTAs with no token, ragged slices, the main M, 512-token slices
+
+
+@pytest.mark.parametrize("M", Q8_MEMORIES)
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_k3_tiling_matches_plain_and_pallas(M, dtype_name):
+    qt, mi, ms, tq, tmi, tms = _q8_inputs(M, dtype_name)
+    tiled = k3_cluster(tq, tmi, tms)
+    assert tiled.dtype == tq.dtype and bool(torch.isfinite(tiled.float()).all())
+    _assert_close(tiled, da.decode_shared_attention_q8_plain(tq, tmi, tms).float(), dtype_name)
+    ref = fused_decode_shared_attention_q8(jnp.asarray(qt, getattr(jnp, dtype_name)), mi, ms,
+                                           interpret=True)
+    _assert_close(tiled, ref.astype(jnp.float32), dtype_name)
+
+
+@pytest.mark.parametrize("M", Q8_MEMORIES)
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_k4_tiling_matches_plain_and_pallas(M, dtype_name):
+    qt, mi, ms, tq, tmi, tms = _q8_inputs(M, dtype_name)
+    tiled, ps = k4_cluster(tq, tmi, tms)
+    assert tiled.dtype == tq.dtype and bool(torch.isfinite(tiled.float()).all())
+    plain_ps = da.q8mxu_probs(tq, tmi, tms)[1]
+    torch.testing.assert_close(ps, plain_ps, rtol=1e-6, atol=0)  # the merged ps is the row's
+    tol = dict(TOL[dtype_name])
+    extra = ps.numpy()  # one flipped quantised probability per output
+    for ref in (da.decode_shared_attention_q8mxu_plain(tq, tmi, tms).float().numpy(),
+                np.asarray(fused_decode_shared_attention_q8mxu(
+                    jnp.asarray(qt, getattr(jnp, dtype_name)), mi, ms, interpret=True)
+                    .astype(jnp.float32))):
+        err = np.abs(tiled.float().numpy() - ref)
+        assert (err <= tol["atol"] + extra + tol["rtol"] * np.abs(ref)).all(), float(err.max())
+
+
+def kernel_quantise(x):
+    """The quantiser K4's kernel runs on each head, written in numpy float32:
+    amax over E, qs = max(amax, 1e-8) / 127 with an IEEE division, qi =
+    clip(rint(x / qs), -127, 127), rint rounding half to even."""
+    amax = np.abs(x).max(-1, keepdims=True)
+    qs = np.maximum(amax, np.float32(1e-8)) / np.float32(127.0)
+    return np.clip(np.rint(x / qs), -127, 127).astype(np.int8), qs[..., 0]
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_in_kernel_quantiser_matches_quantize_q_tilde_bit_for_bit(dtype_name):
+    rng = np.random.default_rng(12)
+    x = (rng.normal(size=(3, 8, 256)) * rng.uniform(0.01, 5, size=(3, 8, 1))).astype(np.float32)
+    ties = rng.integers(-126, 126, size=(2, 8, 255)) + 0.5  # x / qs lands on k + 0.5
+    x[0, :, 0] = 127.0  # qs = 1 exactly
+    x[0, :, 1:] = ties[0]
+    x[1, :4, 0] = 63.5  # qs = 0.5 exactly
+    x[1, :4, 1:] = ties[1, :4] / 2
+    x[2, 3] = 0.0  # an all-zero head takes the 1e-8 floor
+    x = torch.from_numpy(x).to(getattr(torch, dtype_name)).float().numpy()  # the kernel's input
+    qi, qs = kernel_quantise(x)
+    assert qs.dtype == np.float32 and (np.abs(x / qs[..., None]) % 1 == 0.5).sum() > 3000
+    for ref_qi, ref_qs in (da.quantize_q_tilde(torch.from_numpy(x)), jax_quantize_q(jnp.asarray(x))):
+        np.testing.assert_array_equal(qi, np.asarray(ref_qi))
+        assert np.asarray(ref_qs).tobytes() == qs.tobytes()
