@@ -11,7 +11,8 @@ Run from the repository root.  Phases, each of which must pass:
               paths' shapes, in bf16 and fp32 (K9 on the probe's int8 slab and
               its views), with its time beside the plain version's, one
               PyTorch library call's (for K5 and K6 an unfused sequence) and
-              the least time the card could take
+              the least time the card could take; K8 also over the decode's
+              6 distinct cache sets in turn (past the L2)
   4. check    the full-width RALF in fp32 on the card against the same weights on
               the CPU (plain versions): gallery features, encode_memory, greedy
               tokens of every decode configuration (shared memory through K2, K3
@@ -28,7 +29,8 @@ Run from the repository root.  Phases, each of which must pass:
               (uncond, c, cwh, partial, refinement, relation with the retry
               decode, gt) with kv_quant + self_quant + q8_mxu (K4), and the
               uncond one once more under torch.profiler; one through
-              the per-layer cross K/V (K7) and one with it in int8 (K8); then
+              the per-layer cross K/V (K7) and one with it in int8 (K8, and
+              once more under torch.profiler); then
               the plain autoreg family answers one (K2).  Then the fused
               encoder: 3 CLI-default requests (and one profiled) with both
               flags on every module (K6 for the 12 encoder self-attentions,
@@ -242,13 +244,32 @@ def kernel_cases(torch, dev):
                 2 * B * H * Dh * M * isz + 2 * B * H * Dh * isz, 4 * B * H * Dh * M, dn, 0.0,
             ))
             cached = da.quantize_kv(k_t, v_t)
+            k8_bytes = 2 * B * H * Dh * M + 8 * B * H + B * H * Dh * 2 * isz
             cases.append((  # the kernel's arithmetic is fp32 on an fp32 query
                 "decode_attention_q8", f"B={B} H={H} Dh={Dh} M={M}", dn,
                 lambda q=q, c=cached: da.decode_attention_q8(q, *c),
                 lambda q=q, c=cached: da.decode_attention_q8_plain(q, *c),
-                None, 2 * B * H * Dh * M + 8 * B * H + B * H * Dh * 2 * isz, 4 * B * H * Dh * M,
-                "float32", 0.0,
+                None, k8_bytes, 4 * B * H * Dh * M, "float32", 0.0,
             ))
+            if M == 680:
+                # the decode's 6 layers: 6 distinct cache sets in turn (268 MB, past
+                # the 50 MB L2 that one set of 44.6 MB fits in); the plain
+                # version takes the set of the kernel's last call
+                sets = [cached] + [da.quantize_kv(*(torch.randn(B, H, Dh, M, generator=g,
+                                                                device=dev) for _ in range(2)))
+                                   for _ in range(5)]
+                turn = {"i": 0, "last": cached}
+
+                def rotated(q=q, sets=sets, turn=turn):
+                    turn["last"] = sets[turn["i"] % len(sets)]
+                    turn["i"] += 1
+                    return da.decode_attention_q8(q, *turn["last"])
+
+                cases.append((
+                    "decode_attention_q8", f"B={B} H={H} Dh={Dh} M={M} 6 sets in turn", dn,
+                    rotated, lambda q=q, turn=turn: da.decode_attention_q8_plain(q, *turn["last"]),
+                    None, k8_bytes, 4 * B * H * Dh * M, "float32", 0.0,
+                ))
         # K5 at the image encoder's FFN, then the constraint encoder's longest (relation)
         for B, S in ((128, 330), (128, 89)):
             E, Fh = 256, 1024
@@ -609,6 +630,8 @@ def run_slice(torch, tok, fails: Failures) -> dict:
         check_request(f"per-layer cross K/V kv_quant={kvq}", cond, toks, tok.decode(toks), n,
                       {"K1": 12, kernel: 300})
         print(f"  per-layer kv_quant={kvq}: {dt * 1e3:.1f} ms, {BATCH / dt:.1f} layouts/s", flush=True)
+        if kvq:  # K8's share of a per-layer int8 request's device time
+            profile_request(torch, "per-layer int8 (K8)", per_layer)
 
     # the plain autoreg family, CLI default configuration (K2)
     ar = AutoregGenerator(tok, cfg, "uncond", device="cuda", seed=0)

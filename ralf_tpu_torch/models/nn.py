@@ -74,7 +74,8 @@ def causal_bias(S: int, device=None) -> torch.Tensor:
 def quantize_per_token(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[B, H, Dh, 1] -> (int8 [B, H, Dh, 1], fp32 scale [B, H, 1]): absmax over Dh."""
     xf = x.float()
-    s = xf.abs().amax(dim=2, keepdim=True).clamp_min(1e-8) / 127.0
+    amax = xf.abs().amax(dim=2, keepdim=True).clamp_min(1e-8)
+    s = amax / amax.new_full((), 127.0)  # a true division on the card too (see _absmax_int8)
     xi = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
     return xi, s[:, :, 0, :]
 

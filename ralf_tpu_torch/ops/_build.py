@@ -124,13 +124,18 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
 
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    """Raise unless every tensor is a contiguous CUDA tensor on one device,
+    and none of them needs a gradient: the kernels are forward only, and the
+    tensor a kernel fills has no grad_fn, which would cut autograd silently."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{what}: all tensors must be on one CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel is forward only and an input requires "
+                           "grad; call it under torch.no_grad() or torch.inference_mode()")
 
 
 def require_aligned(what: str, *tensors: torch.Tensor) -> None:

@@ -33,9 +33,10 @@
 //
 // K7 replaces fused_decode_attention (_kernel): o[b, h] = sum_m p[m] v[:, m]
 // with p = softmax_m(scale * q[b, h] . k[:, m]), scale = Dh^-1/2, p in fp32.
-// K8 replaces fused_decode_attention_q8: the same kernel on int8 K/V with
-// q already scaled by Dh^-1/2 * k_scale (fp32) and scale 1; the wrapper
-// applies v_scale to the fp32 output.
+// K8 replaces fused_decode_attention_q8: the same on int8 K/V with the
+// per-(b, h) scales folded in, in the TPU wrapper's order: q' = (float(q) *
+// Dh^-1/2) * k_scale, o = softmax(q' . k_i8) . v_i8 in fp32, out = T(o *
+// v_scale).  K7 and K8 keep p in fp32 and never round it.
 //
 // What bounds them on the H100: each call reads the memory (or the K/V
 // caches) once.  At the decode's shape (B=128, M=680, E=256) that is
@@ -115,12 +116,34 @@
 // registers, four a SM by registers, and the same chain of cluster barriers
 // (K4: one more).
 //
-// K7/K8: one block per (b, h) over a [Dh, M] cache pair, M contiguous:
+// K7: one block per (b, h) over a [Dh, M] cache pair, M contiguous:
 // threads stride M for the scores (coalesced along M), a block-wide softmax,
 // then warp w sums rows d = w, w + 8, ... of p . v.  No split of M across
-// blocks and no copy in flight behind the compute: the times sit well above
-// the bound.  Every launcher sets its shared-memory attribute once per
-// device and size (allow_smem_once).
+// blocks and no copy in flight behind the compute: the time sits well above
+// the bound.
+//
+// K8 (decode_attention_q8_kernel): one block of 4 warps per (b, h); the
+// warps split M into contiguous slices, and in a slice each lane owns 16
+// consecutive tokens, read as one 16-byte vector per cache row d where M
+// and the caches allow, else 8 (one 8-byte vector or two 4-byte words; at
+// M or starts that are not a multiple of 4, the tokens l, l + 32, ... of a
+// step, read as bytes that the warp loads 32 consecutive at a time); so a
+// warp reads every byte of its K and V rows once, neighbouring lanes on
+// neighbouring bytes.  At M=680 (8-byte rows) 85 lanes of a block's 128
+// carry tokens.  Each warp keeps an online softmax over its
+// slice (running max, rescaled sum; the scores and p stay in registers, p in
+// fp32 as the TPU kernel keeps it, and V is read in the same pass as K).
+// p . v: each lane sums its 16 tokens for 8 rows of V at a time (8 loads
+// in flight), and one transpose reduction across the warp (9 shuffles)
+// leaves each row's sum in 4 lanes.  The only block barrier is the merge of the 4 warps' (m, l, o)
+// in warp order.  int8 widens exactly to fp32 by a byte permute into 2^23 + x
+// + 128 and one subtraction (no I2F).  No cast, multiply or copy is left to
+// the wrapper: one call is one launch.  What bounds it: it moves 2*B*H*Dh*M
+// bytes (44.6 MB at B=128, H=8, Dh=32, M=680: 13.3 us at 3.35 TB/s) against
+// 4*B*H*Dh*M = 89 MFLOP: bytes.  1024 blocks keep about eight a SM.
+//
+// Every launcher sets its shared-memory attribute once per device and size
+// (allow_smem_once).
 
 #include <cooperative_groups.h>
 
@@ -737,6 +760,195 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   }
 }
 
+// ---- K8: int8 per-layer decode attention (see the top of the file) ----
+
+constexpr int kQ8Warps = 4;
+constexpr int kQ8Threads = 32 * kQ8Warps;
+constexpr int kQ8Rows = 8;                // rows of V a lane's partial sums cover at once
+constexpr int kMaxHeadDim = 256;
+
+// The TOK tokens a lane owns in one int8 cache row as TOK / 4 words, its
+// first token lowest: t .. t+TOK-1 read as vectors of VEC bytes (M % VEC ==
+// 0 and the row starts on a VEC boundary, so no vector straddles M), or,
+// with VEC 1 (rows of any alignment), tokens t, t+32, t+64, ..., so that
+// each byte load of the warp covers 32 consecutive bytes.  Tokens at or
+// past M read nothing and give zeros.
+template <int VEC, int TOK>
+__device__ __forceinline__ void load_tok(uint32_t (&w)[TOK / 4], const int8_t* __restrict__ row, int t,
+                                         int M) {
+  if constexpr (VEC == 16) {
+    static_assert(TOK == 16, "one 16-byte vector a lane");
+    const uint4 x = t < M ? *reinterpret_cast<const uint4*>(row + t) : make_uint4(0u, 0u, 0u, 0u);
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+  } else if constexpr (VEC == 8) {
+#pragma unroll
+    for (int i = 0; i < TOK / 8; ++i) {
+      const uint2 x = t + 8 * i < M ? *reinterpret_cast<const uint2*>(row + t + 8 * i) : make_uint2(0u, 0u);
+      w[2 * i] = x.x, w[2 * i + 1] = x.y;
+    }
+  } else if constexpr (VEC == 4) {
+#pragma unroll
+    for (int i = 0; i < TOK / 4; ++i) w[i] = t + 4 * i < M ? *reinterpret_cast<const uint32_t*>(row + t + 4 * i) : 0u;
+  } else {
+#pragma unroll
+    for (int i = 0; i < TOK / 4; ++i) {
+      w[i] = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int tok = t + 32 * (4 * i + j);
+        if (tok < M) w[i] |= static_cast<uint32_t>(static_cast<uint8_t>(row[tok])) << (8 * j);
+      }
+    }
+  }
+}
+
+// Token i of the TOK a lane owns, from its first token t (see load_tok).
+template <int VEC>
+__device__ __forceinline__ int tok_at(int t, int i) { return VEC == 1 ? t + 32 * i : t + i; }
+
+// Byte j of a word whose int8 bytes were biased by w ^ 0x80808080 (x + 128),
+// as the float x: the bits 0x4B0000uu are 2^23 + uu, exact.
+__device__ __forceinline__ float i8_biased(uint32_t wb, int j) {
+  return __int_as_float(static_cast<int>(__byte_perm(wb, 0x4B00u, 0x5440u | j))) - 8388736.0f;
+}
+
+// x[i] summed over the 32 lanes of the warp, for i < V (a power of two up
+// to 32): lane l returns the sum of x[l / (32 / V)].  While a lane holds
+// more than one value, each step keeps half of them (the upper half in the
+// lanes with that bit set) and adds its partner's; then plain butterfly
+// sums.  log2(32) steps, V - 1 + 5 - log2(V) shuffles, in an order that does
+// not depend on the data.
+template <int N, int OFF, int V>
+__device__ __forceinline__ float transpose_sum_step(float (&x)[V], int lane) {
+  if constexpr (N > 1) {
+    constexpr int kHalf = N / 2;
+    const bool upper = lane & OFF;
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const float send = upper ? x[i] : x[i + kHalf];
+      x[i] = (upper ? x[i + kHalf] : x[i]) + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+  } else {
+    x[0] += __shfl_xor_sync(0xffffffffu, x[0], OFF);
+  }
+  if constexpr (OFF > 1) {
+    return transpose_sum_step<(N > 1 ? N / 2 : 1), OFF / 2, V>(x, lane);
+  } else {
+    return x[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ float warp_transpose_sum(float (&x)[V]) {
+  return transpose_sum_step<V, 16, V>(x, threadIdx.x & 31);
+}
+
+// q and out [BH, Dh] of T, k_i8 and v_i8 [BH, Dh, M] int8 (rows VEC-aligned),
+// k_scale and v_scale [BH] fp32; scale = Dh^-1/2.
+template <typename T, int VEC, int TOK>
+__global__ void __launch_bounds__(kQ8Threads, 4) decode_attention_q8_kernel(
+    const T* __restrict__ q, const int8_t* __restrict__ k_i8, const int8_t* __restrict__ v_i8,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, T* __restrict__ out,
+    int Dh, int M, float scale) {
+  __shared__ float q_s[kQ8Warps][kMaxHeadDim];  // each warp's copy of the folded query
+  __shared__ float o_s[kQ8Warps][kMaxHeadDim];  // each warp's unnormalised o over its slice
+  __shared__ float m_s[kQ8Warps], l_s[kQ8Warps];
+  const size_t bh = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int8_t* kb = k_i8 + bh * Dh * M;
+  const int8_t* vb = v_i8 + bh * Dh * M;
+  // warp w: tokens [begin, end), slices of a multiple of TOK tokens (some may be empty)
+  constexpr int kStep = 32 * TOK;  // tokens a warp covers in one step
+  const int per = (M + kQ8Warps * TOK - 1) / (kQ8Warps * TOK) * TOK;
+  const int begin = min(M, warp * per), end = min(M, begin + per);
+
+  // the folded query in the plain version's order, (float(q) * Dh^-1/2) * k_scale
+  const float ks = k_scale[bh];
+  for (int d = lane; d < Dh; d += 32) {
+    q_s[warp][d] = to_f32(q[bh * Dh + d]) * scale * ks;
+    o_s[warp][d] = 0.f;
+  }
+  __syncwarp();
+
+  float m = -INFINITY, l = 0.f;  // the warp's running max; this lane's share of the sum
+  for (int t0 = begin; t0 < end; t0 += kStep) {
+    // this lane's first token; tokens at or past end give p = 0
+    const int t = t0 + (VEC == 1 ? lane : lane * TOK);
+    float s[TOK] = {};
+#pragma unroll 8
+    for (int d = 0; d < Dh; ++d) {
+      uint32_t w[TOK / 4];
+      load_tok<VEC, TOK>(w, kb + static_cast<size_t>(d) * M, t, M);
+      const float qd = q_s[warp][d];
+#pragma unroll
+      for (int i = 0; i < TOK / 4; ++i) {
+        const uint32_t wb = w[i] ^ 0x80808080u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[4 * i + j] = fmaf(qd, i8_biased(wb, j), s[4 * i + j]);
+      }
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < TOK; ++i) mx = tok_at<VEC>(t, i) < end ? fmaxf(mx, s[i]) : mx;
+    const float m_new = fmaxf(m, warp_max(mx));  // finite: the step holds a token
+    const float alpha = expf(m - m_new);          // 0 at the first step (m = -inf)
+    float ls = 0.f;
+#pragma unroll
+    for (int i = 0; i < TOK; ++i) {
+      s[i] = tok_at<VEC>(t, i) < end ? expf(s[i] - m_new) : 0.f;
+      ls += s[i];
+    }
+    l = l * alpha + ls;
+    m = m_new;
+    // p . v, kQ8Rows rows of V at a time (rows past Dh read row Dh - 1 and
+    // count 0): each lane sums its TOK tokens of each row, and a transpose
+    // reduction leaves row d0 + r's sum in lanes 4r .. 4r+3
+    for (int d0 = 0; d0 < Dh; d0 += kQ8Rows) {
+      float part[kQ8Rows];
+#pragma unroll
+      for (int j = 0; j < kQ8Rows; ++j) {
+        uint32_t w[TOK / 4];
+        load_tok<VEC, TOK>(w, vb + static_cast<size_t>(min(d0 + j, Dh - 1)) * M, t, M);
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < TOK / 4; ++i) {
+          const uint32_t wb = w[i] ^ 0x80808080u;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc = fmaf(s[4 * i + jj], i8_biased(wb, jj), acc);
+        }
+        part[j] = d0 + j < Dh ? acc : 0.f;
+      }
+      const float sum = warp_transpose_sum(part);
+      const int d = d0 + lane / (32 / kQ8Rows);
+      if (lane % (32 / kQ8Rows) == 0 && d < Dh) o_s[warp][d] = o_s[warp][d] * alpha + sum;
+    }
+  }
+  l = warp_sum(l);
+  if (lane == 0) {
+    m_s[warp] = m;
+    l_s[warp] = l;
+  }
+  __syncthreads();
+
+  // the merge, in warp order; a warp with no token has m = -inf and counts 0
+  float m_all = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kQ8Warps; ++w) m_all = fmaxf(m_all, m_s[w]);
+  float f[kQ8Warps], l_all = 0.f;
+#pragma unroll
+  for (int w = 0; w < kQ8Warps; ++w) {
+    f[w] = m_s[w] == -INFINITY ? 0.f : expf(m_s[w] - m_all);
+    l_all += l_s[w] * f[w];
+  }
+  const float vs = v_scale[bh];
+  for (int d = threadIdx.x; d < Dh; d += kQ8Threads) {
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kQ8Warps; ++w) o += o_s[w][d] * f[w];
+    out[bh * Dh + d] = from_f32<T>(o / l_all * vs);
+  }
+}
+
 // Allows `smem` bytes of dynamic shared memory (above the default 48 KB
 // the kernel must opt in); returns the cudaError_t.
 template <typename Kernel>
@@ -792,6 +1004,27 @@ int launch_kv(const void* q, const void* k_t, const void* v_t, void* out, int BH
   return static_cast<int>(cudaGetLastError());
 }
 
+// The widest vector (16, 8, 4 or 1 bytes) that M and both caches' starts
+// allow; a lane owns 16 tokens with 16-byte vectors, else 8.
+template <typename T>
+int launch_kv_q8(const void* q, const int8_t* k_i8, const int8_t* v_i8, const float* k_scale,
+                 const float* v_scale, void* out, int BH, int Dh, int M, float scale,
+                 cudaStream_t stream) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(k_i8) | reinterpret_cast<uintptr_t>(v_i8);
+  const auto* qt = static_cast<const T*>(q);
+  auto* ot = static_cast<T*>(out);
+  const dim3 grid(BH), block(kQ8Threads);
+  if (M % 16 == 0 && addr % 16 == 0)
+    decode_attention_q8_kernel<T, 16, 16><<<grid, block, 0, stream>>>(qt, k_i8, v_i8, k_scale, v_scale, ot, Dh, M, scale);
+  else if (M % 8 == 0 && addr % 8 == 0)
+    decode_attention_q8_kernel<T, 8, 8><<<grid, block, 0, stream>>>(qt, k_i8, v_i8, k_scale, v_scale, ot, Dh, M, scale);
+  else if (M % 4 == 0 && addr % 4 == 0)
+    decode_attention_q8_kernel<T, 4, 8><<<grid, block, 0, stream>>>(qt, k_i8, v_i8, k_scale, v_scale, ot, Dh, M, scale);
+  else
+    decode_attention_q8_kernel<T, 1, 8><<<grid, block, 0, stream>>>(qt, k_i8, v_i8, k_scale, v_scale, ot, Dh, M, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace ralf
 
@@ -844,9 +1077,17 @@ extern "C" int ralf_decode_attention(int dtype, const void* q, const void* k_t, 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K8: q and out [BH, Dh] fp32 (q pre-scaled), k_i8 and v_i8 [BH, Dh, M] int8.
-extern "C" int ralf_decode_attention_q8(const float* q, const int8_t* k_i8, const int8_t* v_i8,
-                                        float* out, int BH, int Dh, int M, void* stream) {
-  return ralf::launch_kv<float, int8_t, float>(q, k_i8, v_i8, out, BH, Dh, M, 1.0f,
-                                               static_cast<cudaStream_t>(stream));
+// K8: q and out [BH, Dh] of the dtype code, k_i8 and v_i8 [BH, Dh, M] int8,
+// k_scale and v_scale [BH] fp32; scale = Dh^-1/2 as the caller rounds it to fp32.
+extern "C" int ralf_decode_attention_q8(int dtype, const void* q, const int8_t* k_i8,
+                                        const int8_t* v_i8, const float* k_scale,
+                                        const float* v_scale, void* out, int BH, int Dh, int M,
+                                        float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == ralf::kFloat32)
+    return ralf::launch_kv_q8<float>(q, k_i8, v_i8, k_scale, v_scale, out, BH, Dh, M, scale, st);
+  if (dtype == ralf::kBFloat16)
+    return ralf::launch_kv_q8<__nv_bfloat16>(q, k_i8, v_i8, k_scale, v_scale, out, BH, Dh, M,
+                                             scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -66,20 +66,29 @@
 // CUDA-core kernel below (encoder_attention_kernel<float, DH>): TF32 would
 // not be exact.
 //
-// K1 in fp32, and K6 (simple and right first; the contractions run on the
-// CUDA cores).  Because p is rounded after normalisation, a query tile
-// holds its whole [32, S] score row in shared memory (fp32; 132 KB at
-// S=1024, the most K1 takes): scores, then a warp per row turns them into
-// rounded probabilities, then the PV sums.
+// K6 in bf16 with S <= 384 (every shape the model sends: 330, 4..89, 10
+// and 11): one block per (head, batch row).  A block cannot hold a whole
+// row's qkv [S, 3E] (507 KB in bf16 at S=330, against 227 KB of shared
+// memory), so it splits by head.  It projects Q_h, K_h, V_h [S, Dh] of its
+// head on the tensor cores (x and the head's 3*Dh rows of wqkv streamed
+// along E by cp.async, fp32 sums rounded once to bf16), K_h and V_h into
+// shared memory and Q_h into the head's columns of its own output, then
+// runs K1's rows route over them (rows_attention, the same device code as
+// K1's), with the head's keep weights.  x is read once per head, 8 times at
+// H=8, mostly from L2.
+//
+// K1 in fp32, and K6 in fp32 or past S=384 (simple and right; the
+// contractions run on the CUDA cores; TF32 would not be exact).  Because p
+// is rounded after normalisation, a query tile holds its whole [32, S]
+// score row in shared memory (fp32; 132 KB at S=1024, the most K1 takes):
+// scores, then a warp per row turns them into rounded probabilities, then
+// the PV sums.
 //   K1 fp32: one block per (query tile of 32, head, batch row).  Pass 1
 //   streams the head's keys through shared memory in tiles of 64 for the
 //   scores; pass 2 streams the values (again, mostly from L2).
-//   K6: one block per (head, batch row).  A block cannot hold a whole
-//   row's qkv [S, 3E] (507 KB in bf16 at S=330, against 227 KB of shared
-//   memory), so it splits by head: it projects q_h, k_h, v_h [S, Dh] of its
-//   head into shared memory (x streamed in [32, 32] tiles, wqkv's 3*Dh rows
-//   of the head in [3*Dh, 32] tiles), then walks its query tiles over them.
-//   x is read once per head, 8 times at H=8, mostly from L2.
+//   K6: one block per (head, batch row) projects q_h, k_h, v_h into shared
+//   memory (x streamed in [32, 32] tiles, wqkv's 3*Dh rows of the head in
+//   [3*Dh, 32] tiles), then walks its query tiles over them.
 
 #include <type_traits>
 
@@ -417,34 +426,26 @@ size_t k1_rows_smem(int S) {
           2 * kRowGroups * kKeySplit * 16) * sizeof(float);
 }
 
+// The rows route from the query tiles on, shared by K1 and K6.  K_h, V_h
+// (zero rows past S) and the keep weights w_s [s16] are in shared memory
+// or in flight by this thread's cp.async; the query rows are streamed from
+// q (rows of E, the head's columns at col), each row group's next tile in
+// flight behind the current one in its two buffers of q_s [2][2][16][ld].
+// o_x [2][4][16][ox_ld] and red_m, red_l [2][4][16] are its scratch.  The
+// output rows go to out[(row0 + r) * E + col ..] (K6 passes its own output
+// as q: a tile's rows are read before they are written).
 template <int DH>
-__global__ void __launch_bounds__(kRowsThreads, 2) encoder_attention_rows_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
-    __nv_bfloat16* __restrict__ out, int S, int E) {
+__device__ __forceinline__ void rows_attention(const __nv_bfloat16* q, __nv_bfloat16* q_s,
+                                               const __nv_bfloat16* k_s, const __nv_bfloat16* v_s,
+                                               const float* w_s, bool dead, float* o_x,
+                                               float* red_m, float* red_l, __nv_bfloat16* out,
+                                               size_t row0, int S, int E, int col) {
   constexpr int ld = mma_ld<DH>();
-  const int s16 = round16(S);
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);   // [2 groups][2][16][ld]
-  __nv_bfloat16* k_s = q_s + kRowsQ * ld;                         // [s16][ld]
-  __nv_bfloat16* v_s = k_s + static_cast<size_t>(s16) * ld;       // [s16][ld]
-  float* o_x = reinterpret_cast<float*>(v_s + static_cast<size_t>(s16) * ld);  // [2][4][16][ox_ld]
-  float* w_s = o_x + kRowGroups * kKeySplit * 16 * ox_ld<DH>();   // [s16]
-  float* red_m = w_s + s16;                                       // [2][4][16]
-  float* red_l = red_m + kRowGroups * kKeySplit * 16;             // [2][4][16]
-
-  const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rg = warp / kKeySplit, ks = warp % kKeySplit;
   const int tg = threadIdx.x - rg * kGroupThreads;  // thread of its row group
   const int g = lane >> 2, c = lane & 3;
-  const size_t row0 = static_cast<size_t>(b) * S;
-  const int col = h * DH;
   __nv_bfloat16* q_g = q_s + rg * 2 * 16 * ld;  // the group's two Q tiles
-
-  const bool dead = mma_keep_weights(key_bias == nullptr ? nullptr : key_bias + row0, S, s16, w_s);
-  if (!dead) load_head_rows<DH>(k_s, k, row0, 0, s16, S, E, col);
-  load_head_rows<DH>(v_s, v, row0, 0, s16, S, E, col);
   load_head_rows<DH>(q_g, q, row0, rg * 16, 16, S, E, col, tg, kGroupThreads);
   cp_async_commit();
   cp_async_wait<0>();
@@ -572,6 +573,32 @@ __global__ void __launch_bounds__(kRowsThreads, 2) encoder_attention_rows_kernel
       *reinterpret_cast<uint32_t*>(out + (row0 + q0 + rr) * E + col + 2 * cp) = pack_bf16(acc.x, acc.y);
     }
   }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kRowsThreads, 2) encoder_attention_rows_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
+    __nv_bfloat16* __restrict__ out, int S, int E) {
+  constexpr int ld = mma_ld<DH>();
+  const int s16 = round16(S);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);   // [2 groups][2][16][ld]
+  __nv_bfloat16* k_s = q_s + kRowsQ * ld;                         // [s16][ld]
+  __nv_bfloat16* v_s = k_s + static_cast<size_t>(s16) * ld;       // [s16][ld]
+  float* o_x = reinterpret_cast<float*>(v_s + static_cast<size_t>(s16) * ld);  // [2][4][16][ox_ld]
+  float* w_s = o_x + kRowGroups * kKeySplit * 16 * ox_ld<DH>();   // [s16]
+  float* red_m = w_s + s16;                                       // [2][4][16]
+  float* red_l = red_m + kRowGroups * kKeySplit * 16;             // [2][4][16]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t row0 = static_cast<size_t>(b) * S;
+  const int col = h * DH;
+
+  const bool dead = mma_keep_weights(key_bias == nullptr ? nullptr : key_bias + row0, S, s16, w_s);
+  if (!dead) load_head_rows<DH>(k_s, k, row0, 0, s16, S, E, col);
+  load_head_rows<DH>(v_s, v, row0, 0, s16, S, E, col);
+  rows_attention<DH>(q, q_s, k_s, v_s, w_s, dead, o_x, red_m, red_l, out, row0, S, E, col);
 }
 
 // -- S > 384: recompute, two passes over K streamed in tiles --
@@ -813,6 +840,166 @@ __global__ void __launch_bounds__(kThreads) encoder_self_attention_kernel(
   }
 }
 
+// -- K6 in bf16 with S <= 384: the projection on the tensor cores, then K1's rows route --
+//
+// One block of 8 warps per (head, batch row), as K1's rows route.  Phase 1
+// computes [s16, 3 Dh] = x_b . W_h^T (W_h: the head's Dh rows of each of
+// Wq s, Wk, Wv) by mma.sync m16n8k16, bf16 in and fp32 sums, in rounds of
+// proj_rows rows of x: warp w takes the m-tile w % (8 / split) and the
+// column part w / (8 / split) (split = Dh / 32, so a warp holds 12 n-tiles,
+// 48 sums).  x's rows and W_h's 3 Dh rows stream along E in depth tiles of
+// 32 by 16-byte cp.async through a ring of 3 stages, two in flight behind
+// the one in use; rows of x past S are zeros.  At the end of a round the
+// sums round once to bf16: K_h and V_h into shared memory (rows past S
+// zero, as K1 loads them), Q_h into the head's own columns of the output,
+// which only this block writes.  Phase 2 is rows_attention with the head's
+// keep weights, streaming the query tiles from there as K1 streams them
+// from q (a tile's rows are read before its output overwrites them); the
+// 27 KB a resident Q_h would take at S=330 go to the ring instead, and the
+// block stays at two a SM.  The ring shares its space with phase 2's
+// scratch (o_x, red_m, red_l), which only phase 2 uses.
+constexpr int kProjK = 32;                            // depth of a staging tile along E
+constexpr int kProjLd = kProjK + 8;                   // 80 bytes: an odd number of 16-byte units
+constexpr int kProjStages = 3;
+constexpr int kProjWarpRows = 16;
+template <int DH>
+__host__ __device__ constexpr int proj_split() { return DH / 32; }  // column parts
+template <int DH>
+__host__ __device__ constexpr int proj_rows() { return kProjWarpRows * (kRowsThreads / 32) / proj_split<DH>(); }
+
+template <int DH>
+__host__ __device__ constexpr size_t k6_rows_scratch() {
+  const size_t ring = static_cast<size_t>(kProjStages) * (proj_rows<DH>() + 3 * DH) * kProjLd * 2;
+  const size_t phase2 = (static_cast<size_t>(kRowGroups) * kKeySplit * 16 * ox_ld<DH>() +
+                         2 * kRowGroups * kKeySplit * 16) * sizeof(float);
+  return ring > phase2 ? ring : phase2;
+}
+
+// K_h, V_h [s16][mma_ld], the query tiles [kRowsQ][mma_ld], the scratch,
+// then w_s [s16]: 111.3 KB at S=330, Dh=32, two blocks a SM.
+template <int DH>
+size_t k6_rows_smem(int S) {
+  const size_t s16 = round16(S);
+  return (2 * s16 + kRowsQ) * mma_ld<DH>() * sizeof(__nv_bfloat16) + k6_rows_scratch<DH>() +
+         s16 * sizeof(float);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kRowsThreads, 2) encoder_self_attention_rows_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wqkv,
+    const float* __restrict__ key_bias, int bias_head_stride, __nv_bfloat16* out, int S, int E,
+    int H) {
+  constexpr int ld = mma_ld<DH>();
+  constexpr int kRows = proj_rows<DH>();
+  constexpr int kMTiles = kRows / 16;                  // m-tiles a round
+  constexpr int kWarpN = 3 * DH / 8 / proj_split<DH>();  // n-tiles a warp: 12
+  constexpr int kStage = (kRows + 3 * DH) * kProjLd;   // elements of a ring stage
+  const int s16 = round16(S);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);   // [s16][ld]
+  __nv_bfloat16* v_s = k_s + static_cast<size_t>(s16) * ld;      // [s16][ld]
+  __nv_bfloat16* q_s = v_s + static_cast<size_t>(s16) * ld;      // [2 groups][2][16][ld]
+  unsigned char* scratch = reinterpret_cast<unsigned char*>(q_s + kRowsQ * ld);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(scratch);  // phase 1: [3][kRows + 3 Dh][kProjLd]
+  float* o_x = reinterpret_cast<float*>(scratch);                   // phase 2: [2][4][16][ox_ld]
+  float* red_m = o_x + kRowGroups * kKeySplit * 16 * ox_ld<DH>();   // [2][4][16]
+  float* red_l = red_m + kRowGroups * kKeySplit * 16;               // [2][4][16]
+  float* w_s = reinterpret_cast<float*>(scratch + k6_rows_scratch<DH>());  // [s16]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const size_t row0 = static_cast<size_t>(b) * S;
+  const int col = h * DH;
+
+  // phase 1: step i is depth tile i % ktiles of round i / ktiles, in ring slot i % 3
+  const int ktiles = E / kProjK, steps = (s16 + kRows - 1) / kRows * ktiles;
+  auto issue = [&](int i) {
+    if (i < steps) {
+      const int r0 = i / ktiles * kRows, e0 = i % ktiles * kProjK;
+      const int xrows = min(kRows, s16 - r0);
+      __nv_bfloat16* xs = ring + (i % kProjStages) * kStage;
+      __nv_bfloat16* ws = xs + kRows * kProjLd;
+      constexpr int kChunks = kProjK / 8;  // 16-byte chunks of a tile row
+      for (int j = tid; j < (xrows + 3 * DH) * kChunks; j += kRowsThreads) {
+        const int r = j / kChunks, ch = j % kChunks;
+        if (r < xrows) {
+          const bool valid = r0 + r < S;
+          cp_async16(xs + r * kProjLd + ch * 8,
+                     x + (row0 + (valid ? r0 + r : 0)) * E + e0 + ch * 8, valid);
+        } else {
+          const int n = r - xrows, part = n / DH;  // W_h's row n: row part * E + col + n % DH of wqkv
+          cp_async16(ws + n * kProjLd + ch * 8,
+                     wqkv + static_cast<size_t>(part * E + col + n - part * DH) * E + e0 + ch * 8, true);
+        }
+      }
+    }
+    cp_async_commit();  // an empty group keeps the count of the wait below
+  };
+  for (int i = 0; i < kProjStages - 1; ++i) issue(i);
+  const int mt = warp % kMTiles, np = warp / kMTiles;  // this warp's m-tile and column part
+  float acc[kWarpN][4];
+  for (int i = 0; i < steps; ++i) {
+    const int r0 = i / ktiles * kRows, kt = i % ktiles;
+    if (kt == 0) {
+#pragma unroll
+      for (int n = 0; n < kWarpN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    }
+    cp_async_wait<kProjStages - 2>();
+    __syncthreads();  // step i's tiles landed for all; step i - 1's slot is consumed
+    issue(i + kProjStages - 1);
+    const bool active = r0 + mt * 16 < s16;
+    if (active) {
+      const __nv_bfloat16* xs = ring + (i % kProjStages) * kStage;
+      const __nv_bfloat16* ws = xs + kRows * kProjLd + np * kWarpN * 8 * kProjLd;
+#pragma unroll
+      for (int kk = 0; kk < kProjK / 16; ++kk) {
+        // A: rows 0-7 | k 0-7, rows 8-15 | k 0-7, rows 0-7 | k 8-15, rows 8-15 | k 8-15
+        uint32_t a[4];
+        ldmatrix_x4(a, xs + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kProjLd + kk * 16 +
+                           (lane >> 4) * 8);
+#pragma unroll
+        for (int n = 0; n < kWarpN; n += 2) {
+          // B from W_h's rows (n-major, as K in chunk_scores): cols 0-7 | k 0-7,
+          // cols 0-7 | k 8-15, cols 8-15 | k 0-7, cols 8-15 | k 8-15
+          uint32_t bw[4];
+          ldmatrix_x4(bw, ws + (n * 8 + (lane & 7) + (lane >> 4) * 8) * kProjLd + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16(acc[n], a[0], a[1], a[2], a[3], bw[0], bw[1]);
+          mma_bf16(acc[n + 1], a[0], a[1], a[2], a[3], bw[2], bw[3]);
+        }
+      }
+    }
+    if (kt == ktiles - 1 && active) {
+      // the round's sums, rounded once to bf16: K_h | V_h into shared memory,
+      // Q_h's rows below S into the head's columns of the output
+#pragma unroll
+      for (int n = 0; n < kWarpN; ++n) {
+        const int cc = (np * kWarpN + n) * 8 + 2 * c, part = cc / DH, d = cc - part * DH;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + mt * 16 + g + 8 * r;
+          const uint32_t val = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+          if (part != 0) {
+            *reinterpret_cast<uint32_t*>((part == 1 ? k_s : v_s) + row * ld + d) = val;
+          } else if (row < S) {
+            *reinterpret_cast<uint32_t*>(out + (row0 + row) * E + col + d) = val;
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // phase 2; the keep weights' barrier also publishes K_h, V_h and Q_h and frees the ring
+  const float* bias = key_bias == nullptr
+                          ? nullptr
+                          : key_bias + static_cast<size_t>(b) * (bias_head_stride ? H : 1) * S +
+                                static_cast<size_t>(h) * bias_head_stride;
+  const bool dead = mma_keep_weights(bias, S, s16, w_s);
+  rows_attention<DH>(out, q_s, k_s, v_s, w_s, dead, o_x, red_m, red_l, out, row0, S, E, col);
+}
+
 // Allows `smem` bytes of dynamic shared memory (above 48 KB a kernel must
 // opt in); returns the cudaError_t.
 template <typename Kernel>
@@ -823,19 +1010,6 @@ int allow_smem(Kernel kernel, size_t smem) {
     return err;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-}
-
-template <typename T, int DH>
-int launch_k1(const void* q, const void* k, const void* v, const float* key_bias, void* out,
-              int B, int S, int E, int nhead, cudaStream_t stream) {
-  auto kernel = encoder_attention_kernel<T, DH>;
-  const size_t smem = k1_smem<T, DH>(S);
-  if (int err = allow_smem(kernel, smem)) return err;
-  const dim3 grid((S + kQT - 1) / kQT, nhead, B);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                           static_cast<const T*>(v), key_bias,
-                                           static_cast<T*>(out), S, E);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // allow_smem once per device and size: the attribute calls would otherwise
@@ -849,6 +1023,19 @@ int allow_smem_once(size_t smem) {
   if (int err = allow_smem(kKernel, smem)) return err;
   if (dev < 64) allowed[dev] = smem;
   return 0;
+}
+
+template <typename T, int DH>
+int launch_k1(const void* q, const void* k, const void* v, const float* key_bias, void* out,
+              int B, int S, int E, int nhead, cudaStream_t stream) {
+  auto kernel = encoder_attention_kernel<T, DH>;
+  const size_t smem = k1_smem<T, DH>(S);
+  if (int err = allow_smem_once<encoder_attention_kernel<T, DH>>(smem)) return err;
+  const dim3 grid((S + kQT - 1) / kQT, nhead, B);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                           static_cast<const T*>(v), key_bias,
+                                           static_cast<T*>(out), S, E);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH>
@@ -872,12 +1059,23 @@ int launch_k1_mma(const void* q, const void* k, const void* v, const float* key_
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 with S <= 384 on the tensor cores; fp32, and bf16 past 384, on the CUDA cores
 template <typename T, int DH>
 int launch_k6(const void* x, const void* wqkv, const float* key_bias, int bias_head_stride,
               void* out, int B, int S, int E, int nhead, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (S <= kRowsMaxS) {
+      const size_t smem = k6_rows_smem<DH>(S);
+      if (int err = allow_smem_once<encoder_self_attention_rows_kernel<DH>>(smem)) return err;
+      encoder_self_attention_rows_kernel<DH><<<dim3(nhead, B), kRowsThreads, smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(wqkv), key_bias, bias_head_stride,
+          static_cast<T*>(out), S, E, nhead);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
   auto kernel = encoder_self_attention_kernel<T, DH>;
   const size_t smem = k6_smem<T, DH>(S);
-  if (int err = allow_smem(kernel, smem)) return err;
+  if (int err = allow_smem_once<encoder_self_attention_kernel<T, DH>>(smem)) return err;
   kernel<<<dim3(nhead, B), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), key_bias, bias_head_stride,
       static_cast<T*>(out), S, E, nhead);

@@ -28,7 +28,8 @@ Precision, as the TPU kernels: K2 rounds the normalised p to the memory's
 dtype and K3 rounds p * s to q_tilde's dtype before the p . mem
 contraction, which sums in fp32 (in fp32 the rounding is the identity).
 K7 and K8 keep p in fp32, scale the scores by the Python float Dh^-1/2 and
-return q's dtype (K8's kernel works in fp32 and the wrapper casts).
+return q's dtype; K8's kernel folds k_scale into the query and v_scale onto
+the output itself, in `_fold_k_scale`'s order, so one call is one launch.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ _SIGNATURES = {
     "ralf_decode_shared_attention_q8": [_I, _P, _P, _P, _P, _I, _I, _P],
     "ralf_decode_shared_attention_q8mxu": [_I, _P, _P, _P, _P, _I, _I, _P],
     "ralf_decode_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "ralf_decode_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ralf_decode_attention_q8": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 
@@ -126,7 +127,9 @@ def q8mxu_probs(q_tilde: torch.Tensor, mem_i8: torch.Tensor, mem_scale: torch.Te
     scores = scores * qs[:, :, None] * mem_scale[:, None, :]
     p2 = torch.softmax(scores, dim=-1) * mem_scale[:, None, :]
     ps = p2.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
-    return torch.clamp(torch.round(p2 * (127.0 / ps)), -127, 127), ps
+    # 127 / ps divided, as q8mxu_reference and the kernels do: a Python
+    # number over a tensor is a reciprocal times 127 in torch
+    return torch.clamp(torch.round(p2 * (ps.new_full((), 127.0) / ps)), -127, 127), ps
 
 
 def decode_shared_attention_q8mxu_plain(
@@ -294,7 +297,8 @@ def decode_attention(q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor) -> t
 def decode_attention_q8(q: torch.Tensor, k_i8: torch.Tensor, v_i8: torch.Tensor,
                         k_scale: torch.Tensor, v_scale: torch.Tensor) -> torch.Tensor:
     """K8: q [B, H, Dh], int8 caches [B, H, Dh, M], scales fp32 [B, H] ->
-    [B, H, Dh] in q's dtype.  The scales fold outside the kernel."""
+    [B, H, Dh] in q's dtype.  The kernel folds both scales itself: one call
+    is one launch."""
     if q.device.type == "cpu":
         return decode_attention_q8_plain(q, k_i8, v_i8, k_scale, v_scale)
     what = "decode_attention_q8"
@@ -305,16 +309,16 @@ def decode_attention_q8(q: torch.Tensor, k_i8: torch.Tensor, v_i8: torch.Tensor,
     for s in (k_scale, v_scale):
         if s.dtype != torch.float32 or s.shape != q.shape[:2]:
             raise ValueError(f"{what}: scales must be float32 [B, H]")
-    q_scaled = _fold_k_scale(q, k_scale)
-    out = torch.empty_like(q_scaled)
+    code = _build.dtype_code(q, what)
+    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _lib().ralf_decode_attention_q8(
-            q_scaled.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(), out.data_ptr(), BH, Dh, M,
-            _build.stream_handle(),
+            code, q.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), out.data_ptr(), BH, Dh, M, Dh**-0.5, _build.stream_handle(),
         )
     _build.check_launch(rc, what)
     decode_attention_q8.launches += 1
-    return (out * v_scale[:, :, None]).to(q.dtype)
+    return out
 
 
 for _kernel in (decode_shared_attention, decode_shared_attention_q8, decode_shared_attention_q8mxu,

@@ -40,6 +40,7 @@ _SIGNATURES = {
     ],
 }
 K1_MAX_S = 1024  # a query tile's [32, S] fp32 score row in shared memory
+ROWS_MAX_S = 384  # bf16 up to here: a row's scores in registers (K1, K6 on the tensor cores)
 SMEM_PER_BLOCK = 232448  # the H100's 227 KB
 
 
@@ -134,7 +135,15 @@ def encoder_self_attention_plain(
 
 
 def self_attention_smem(S: int, Dh: int, itemsize: int) -> int:
-    """Shared memory of one K6 block (csrc/encoder_attention.cu k6_smem)."""
+    """Shared memory of one K6 block on the route the launcher takes
+    (csrc/encoder_attention.cu k6_rows_smem for bf16 with S <= 384, else
+    k6_smem)."""
+    if itemsize == 2 and S <= ROWS_MAX_S:
+        s16, ld = -(-S // 16) * 16, Dh + 8
+        rows = 16 * 8 // (Dh // 32)  # x rows a projection round
+        ring = 3 * (rows + 3 * Dh) * 40 * 2  # three stages of depth-32 tiles, rows of 80 bytes
+        phase2 = (2 * 4 * 16 * ld + 2 * 2 * 4 * 16) * 4  # the rows route's partial outputs and maxima
+        return (2 * s16 + 64) * ld * 2 + max(ring, phase2) + s16 * 4  # K_h, V_h, 4 query tiles
     ld = Dh + 4 // itemsize
     sq = -(-S // 32) * 32
     return (sq + 2 * S) * ld * itemsize + S * 4 + max(32 * S, (32 + 3 * Dh) * 33) * 4
@@ -148,7 +157,9 @@ def encoder_self_attention(
     [B, S, E] and wqkv [3E, E] = cat(q_proj.weight * s, k_proj.weight,
     v_proj.weight) (nn.Linear's layout); key_bias fp32 [B, S] or per head
     [B, H, S].  The projection biases are the caller's
-    (`models.nn.MultiHeadAttention._self_attend_folded`)."""
+    (`models.nn.MultiHeadAttention._self_attend_folded`).  bf16 with
+    S <= 384 runs on the tensor cores (and needs x and wqkv on a 16-byte
+    boundary); fp32, and bf16 past 384, on the CUDA cores."""
     if x.device.type == "cpu":
         return encoder_self_attention_plain(x, wqkv, nhead, key_bias)
     what = "encoder_self_attention"
@@ -171,6 +182,8 @@ def encoder_self_attention(
             raise ValueError(f"{what}: key_bias must be float32 [B, S] or [B, H, S]")
         head_stride = S if key_bias.dim() == 3 else 0
     code = _build.dtype_code(x, what)
+    if x.dtype == torch.bfloat16:
+        _build.require_aligned(what, x, wqkv)
     lib = _build.library("encoder_attention", _SIGNATURES)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):

@@ -16,12 +16,16 @@ integer moves an output by ps * |mem_i8| / 127 <= ps.  K9's row sums:
 adds rtol * (|out| + |b1 W2 + b2|): its output rounds o before adding that
 tail, and then the sum.  K6 in bf16 adds 2^-8 * max_j |v_j|: its q, k, v
 are rounded after fp32 sums in another order than the plain version's.
+K8 is held to the fp32 or bf16 tolerance of its output dtype: it keeps p in
+fp32, and only the order of its sums differs (an online softmax over 4
+warps' slices against the plain version's one softmax).
 """
 
 import pytest
 import torch
 
 from ralf_tpu_torch.models import nn as tnn
+from ralf_tpu_torch.ops import _build
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
 from ralf_tpu_torch.ops import encoder_ffn as ef
@@ -36,6 +40,12 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # every kernel library loaded before the process's first torch.profiler
+    # session: on the card, a library loaded after it showed no kernels to
+    # the sessions that followed
+    da._lib()
+    for mod, name in ((ea, "encoder_attention"), (ef, "encoder_ffn"), (ss, "stream_sum")):
+        _build.library(name, mod._SIGNATURES)
     return torch.device("cuda")
 
 
@@ -148,6 +158,11 @@ def test_fused_ffn_kernel_matches_plain(dev, dtype, B, S, E, F):
     (6, 11, 4, "heads+keys"),   # FIDNet, Dh=64, every 3rd row fully masked
     (1, 1, 8, None),            # a single token
     (2, 97, 4, "keys"),         # a shared [B, S] bias, ragged tiles
+    (2, 16, 8, "keys"),         # one query tile, a shared bias
+    (2, 384, 8, "heads+keys"),  # bf16: the tensor-core route's largest S
+    (2, 250, 4, "heads"),       # Dh=64 over two row groups (fp32 takes S <= 260 there)
+    (2, 385, 8, "heads+keys"),  # bf16: past it, the CUDA-core kernel
+    (1, 385, 8, "keys"),
 ])
 def test_encoder_self_attention_kernel_matches_plain(dev, dtype, B, S, H, bias):
     g = torch.Generator(device=dev).manual_seed(S + H)
@@ -171,6 +186,30 @@ def test_encoder_self_attention_kernel_matches_plain(dev, dtype, B, S, H, bias):
     v_max = (x.float() @ wqkv[2 * E:].float().t()).abs().amax(dim=1, keepdim=True)
     extra = 2**-8 * v_max if dtype == torch.bfloat16 else 0.0
     _close(out, ea.encoder_self_attention_plain(x, wqkv, H, kb), dtype, extra=extra)
+
+
+@pytest.mark.parametrize("dtype,S,route", [
+    (torch.bfloat16, 1, "encoder_self_attention_rows_kernel"),
+    (torch.bfloat16, 330, "encoder_self_attention_rows_kernel"),
+    (torch.bfloat16, 385, "encoder_self_attention_kernel"),
+    (torch.float32, 330, "encoder_self_attention_kernel"),
+])
+def test_encoder_self_attention_route(dev, dtype, S, route):
+    """bf16 with S <= 384 runs the tensor-core kernel (the projection, then
+    K1's rows route); fp32, and bf16 past 384, the CUDA-core one.  Either way
+    one call is one kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(2, S, 256, device=dev).to(dtype)
+    wqkv = (torch.randn(768, 256, device=dev) / 16).to(dtype)
+    ea.encoder_self_attention(x, wqkv, 8)  # builds and loads the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ea.encoder_self_attention(x, wqkv, 8)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and f"{route}<" in kernels[0], kernels
 
 
 @pytest.mark.parametrize("view", ["int8", "int16", "int32", "float32", "bfloat16"])
@@ -324,13 +363,30 @@ def test_q8mxu_call_is_one_kernel(dev, dtype):
 def test_quantisers_on_the_card_match_the_cpu_bit_for_bit(dev):
     """The absmax quantisers divide by 127 truly on the card too (as JAX and
     K4's kernel do): bf16 inputs put elements at amax / 2, where x / qs is an
-    exact .5 tie that an ulp of qs would move."""
+    exact .5 tie that an ulp of qs would move.  quantize_per_token (the int8
+    self caches) and quantize_kv (K8's caches) get such elements planted in
+    every group they scale."""
     g = torch.Generator(device=dev).manual_seed(10)
     qt = (torch.randn(64, 8, 256, generator=g, device=dev) / 16).bfloat16()
     mem = torch.randn(64, 300, 256, generator=g, device=dev).bfloat16()
     for fn, x in ((da.quantize_q_tilde, qt), (da.quantize_shared_memory, mem)):
         for card, cpu in zip(fn(x), fn(x.cpu())):
             assert torch.equal(card.cpu(), cpu)
+
+    def halves(x, dims):  # x with its second element along dims at amax / 2 (exact in bf16)
+        x = x.clone()
+        flat = x.movedim(dims, tuple(range(-len(dims), 0))).flatten(-len(dims))
+        flat[..., 1] = flat.float().abs().amax(-1).div(2).to(x.dtype)
+        return flat.unflatten(-1, [x.shape[d] for d in dims]).movedim(
+            tuple(range(-len(dims), 0)), dims).contiguous()
+
+    tok = halves(torch.randn(64, 8, 32, 1, generator=g, device=dev).bfloat16(), (2,))
+    k_t, v_t = (halves(torch.randn(16, 8, 32, 300, generator=g, device=dev).bfloat16(), (2, 3))
+                for _ in range(2))
+    for card, cpu in ((tnn.quantize_per_token(tok), tnn.quantize_per_token(tok.cpu())),
+                      (da.quantize_kv(k_t, v_t), da.quantize_kv(k_t.cpu(), v_t.cpu()))):
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
 
 
 def test_int8_cluster_kernels_reject_unaligned_memory(dev):
@@ -344,8 +400,10 @@ def test_int8_cluster_kernels_reject_unaligned_memory(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# K8 reads 16-byte vectors where M allows (4096), else 8 (680), 4 (300) or single bytes (677)
 @pytest.mark.parametrize("B,H,Dh,M", [(2, 8, 32, 1), (3, 8, 32, 677), (2, 4, 8, 300),
-                                      (1, 8, 32, 680)])
+                                      (1, 8, 32, 680), (2, 4, 8, 5), (2, 8, 32, 4096),
+                                      (1, 2, 256, 4096), (2, 3, 40, 77)])
 def test_per_layer_decode_kernels_match_plain(dev, dtype, B, H, Dh, M):
     g = torch.Generator(device=dev).manual_seed(M + 2)
     q = torch.randn(B, H, Dh, generator=g, device=dev).to(dtype)
@@ -355,6 +413,76 @@ def test_per_layer_decode_kernels_match_plain(dev, dtype, B, H, Dh, M):
     cached = da.quantize_kv(k_t, v_t)
     _close(da.decode_attention_q8(q, *cached), da.decode_attention_q8_plain(q, *cached), dtype)
     assert (da.decode_attention.launches, da.decode_attention_q8.launches) == (n7 + 1, n8 + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [8, 32, 256])
+def test_decode_attention_q8_call_is_one_kernel(dev, dtype, Dh):
+    """K8 folds both scales itself: one wrapper call runs exactly one CUDA
+    kernel (no cast, multiply or copy), counted by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(Dh)
+    q = torch.randn(4, 8, Dh, generator=g, device=dev).to(dtype)
+    cached = da.quantize_kv(*(torch.randn(4, 8, Dh, 680, generator=g, device=dev)
+                              for _ in range(2)))
+    da.decode_attention_q8(q, *cached)  # builds and loads the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = da.decode_attention_q8(q, *cached)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "decode_attention_q8_kernel" in kernels[0], kernels
+    _close(out, da.decode_attention_q8_plain(q, *cached), dtype)
+
+
+@pytest.mark.parametrize("shift", [1, 2, 4, 8])
+def test_decode_attention_q8_takes_caches_at_any_alignment(dev, shift):
+    """K8 reads the widest vector that M and the caches' starts allow: caches
+    that start `shift` bytes past a 16-byte boundary take 8-byte vectors, 4-byte
+    words, or aligned words shifted into place (M=680, 16 and 8 divide it)."""
+    g = torch.Generator(device=dev).manual_seed(shift)
+    q = torch.randn(3, 8, 32, generator=g, device=dev)
+    k_i8, v_i8, ks, vs = da.quantize_kv(*(torch.randn(3, 8, 32, 680, generator=g, device=dev)
+                                          for _ in range(2)))
+    shifted = []
+    for t in (k_i8, v_i8):
+        buf = torch.empty(t.numel() + shift, dtype=torch.int8, device=dev)[shift:].view(t.shape)
+        buf.copy_(t)
+        shifted.append(buf)
+    _close(da.decode_attention_q8(q, *shifted, ks, vs), da.decode_attention_q8_plain(q, k_i8, v_i8, ks, vs),
+           torch.float32)
+
+
+def test_kernel_wrappers_refuse_inputs_that_need_a_gradient(dev):
+    """The kernels are forward only: on CUDA tensors every wrapper K1-K8
+    raises when grad is enabled and an input requires grad, instead of
+    returning a tensor with no grad_fn; under no_grad it launches."""
+    x = torch.randn(2, 20, 256, device=dev)
+    qt, mem = torch.randn(2, 8, 256, device=dev) / 16, torch.randn(2, 10, 256, device=dev)
+    mi, ms = da.quantize_shared_memory(mem)
+    qh, k_t = torch.randn(2, 8, 32, device=dev), torch.randn(2, 8, 32, 10, device=dev)
+    w1, w2 = torch.randn(1024, 256, device=dev) / 16, torch.randn(256, 1024, device=dev) / 32
+    b1, b2 = torch.randn(1024, device=dev), torch.randn(256, device=dev)
+    wqkv = torch.randn(768, 256, device=dev) / 16
+    calls = (  # the kernel and the position of the argument that will require grad
+        (lambda a: ea.encoder_attention(a, x, x, 8), x),
+        (lambda a: da.decode_shared_attention(a, mem), qt),
+        (lambda a: da.decode_shared_attention_q8(a, mi, ms), qt),
+        (lambda a: da.decode_shared_attention_q8mxu(a, mi, ms), qt),
+        (lambda a: ef.fused_ffn(x, a, b1, w2, b2), w1),
+        (lambda a: ea.encoder_self_attention(x, a, 8), wqkv),
+        (lambda a: da.decode_attention(a, k_t, k_t), qh),
+        (lambda a: da.decode_attention_q8(a, *da.quantize_kv(k_t, k_t)), qh),
+    )
+    for call, arg in calls:
+        leaf = arg.clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="forward only"):
+            call(leaf)
+        with torch.no_grad():
+            assert bool(torch.isfinite(call(leaf)).all())
+    torch.cuda.synchronize()
 
 
 def test_q8_mxu_switch_launches_k4(dev):

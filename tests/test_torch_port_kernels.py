@@ -401,3 +401,83 @@ def test_plain_versions_keep_the_input_dtype():
     k_t = torch.from_numpy(rng.normal(size=(2, 4, 8, 9)).astype(np.float32)).bfloat16()
     assert da.decode_attention(qh, k_t, k_t).dtype == torch.bfloat16
     assert da.decode_attention_q8(qh, *da.quantize_kv(k_t, k_t)).dtype == torch.bfloat16
+
+
+def test_q8mxu_probs_equal_the_reference_on_rounding_ties():
+    """K4's quantised probabilities pi = round(p2 * (127 / ps)) equal
+    q8mxu_reference's bit for bit where p2 * 127 / ps lands on k + 0.5: a
+    zero query makes every score 0, so p = 1/M exactly (M a power of two)
+    on both sides, and per-token scales s = top * (k + 0.5) / 127 with the
+    row's largest s = top (3, 5, 6, 7 or 11) make ps = top / M, whose
+    reciprocal is inexact.  127 / ps must be divided, as the reference does:
+    a reciprocal times 127 flips thousands of these roundings."""
+    rng = np.random.default_rng(14)
+    B, M = 4, 1024
+    qt = np.zeros((B, 8, 256), np.float32)
+    mem_i8 = rng.integers(-127, 128, size=(B, M, 256)).astype(np.int8)
+    top = rng.choice([3.0, 5.0, 6.0, 7.0, 11.0], size=(B, 1)).astype(np.float32)
+    ms = (top * (rng.integers(0, 127, size=(B, M)) + 0.5) / np.float32(127)).astype(np.float32)
+    ms[:, 0] = top[:, 0]
+
+    @jax.jit
+    def reference_pi(q, mem, s):  # q8mxu_reference's lines up to its quantised p
+        qi, qs = jax_quantize_q(q)
+        scores = jnp.einsum("bhe,bme->bhm", qi.astype(jnp.int32),
+                            mem.astype(jnp.int32)).astype(jnp.float32)
+        p2 = jax.nn.softmax(scores * qs[:, :, None] * s[:, None, :], axis=-1) * s[:, None, :]
+        ps = jnp.maximum(jnp.max(jnp.abs(p2), axis=-1, keepdims=True), 1e-30)
+        return jnp.clip(jnp.round(p2 * (127.0 / ps)), -127, 127), ps, p2
+
+    ref_pi, ref_ps, p2 = (np.asarray(a) for a in reference_pi(qt, mem_i8, ms))
+    assert (np.abs(p2 * (np.float32(127) / ref_ps)) % 1 == 0.5).sum() > 10000  # the ties
+    pi, ps = da.q8mxu_probs(*(torch.from_numpy(a) for a in (qt, mem_i8, ms)))
+    np.testing.assert_array_equal(ps.numpy(), ref_ps)
+    np.testing.assert_array_equal(pi.numpy(), ref_pi)
+    by_reciprocal = np.clip(np.round(p2 * (np.float32(1) / ref_ps * np.float32(127))), -127, 127)
+    assert (by_reciprocal != ref_pi).sum() > 1000  # the ties do decide
+
+
+def test_plain_versions_carry_the_gradients_of_the_jax_kernels():
+    """On CPU tensors the wrappers run their plain versions, which keep
+    autograd (the kernels on the card are forward only and raise instead):
+    K1's, K5's and K6's gradients equal those of the JAX kernels' custom_vjps,
+    which recompute through their XLA references, in fp32; K2, K3, K7 and K8
+    give finite, nonzero gradients to their float inputs."""
+    rng = np.random.default_rng(15)
+    B, S, E, H = 2, 9, 64, 2
+    x, q, k, v, cot = (rng.normal(size=(B, S, E)).astype(np.float32) for _ in range(5))
+    wqkv = (rng.normal(size=(3 * E, E)) * E**-0.5).astype(np.float32)
+    w1, w2 = ((rng.normal(size=s) * 0.2).astype(np.float32) for s in ((128, E), (E, 128)))
+    b1, b2 = rng.normal(size=128).astype(np.float32), rng.normal(size=E).astype(np.float32)
+
+    def grads(torch_fn, jax_fn, arrays):
+        ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+        (torch_fn(*ts) * torch.from_numpy(cot)).sum().backward()
+        ref = jax.grad(lambda *a: jnp.sum(jax_fn(*a) * cot), argnums=tuple(range(len(arrays))))(
+            *map(jnp.asarray, arrays))
+        for t, r in zip(ts, ref):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=1e-4, atol=1e-5)
+
+    grads(lambda q, k, v: ea.encoder_attention(q, k, v, H),
+          lambda q, k, v: fused_encoder_attention(q, k, v, H, interpret=True), (q, k, v))
+    grads(lambda x, w: ea.encoder_self_attention(x, w, H),
+          lambda x, w: fused_encoder_self_attention(x, w.T, H, interpret=True), (x, wqkv))
+    grads(ef.fused_ffn,
+          lambda x, w1, b1, w2, b2: jax_fused_ffn(x, w1.T, b1, w2.T, b2, interpret=True),
+          (x, w1, b1, w2, b2))
+
+    qt = torch.from_numpy((rng.normal(size=(2, 8, 256)) / 16).astype(np.float32))
+    mem = torch.from_numpy(rng.normal(size=(2, 9, 256)).astype(np.float32))
+    mi, ms = da.quantize_shared_memory(mem)
+    qh = torch.from_numpy(rng.normal(size=(2, 4, 8)).astype(np.float32))
+    k_t, v_t = (torch.from_numpy(rng.normal(size=(2, 4, 8, 9)).astype(np.float32))
+                for _ in range(2))
+    for fn, args in ((da.decode_shared_attention, (qt, mem)),
+                     (da.decode_shared_attention_q8, (qt, mi, ms)),
+                     (da.decode_attention, (qh, k_t, v_t)),
+                     (da.decode_attention_q8, (qh, *da.quantize_kv(k_t, v_t)))):
+        leaves = [a.clone().requires_grad_() if a.is_floating_point() else a for a in args]
+        fn(*leaves).square().sum().backward()
+        for a in leaves:
+            if a.requires_grad:
+                assert bool(torch.isfinite(a.grad).all()) and float(a.grad.abs().max()) > 0

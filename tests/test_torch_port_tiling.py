@@ -1,4 +1,4 @@
-"""The decompositions that the CUDA kernels of K1-K4 follow, in plain torch.
+"""The decompositions that the CUDA kernels of K1-K4, K6 and K8 follow, in plain torch.
 
 `csrc/encoder_attention.cu` and `csrc/decode_attention.cu` cannot run on the
 CPU, but the algebra of their tilings can.  Each function below writes one
@@ -27,6 +27,15 @@ one rounding of p2 * 127 / ps that lands on the other integer (the slices
 sum l in another order) moves an output by ps * |mem_i8| / 127 <= ps.  The
 quantiser that K4 runs inside the kernel is held bit for bit against
 `quantize_q_tilde` on exact .5 ties.
+K6 (bf16 with S <= 384) projects x through the head's rows of wqkv in depth
+tiles of 16 along E with fp32 sums, rounds q, k, v once, and then runs K1's
+resident tiling with the head's keep weights.  K8 folds Dh^-1/2 and k_scale
+into the fp32 query, splits M into 4 warps' slices of a multiple of the
+tokens a lane owns (16 consecutive where M % 16 == 0, else 8; where M % 4 !=
+0, lane l owns tokens l, l + 32, ... of a step), and within a slice takes
+steps of 32 lanes: an online softmax (running max, rescaled per-lane sums and partial
+outputs, p never rounded), then the warps' (m, l, o) merged in warp order
+and v_scale applied to the output.
 """
 
 import jax.numpy as jnp
@@ -35,13 +44,18 @@ import pytest
 import torch
 
 from ralf_tpu.ops.pallas.decode_attention import (
+    fused_decode_attention_q8,
     fused_decode_shared_attention,
     fused_decode_shared_attention_q8,
     fused_decode_shared_attention_q8mxu,
+    quantize_kv as jax_quantize_kv,
     quantize_q_tilde as jax_quantize_q,
     quantize_shared_memory as jax_quantize,
 )
-from ralf_tpu.ops.pallas.encoder_attention import fused_encoder_attention
+from ralf_tpu.ops.pallas.encoder_attention import (
+    fused_encoder_attention,
+    fused_encoder_self_attention,
+)
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
 
@@ -51,6 +65,9 @@ K1_TILE = 64      # encoder_attention_rec_kernel: keys a tile
 K1_CHUNK = 16     # encoder_attention_rows_kernel: keys a chunk (one k-step of mma)
 K1_SPLIT = 4      # ... and warps that share a row group, chunk i to warp i % 4
 K2_CLUSTER = 8    # decode_shared_cluster_kernel: CTAs a batch row
+K6_DEPTH = 16     # encoder_self_attention_rows_kernel: depth of a projection tile along E
+K8_WARPS = 4      # decode_attention_q8_kernel: warps a (b, h) row, each a slice of M
+K8_TOK = 16       # ... and consecutive tokens a lane owns with 16-byte rows (M % 16 == 0), else 8
 
 
 def _heads(t, nhead):
@@ -344,3 +361,122 @@ def test_in_kernel_quantiser_matches_quantize_q_tilde_bit_for_bit(dtype_name):
     for ref_qi, ref_qs in (da.quantize_q_tilde(torch.from_numpy(x)), jax_quantize_q(jnp.asarray(x))):
         np.testing.assert_array_equal(qi, np.asarray(ref_qi))
         assert np.asarray(ref_qs).tobytes() == qs.tobytes()
+
+
+def k6_split(x, wqkv, nhead, key_bias=None, depth=K6_DEPTH):
+    """K6's tensor-core route: qkv = T(sum over depth tiles of x . W^T) with
+    fp32 sums, then K1's resident tiling head by head with the head's keep
+    weights (key_bias [B, S] shared or [B, H, S] per head)."""
+    B, S, E = x.shape
+    Dh = E // nhead
+    acc = torch.zeros(B, S, 3 * E)
+    for e0 in range(0, E, depth):
+        acc = acc + x[..., e0:e0 + depth].float() @ wqkv[:, e0:e0 + depth].float().t()
+    qkv = acc.to(x.dtype)
+    heads = []
+    for h in range(nhead):
+        cols = slice(h * Dh, (h + 1) * Dh)
+        q, k, v = (qkv[..., i * E:(i + 1) * E][..., cols] for i in range(3))
+        bias = None if key_bias is None else (key_bias[:, h] if key_bias.dim() == 3 else key_bias)
+        heads.append(k1_resident(q, k, v, 1, bias))
+    return torch.cat(heads, dim=-1)
+
+
+K6_CASES = {
+    # (B, S, nhead, bias)
+    "single_token": (2, 1, 8, None),
+    "fidnet": (3, 11, 4, "heads+keys"),        # Dh=64, one tile of 16 rows, a dead row
+    "constraint": (3, 89, 8, "keys"),          # a shared [B, S] bias, a dead row
+}
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_k6_tiling_matches_plain_and_pallas(case, dtype_name):
+    B, S, nhead, bias = K6_CASES[case]
+    rng = np.random.default_rng(S + nhead)
+    E, Dh = 256, 256 // nhead
+    x = rng.normal(size=(B, S, E)).astype(np.float32)
+    wqkv = (rng.normal(size=(3 * E, E)) * E**-0.5).astype(np.float32)
+    wqkv[:E] *= Dh**-0.5  # the softmax scale folded into Wq
+    kb = None
+    if bias is not None:
+        keep = rng.random((B, S)) > 0.3
+        keep[:, 0] = True
+        keep[1] = False  # a dead row: uniform over its keys
+        kb = np.where(keep, 0.0, -1e9).astype(np.float32)
+        if "heads" in bias:
+            kb = (kb[:, None, :] + rng.normal(size=(B, nhead, S))).astype(np.float32)
+    jd, td = getattr(jnp, dtype_name), getattr(torch, dtype_name)
+    tx, tw = torch.from_numpy(x).to(td), torch.from_numpy(wqkv).to(td)
+    tkb = None if kb is None else torch.from_numpy(kb)
+    tiled = k6_split(tx, tw, nhead, tkb)
+    assert tiled.dtype == td and bool(torch.isfinite(tiled.float()).all())
+    _assert_close(tiled, ea.encoder_self_attention_plain(tx, tw, nhead, tkb).float(), dtype_name)
+    ref = fused_encoder_self_attention(jnp.asarray(x, jd), jnp.asarray(wqkv.T, jd), nhead,
+                                       None if kb is None else jnp.asarray(kb), interpret=True)
+    _assert_close(tiled, ref.astype(jnp.float32), dtype_name)
+
+
+def k8_split(q, k_i8, v_i8, k_scale, v_scale, warps=K8_WARPS, tok=None):
+    """K8: the fp32 query with Dh^-1/2 and k_scale folded in (in that order),
+    M in `warps` slices of a multiple of `tok` tokens, steps of 32 lanes of
+    `tok` tokens with an online softmax (per-lane sums and partial outputs
+    rescaled by exp(m - m_new)), the warps merged in order, v_scale last."""
+    B, H, Dh, M = k_i8.shape
+    tok = tok or (K8_TOK if M % 16 == 0 else 8)
+    strided = M % 4 != 0  # lane l owns tokens l, l + 32, ... (the kernel's byte loads)
+
+    def lanes(x):  # [..., step] -> [..., 32 lanes, tok]
+        return x.unflatten(-1, (tok, 32)).transpose(-1, -2) if strided else x.unflatten(-1, (32, tok))
+
+    qf = q.float() * Dh**-0.5 * k_scale[:, :, None]
+    per = -(-M // (warps * tok)) * tok
+    step = 32 * tok
+    parts = []
+    for w in range(warps):
+        b0 = min(M, w * per)
+        b1 = min(M, b0 + per)
+        m = torch.full((B, H), -torch.inf)
+        lanes_l = torch.zeros(B, H, 32)      # each lane's share of the sum
+        o = torch.zeros(B, H, Dh)
+        for t0 in range(b0, b1, step):
+            n = min(b1, t0 + step) - t0
+            pad = (0, step - n)
+            k = torch.nn.functional.pad(k_i8[..., t0:t0 + n].float(), pad)
+            v = torch.nn.functional.pad(v_i8[..., t0:t0 + n].float(), pad)
+            s = torch.einsum("bhd,bhdm->bhm", qf, k)
+            live = torch.arange(step) < n
+            m_new = torch.maximum(m, torch.where(live, s, -torch.inf).amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(live, torch.exp(s - m_new[..., None]), 0.0)  # fp32, never rounded
+            lanes_l = lanes_l * alpha[..., None] + lanes(p).sum(-1)
+            lane_o = torch.einsum("bhlt,bhdlt->bhdl", lanes(p), lanes(v))
+            o = o * alpha[..., None] + lane_o.sum(-1)
+            m = m_new
+        parts.append((m, lanes_l.sum(-1), o))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+    f = [torch.where(m == -torch.inf, 0.0, torch.exp(m - m_all)) for m, _, _ in parts]
+    l_all = sum(l * fw for (_, l, _), fw in zip(parts, f))
+    o_all = sum(o * fw[..., None] for (_, _, o), fw in zip(parts, f))
+    return (o_all / l_all[..., None] * v_scale[:, :, None]).to(q.dtype)
+
+
+# strided lanes: one token, empty warps, ragged; 8 consecutive tokens a lane, one step a warp
+# (600) and two (1100); 16 a lane, two steps a warp (2064)
+@pytest.mark.parametrize("M", [1, 5, 77, 600, 1100, 2064])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_k8_tiling_matches_plain_and_pallas(M, dtype_name):
+    rng = np.random.default_rng(M + 13)
+    B, H, Dh = 2, 4, 32
+    q = rng.normal(size=(B, H, Dh)).astype(np.float32)
+    k_t, v_t = (rng.normal(size=(B, H, Dh, M)).astype(np.float32) for _ in range(2))
+    cached = jax_quantize_kv(jnp.asarray(k_t), jnp.asarray(v_t))
+    jd, td = getattr(jnp, dtype_name), getattr(torch, dtype_name)
+    tq = torch.from_numpy(q).to(td)
+    tc = [torch.from_numpy(np.array(a)) for a in cached]
+    tiled = k8_split(tq, *tc)
+    assert tiled.dtype == td and bool(torch.isfinite(tiled.float()).all())
+    _assert_close(tiled, da.decode_attention_q8_plain(tq, *tc).float(), dtype_name)
+    ref = fused_decode_attention_q8(jnp.asarray(q, jd), *cached, interpret=True)
+    _assert_close(tiled, ref.astype(jnp.float32), dtype_name)
