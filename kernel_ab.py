@@ -14,6 +14,17 @@ of the kernel and of the library call, from torch.profiler over 30 calls.  The t
 and the table pairs the cases that both trees have by label and dtype.
 It prints the card's name and power limit first and exits non-zero
 without CUDA.
+
+    python3 kernel_ab.py --k6-phases
+
+times K6's two phases apart in the same way: copies of this tree under
+tmp/k6_phases/ whose csrc/encoder_attention.cu has the tensor-core route
+(bf16, S <= 384) cut by exact text substitutions (`K6_VARIANTS`): the
+projection alone (no attention), the projection with no copy issued (its
+mma on whatever the ring holds: what the loads of x and wqkv cost), and
+the attention alone (no projection: Q_h, K_h, V_h are whatever memory
+held).  Turns: this tree, each variant, this tree; the variants' outputs
+are wrong by design and only their times count.
 """
 
 from __future__ import annotations
@@ -21,12 +32,26 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 DEFAULT_NAMES = "encoder_attention,decode_shared_attention"
+K6_CU = Path("ralf_tpu_torch/ops/csrc/encoder_attention.cu")
+_K6_PHASE2 = "  rows_attention<DH>(out, q_s, k_s, v_s, w_s, dead, o_x, red_m, red_l, out, row0, S, E, col);\n"
+_K6_PROLOGUE = "  for (int i = 0; i < kProjStages - 1; ++i) issue(i);\n"
+_K6_ISSUE = "    issue(i + kProjStages - 1);\n"
+_K6_STEPS = "steps = (s16 + kRows - 1) / kRows * ktiles;"
+# phase 2 kept behind a test that never holds (S < 0), so that the compiler
+# cannot drop the projection's K_h and V_h as unread
+_K6_NO_PHASE2 = "  if (S < 0)" + _K6_PHASE2[1:]
+K6_VARIANTS = {  # variant: (text of encoder_self_attention_rows_kernel, its replacement)
+    "projection": [(_K6_PHASE2, _K6_NO_PHASE2)],
+    "projection, no loads": [(_K6_PHASE2, _K6_NO_PHASE2), (_K6_PROLOGUE, ""), (_K6_ISSUE, "")],
+    "attention": [(_K6_STEPS, "steps = 0;")],
+}
 
 
 def device_ms(torch, fn, iters: int = 30) -> float:
@@ -81,10 +106,49 @@ def run_turn(tree: Path, names: str) -> list[dict]:
     return [json.loads(line[4:]) for line in proc.stdout.splitlines() if line.startswith("ROW ")]
 
 
+def k6_variant(name: str) -> Path:
+    """A copy of this tree (with its built kernels) under tmp/k6_phases/ whose
+    K6 source has the substitutions of K6_VARIANTS[name], each made once."""
+    tree = HERE / "tmp" / "k6_phases" / name.replace(",", "").replace(" ", "_")
+    shutil.rmtree(tree, ignore_errors=True)
+    tree.mkdir(parents=True)
+    shutil.copytree(HERE / "ralf_tpu_torch", tree / "ralf_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy2(HERE / "chip_smoke.py", tree / "chip_smoke.py")
+    src = (tree / K6_CU).read_text()
+    for old, new in K6_VARIANTS[name]:
+        if src.count(old) != 1:
+            raise RuntimeError(f"k6 variant {name!r}: {old.strip()!r} is not in {K6_CU} once")
+        src = src.replace(old, new)
+    (tree / K6_CU).write_text(src)
+    return tree
+
+
+def k6_phases() -> int:
+    """K6 whole, then each variant, then whole again: per-call and device ms."""
+    runs = [("whole", run_turn(HERE, "encoder_self_attention,encoder_attention"))]
+    for name in K6_VARIANTS:  # built after the first turn: only the K6 source is rebuilt
+        runs.append((name, run_turn(k6_variant(name), "encoder_self_attention")))
+    runs.append(("whole", run_turn(HERE, "encoder_self_attention,encoder_attention")))
+    for who, rows in runs:
+        for row in rows:
+            print(f"{who} {json.dumps(row)}", flush=True)
+    print("kernel | case | dtype | " + " | ".join(f"{who} ms (device ms)" for who, _ in runs))
+    keys = dict.fromkeys((r["name"], r["label"], r["dtype"]) for _, rows in runs for r in rows)
+    for key in keys:
+        cells = []
+        for _, rows in runs:
+            r = next((r for r in rows if (r["name"], r["label"], r["dtype"]) == key), None)
+            cells.append("-" if r is None else f"{r['ms']:.4f} ({r['device_ms']:.4f})")
+        print(" | ".join(key) + " | " + " | ".join(cells), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the other tree's root")
     ap.add_argument("--names", default=DEFAULT_NAMES, help="kernel names, comma-separated")
+    ap.add_argument("--k6-phases", action="store_true", help="time K6's phases apart")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     names = args.names.split(",")
@@ -92,12 +156,14 @@ def main() -> int:
         return worker(names)
     import torch
 
-    if not torch.cuda.is_available() or args.other is None:
-        print("kernel_ab: needs a CUDA card and --other", file=sys.stderr)
+    if not torch.cuda.is_available() or (args.other is None and not args.k6_phases):
+        print("kernel_ab: needs a CUDA card and --other or --k6-phases", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
+    if args.k6_phases:
+        return k6_phases()
     turns = [("other", args.other.resolve()), ("this", HERE), ("this", HERE),
              ("other", args.other.resolve())]
     times: dict[tuple, dict[str, list]] = {}

@@ -123,17 +123,17 @@
 // the bound.
 //
 // K8 (decode_attention_q8_kernel): one block of 4 warps per (b, h); the
-// warps split M into contiguous slices, and in a slice each lane owns 16
-// consecutive tokens, read as one 16-byte vector per cache row d where M
-// and the caches allow, else 8 (one 8-byte vector or two 4-byte words; at
-// M or starts that are not a multiple of 4, the tokens l, l + 32, ... of a
-// step, read as bytes that the warp loads 32 consecutive at a time); so a
-// warp reads every byte of its K and V rows once, neighbouring lanes on
-// neighbouring bytes.  At M=680 (8-byte rows) 85 lanes of a block's 128
-// carry tokens.  Each warp keeps an online softmax over its
+// warps split M into contiguous slices, and in a slice each lane owns 8
+// tokens of a step: 8 consecutive ones, read as one 8-byte vector per cache
+// row d, where M and both caches' starts are multiples of 8 (the caches
+// quantize_kv makes at M=680), else the tokens l, l + 32, ... of the step,
+// read as bytes that the warp loads 32 consecutive at a time; so a warp
+// reads every byte of its K and V rows once, neighbouring lanes on
+// neighbouring bytes.  At M=680 85 lanes of a block's 128 carry tokens.
+// Each warp keeps an online softmax over its
 // slice (running max, rescaled sum; the scores and p stay in registers, p in
 // fp32 as the TPU kernel keeps it, and V is read in the same pass as K).
-// p . v: each lane sums its 16 tokens for 8 rows of V at a time (8 loads
+// p . v: each lane sums its 8 tokens for 8 rows of V at a time (8 loads
 // in flight), and one transpose reduction across the warp (9 shuffles)
 // leaves each row's sum in 4 lanes.  The only block barrier is the merge of the 4 warps' (m, l, o)
 // in warp order.  int8 widens exactly to fp32 by a byte permute into 2^23 + x
@@ -765,33 +765,24 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 constexpr int kQ8Warps = 4;
 constexpr int kQ8Threads = 32 * kQ8Warps;
 constexpr int kQ8Rows = 8;                // rows of V a lane's partial sums cover at once
+constexpr int kQ8Tok = 8;                 // tokens a lane owns in a step
 constexpr int kMaxHeadDim = 256;
 
-// The TOK tokens a lane owns in one int8 cache row as TOK / 4 words, its
-// first token lowest: t .. t+TOK-1 read as vectors of VEC bytes (M % VEC ==
-// 0 and the row starts on a VEC boundary, so no vector straddles M), or,
-// with VEC 1 (rows of any alignment), tokens t, t+32, t+64, ..., so that
-// each byte load of the warp covers 32 consecutive bytes.  Tokens at or
+// The kQ8Tok tokens a lane owns in one int8 cache row as two words, its
+// first token lowest: t .. t+7 read as one 8-byte vector (VECTOR: M % 8 ==
+// 0 and the row starts on an 8-byte boundary, so no vector straddles M), or
+// tokens t, t+32, t+64, ... read as bytes (rows of any M and alignment), so
+// that each byte load of the warp covers 32 consecutive bytes.  Tokens at or
 // past M read nothing and give zeros.
-template <int VEC, int TOK>
-__device__ __forceinline__ void load_tok(uint32_t (&w)[TOK / 4], const int8_t* __restrict__ row, int t,
-                                         int M) {
-  if constexpr (VEC == 16) {
-    static_assert(TOK == 16, "one 16-byte vector a lane");
-    const uint4 x = t < M ? *reinterpret_cast<const uint4*>(row + t) : make_uint4(0u, 0u, 0u, 0u);
-    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
-  } else if constexpr (VEC == 8) {
-#pragma unroll
-    for (int i = 0; i < TOK / 8; ++i) {
-      const uint2 x = t + 8 * i < M ? *reinterpret_cast<const uint2*>(row + t + 8 * i) : make_uint2(0u, 0u);
-      w[2 * i] = x.x, w[2 * i + 1] = x.y;
-    }
-  } else if constexpr (VEC == 4) {
-#pragma unroll
-    for (int i = 0; i < TOK / 4; ++i) w[i] = t + 4 * i < M ? *reinterpret_cast<const uint32_t*>(row + t + 4 * i) : 0u;
+template <bool VECTOR>
+__device__ __forceinline__ void load_tok(uint32_t (&w)[kQ8Tok / 4], const int8_t* __restrict__ row,
+                                         int t, int M) {
+  if constexpr (VECTOR) {
+    const uint2 x = t < M ? *reinterpret_cast<const uint2*>(row + t) : make_uint2(0u, 0u);
+    w[0] = x.x, w[1] = x.y;
   } else {
 #pragma unroll
-    for (int i = 0; i < TOK / 4; ++i) {
+    for (int i = 0; i < kQ8Tok / 4; ++i) {
       w[i] = 0u;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -802,9 +793,9 @@ __device__ __forceinline__ void load_tok(uint32_t (&w)[TOK / 4], const int8_t* _
   }
 }
 
-// Token i of the TOK a lane owns, from its first token t (see load_tok).
-template <int VEC>
-__device__ __forceinline__ int tok_at(int t, int i) { return VEC == 1 ? t + 32 * i : t + i; }
+// Token i of the kQ8Tok a lane owns, from its first token t (see load_tok).
+template <bool VECTOR>
+__device__ __forceinline__ int tok_at(int t, int i) { return VECTOR ? t + i : t + 32 * i; }
 
 // Byte j of a word whose int8 bytes were biased by w ^ 0x80808080 (x + 128),
 // as the float x: the bits 0x4B0000uu are 2^23 + uu, exact.
@@ -843,9 +834,9 @@ __device__ __forceinline__ float warp_transpose_sum(float (&x)[V]) {
   return transpose_sum_step<V, 16, V>(x, threadIdx.x & 31);
 }
 
-// q and out [BH, Dh] of T, k_i8 and v_i8 [BH, Dh, M] int8 (rows VEC-aligned),
-// k_scale and v_scale [BH] fp32; scale = Dh^-1/2.
-template <typename T, int VEC, int TOK>
+// q and out [BH, Dh] of T, k_i8 and v_i8 [BH, Dh, M] int8 (VECTOR: rows
+// 8-byte aligned), k_scale and v_scale [BH] fp32; scale = Dh^-1/2.
+template <typename T, bool VECTOR>
 __global__ void __launch_bounds__(kQ8Threads, 4) decode_attention_q8_kernel(
     const T* __restrict__ q, const int8_t* __restrict__ k_i8, const int8_t* __restrict__ v_i8,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale, T* __restrict__ out,
@@ -857,9 +848,9 @@ __global__ void __launch_bounds__(kQ8Threads, 4) decode_attention_q8_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int8_t* kb = k_i8 + bh * Dh * M;
   const int8_t* vb = v_i8 + bh * Dh * M;
-  // warp w: tokens [begin, end), slices of a multiple of TOK tokens (some may be empty)
-  constexpr int kStep = 32 * TOK;  // tokens a warp covers in one step
-  const int per = (M + kQ8Warps * TOK - 1) / (kQ8Warps * TOK) * TOK;
+  // warp w: tokens [begin, end), slices of a multiple of kQ8Tok tokens (some may be empty)
+  constexpr int kStep = 32 * kQ8Tok;  // tokens a warp covers in one step
+  const int per = (M + kQ8Warps * kQ8Tok - 1) / (kQ8Warps * kQ8Tok) * kQ8Tok;
   const int begin = min(M, warp * per), end = min(M, begin + per);
 
   // the folded query in the plain version's order, (float(q) * Dh^-1/2) * k_scale
@@ -873,15 +864,15 @@ __global__ void __launch_bounds__(kQ8Threads, 4) decode_attention_q8_kernel(
   float m = -INFINITY, l = 0.f;  // the warp's running max; this lane's share of the sum
   for (int t0 = begin; t0 < end; t0 += kStep) {
     // this lane's first token; tokens at or past end give p = 0
-    const int t = t0 + (VEC == 1 ? lane : lane * TOK);
-    float s[TOK] = {};
+    const int t = t0 + (VECTOR ? lane * kQ8Tok : lane);
+    float s[kQ8Tok] = {};
 #pragma unroll 8
     for (int d = 0; d < Dh; ++d) {
-      uint32_t w[TOK / 4];
-      load_tok<VEC, TOK>(w, kb + static_cast<size_t>(d) * M, t, M);
+      uint32_t w[kQ8Tok / 4];
+      load_tok<VECTOR>(w, kb + static_cast<size_t>(d) * M, t, M);
       const float qd = q_s[warp][d];
 #pragma unroll
-      for (int i = 0; i < TOK / 4; ++i) {
+      for (int i = 0; i < kQ8Tok / 4; ++i) {
         const uint32_t wb = w[i] ^ 0x80808080u;
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[4 * i + j] = fmaf(qd, i8_biased(wb, j), s[4 * i + j]);
@@ -889,29 +880,29 @@ __global__ void __launch_bounds__(kQ8Threads, 4) decode_attention_q8_kernel(
     }
     float mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < TOK; ++i) mx = tok_at<VEC>(t, i) < end ? fmaxf(mx, s[i]) : mx;
+    for (int i = 0; i < kQ8Tok; ++i) mx = tok_at<VECTOR>(t, i) < end ? fmaxf(mx, s[i]) : mx;
     const float m_new = fmaxf(m, warp_max(mx));  // finite: the step holds a token
     const float alpha = expf(m - m_new);          // 0 at the first step (m = -inf)
     float ls = 0.f;
 #pragma unroll
-    for (int i = 0; i < TOK; ++i) {
-      s[i] = tok_at<VEC>(t, i) < end ? expf(s[i] - m_new) : 0.f;
+    for (int i = 0; i < kQ8Tok; ++i) {
+      s[i] = tok_at<VECTOR>(t, i) < end ? expf(s[i] - m_new) : 0.f;
       ls += s[i];
     }
     l = l * alpha + ls;
     m = m_new;
     // p . v, kQ8Rows rows of V at a time (rows past Dh read row Dh - 1 and
-    // count 0): each lane sums its TOK tokens of each row, and a transpose
+    // count 0): each lane sums its kQ8Tok tokens of each row, and a transpose
     // reduction leaves row d0 + r's sum in lanes 4r .. 4r+3
     for (int d0 = 0; d0 < Dh; d0 += kQ8Rows) {
       float part[kQ8Rows];
 #pragma unroll
       for (int j = 0; j < kQ8Rows; ++j) {
-        uint32_t w[TOK / 4];
-        load_tok<VEC, TOK>(w, vb + static_cast<size_t>(min(d0 + j, Dh - 1)) * M, t, M);
+        uint32_t w[kQ8Tok / 4];
+        load_tok<VECTOR>(w, vb + static_cast<size_t>(min(d0 + j, Dh - 1)) * M, t, M);
         float acc = 0.f;
 #pragma unroll
-        for (int i = 0; i < TOK / 4; ++i) {
+        for (int i = 0; i < kQ8Tok / 4; ++i) {
           const uint32_t wb = w[i] ^ 0x80808080u;
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) acc = fmaf(s[4 * i + jj], i8_biased(wb, jj), acc);
@@ -1004,8 +995,7 @@ int launch_kv(const void* q, const void* k_t, const void* v_t, void* out, int BH
   return static_cast<int>(cudaGetLastError());
 }
 
-// The widest vector (16, 8, 4 or 1 bytes) that M and both caches' starts
-// allow; a lane owns 16 tokens with 16-byte vectors, else 8.
+// 8-byte vectors where M and both caches' starts allow, else single bytes.
 template <typename T>
 int launch_kv_q8(const void* q, const int8_t* k_i8, const int8_t* v_i8, const float* k_scale,
                  const float* v_scale, void* out, int BH, int Dh, int M, float scale,
@@ -1014,14 +1004,10 @@ int launch_kv_q8(const void* q, const int8_t* k_i8, const int8_t* v_i8, const fl
   const auto* qt = static_cast<const T*>(q);
   auto* ot = static_cast<T*>(out);
   const dim3 grid(BH), block(kQ8Threads);
-  if (M % 16 == 0 && addr % 16 == 0)
-    decode_attention_q8_kernel<T, 16, 16><<<grid, block, 0, stream>>>(qt, k_i8, v_i8, k_scale, v_scale, ot, Dh, M, scale);
-  else if (M % 8 == 0 && addr % 8 == 0)
-    decode_attention_q8_kernel<T, 8, 8><<<grid, block, 0, stream>>>(qt, k_i8, v_i8, k_scale, v_scale, ot, Dh, M, scale);
-  else if (M % 4 == 0 && addr % 4 == 0)
-    decode_attention_q8_kernel<T, 4, 8><<<grid, block, 0, stream>>>(qt, k_i8, v_i8, k_scale, v_scale, ot, Dh, M, scale);
+  if (M % 8 == 0 && addr % 8 == 0)
+    decode_attention_q8_kernel<T, true><<<grid, block, 0, stream>>>(qt, k_i8, v_i8, k_scale, v_scale, ot, Dh, M, scale);
   else
-    decode_attention_q8_kernel<T, 1, 8><<<grid, block, 0, stream>>>(qt, k_i8, v_i8, k_scale, v_scale, ot, Dh, M, scale);
+    decode_attention_q8_kernel<T, false><<<grid, block, 0, stream>>>(qt, k_i8, v_i8, k_scale, v_scale, ot, Dh, M, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -90,6 +90,7 @@
 //   memory (x streamed in [32, 32] tiles, wqkv's 3*Dh rows of the head in
 //   [3*Dh, 32] tiles), then walks its query tiles over them.
 
+#include <climits>
 #include <type_traits>
 
 #include "common.cuh"
@@ -1059,12 +1060,24 @@ int launch_k1_mma(const void* q, const void* k, const void* v, const float* key_
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 with S <= 384 on the tensor cores; fp32, and bf16 past 384, on the CUDA cores
+// K6's route: bf16 with S <= 384 on the tensor cores; fp32, and bf16 past
+// 384, on the CUDA cores
+template <typename T>
+bool k6_rows_route(int S) {
+  return std::is_same<T, __nv_bfloat16>::value && S <= kRowsMaxS;
+}
+
+// Shared memory of one K6 block on the route launch_k6 takes
+template <typename T, int DH>
+size_t k6_route_smem(int S) {
+  return k6_rows_route<T>(S) ? k6_rows_smem<DH>(S) : k6_smem<T, DH>(S);
+}
+
 template <typename T, int DH>
 int launch_k6(const void* x, const void* wqkv, const float* key_bias, int bias_head_stride,
               void* out, int B, int S, int E, int nhead, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (S <= kRowsMaxS) {
+    if (k6_rows_route<T>(S)) {
       const size_t smem = k6_rows_smem<DH>(S);
       if (int err = allow_smem_once<encoder_self_attention_rows_kernel<DH>>(smem)) return err;
       encoder_self_attention_rows_kernel<DH><<<dim3(nhead, B), kRowsThreads, smem, stream>>>(
@@ -1108,6 +1121,12 @@ int dispatch_k6(const void* x, const void* wqkv, const float* key_bias, int bias
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T>
+int dispatch_k6_smem(int S, int dh) {
+  const size_t smem = dh == 32 ? k6_route_smem<T, 32>(S) : dh == 64 ? k6_route_smem<T, 64>(S) : 0;
+  return smem == 0 ? -1 : static_cast<int>(smem < INT_MAX ? smem : INT_MAX);
+}
+
 }  // namespace
 }  // namespace ralf
 
@@ -1138,4 +1157,12 @@ extern "C" int ralf_encoder_self_attention(int dtype, const void* x, const void*
     return ralf::dispatch_k6<__nv_bfloat16>(x, wqkv, key_bias, bias_head_stride, out, B, S, E,
                                             nhead, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K6: the bytes of shared memory one block takes on the route the launcher
+// picks for this dtype code, S and head width, at most INT_MAX (-1: no route).
+extern "C" int ralf_encoder_self_attention_smem(int dtype, int S, int dh) {
+  if (dtype == ralf::kFloat32) return ralf::dispatch_k6_smem<float>(S, dh);
+  if (dtype == ralf::kBFloat16) return ralf::dispatch_k6_smem<__nv_bfloat16>(S, dh);
+  return -1;
 }

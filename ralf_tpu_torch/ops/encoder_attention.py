@@ -38,6 +38,7 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ],
+    "ralf_encoder_self_attention_smem": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
 }
 K1_MAX_S = 1024  # a query tile's [32, S] fp32 score row in shared memory
 ROWS_MAX_S = 384  # bf16 up to here: a row's scores in registers (K1, K6 on the tensor cores)
@@ -134,21 +135,6 @@ def encoder_self_attention_plain(
     return attend_plain(qkv[..., :E], qkv[..., E:2 * E], qkv[..., 2 * E:], nhead, keep_w)
 
 
-def self_attention_smem(S: int, Dh: int, itemsize: int) -> int:
-    """Shared memory of one K6 block on the route the launcher takes
-    (csrc/encoder_attention.cu k6_rows_smem for bf16 with S <= 384, else
-    k6_smem)."""
-    if itemsize == 2 and S <= ROWS_MAX_S:
-        s16, ld = -(-S // 16) * 16, Dh + 8
-        rows = 16 * 8 // (Dh // 32)  # x rows a projection round
-        ring = 3 * (rows + 3 * Dh) * 40 * 2  # three stages of depth-32 tiles, rows of 80 bytes
-        phase2 = (2 * 4 * 16 * ld + 2 * 2 * 4 * 16) * 4  # the rows route's partial outputs and maxima
-        return (2 * s16 + 64) * ld * 2 + max(ring, phase2) + s16 * 4  # K_h, V_h, 4 query tiles
-    ld = Dh + 4 // itemsize
-    sq = -(-S // 32) * 32
-    return (sq + 2 * S) * ld * itemsize + S * 4 + max(32 * S, (32 + 3 * Dh) * 33) * 4
-
-
 def encoder_self_attention(
     x: torch.Tensor, wqkv: torch.Tensor, nhead: int, key_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -173,18 +159,19 @@ def encoder_self_attention(
     if wqkv.dtype != x.dtype:
         raise TypeError(f"{what}: x and wqkv must share one dtype")
     _check_heads(what, B, S, E, nhead)
-    if self_attention_smem(S, E // nhead, x.element_size()) > SMEM_PER_BLOCK:
-        raise ValueError(f"{what}: S={S} at head width {E // nhead} needs more than 227 KB "
-                         "of shared memory per block")
     head_stride = 0
     if key_bias is not None:
         if key_bias.dtype != torch.float32 or key_bias.shape not in ((B, S), (B, nhead, S)):
             raise ValueError(f"{what}: key_bias must be float32 [B, S] or [B, H, S]")
         head_stride = S if key_bias.dim() == 3 else 0
     code = _build.dtype_code(x, what)
-    if x.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16 and S <= ROWS_MAX_S:  # the route that copies by cp.async
         _build.require_aligned(what, x, wqkv)
     lib = _build.library("encoder_attention", _SIGNATURES)
+    # the launcher's own size for the route it takes
+    if lib.ralf_encoder_self_attention_smem(code, S, E // nhead) > SMEM_PER_BLOCK:
+        raise ValueError(f"{what}: S={S} at head width {E // nhead} needs more than 227 KB "
+                         "of shared memory per block")
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = lib.ralf_encoder_self_attention(

@@ -160,7 +160,7 @@ def test_fused_ffn_kernel_matches_plain(dev, dtype, B, S, E, F):
     (2, 97, 4, "keys"),         # a shared [B, S] bias, ragged tiles
     (2, 16, 8, "keys"),         # one query tile, a shared bias
     (2, 384, 8, "heads+keys"),  # bf16: the tensor-core route's largest S
-    (2, 250, 4, "heads"),       # Dh=64 over two row groups (fp32 takes S <= 260 there)
+    (2, 250, 4, "heads"),       # Dh=64 over two row groups (fp32 takes S <= 254 there)
     (2, 385, 8, "heads+keys"),  # bf16: past it, the CUDA-core kernel
     (1, 385, 8, "keys"),
 ])
@@ -210,6 +210,44 @@ def test_encoder_self_attention_route(dev, dtype, S, route):
         torch.cuda.synchronize()
     kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert len(kernels) == 1 and f"{route}<" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("S", [330, 385])
+def test_encoder_self_attention_alignment_follows_the_route(dev, S):
+    """Only the tensor-core route (bf16, S <= 384) copies x and wqkv by 16-byte
+    cp.async: there a view that starts 2 bytes off a 16-byte boundary is
+    refused, and past 384 the CUDA-core kernel takes it."""
+    g = torch.Generator(device=dev).manual_seed(S)
+    B, E, H = 2, 256, 8
+    x = torch.randn(B, S, E, generator=g, device=dev).bfloat16()
+    wqkv = (torch.randn(3 * E, E, generator=g, device=dev) / 16).bfloat16()
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    if S <= ea.ROWS_MAX_S:
+        with pytest.raises(ValueError, match="16-byte"):
+            ea.encoder_self_attention(shifted, wqkv, H)
+        return
+    v_max = (x.float() @ wqkv[2 * E:].float().t()).abs().amax(dim=1, keepdim=True)
+    _close(ea.encoder_self_attention(shifted, wqkv, H), ea.encoder_self_attention_plain(x, wqkv, H),
+           torch.bfloat16, extra=2**-8 * v_max)
+
+
+@pytest.mark.parametrize("dtype,S,Dh,fits", [  # the largest S of each route that fits, and one past
+    (torch.bfloat16, 384, 64, True),
+    (torch.bfloat16, 688, 32, True), (torch.bfloat16, 689, 32, False),
+    (torch.float32, 437, 32, True), (torch.float32, 438, 32, False),
+    (torch.float32, 254, 64, True), (torch.float32, 255, 64, False),
+])
+def test_encoder_self_attention_refuses_what_its_route_cannot_hold(dev, dtype, S, Dh, fits):
+    """The wrapper asks the launcher for the shared memory of the route it
+    takes, and refuses a shape past the 227 KB of a block before launching."""
+    x = torch.zeros(1, S, 256, device=dev, dtype=dtype)
+    wqkv = torch.zeros(768, 256, device=dev, dtype=dtype)
+    if fits:
+        assert bool(torch.isfinite(ea.encoder_self_attention(x, wqkv, 256 // Dh).float()).all())
+    else:
+        with pytest.raises(ValueError, match="227 KB"):
+            ea.encoder_self_attention(x, wqkv, 256 // Dh)
 
 
 @pytest.mark.parametrize("view", ["int8", "int16", "int32", "float32", "bfloat16"])
@@ -400,7 +438,7 @@ def test_int8_cluster_kernels_reject_unaligned_memory(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# K8 reads 16-byte vectors where M allows (4096), else 8 (680), 4 (300) or single bytes (677)
+# K8 reads 8-byte vectors where M allows (680, 4096), else single bytes (1, 5, 77, 300, 677)
 @pytest.mark.parametrize("B,H,Dh,M", [(2, 8, 32, 1), (3, 8, 32, 677), (2, 4, 8, 300),
                                       (1, 8, 32, 680), (2, 4, 8, 5), (2, 8, 32, 4096),
                                       (1, 2, 256, 4096), (2, 3, 40, 77)])
@@ -439,9 +477,10 @@ def test_decode_attention_q8_call_is_one_kernel(dev, dtype, Dh):
 
 @pytest.mark.parametrize("shift", [1, 2, 4, 8])
 def test_decode_attention_q8_takes_caches_at_any_alignment(dev, shift):
-    """K8 reads the widest vector that M and the caches' starts allow: caches
-    that start `shift` bytes past a 16-byte boundary take 8-byte vectors, 4-byte
-    words, or aligned words shifted into place (M=680, 16 and 8 divide it)."""
+    """K8 reads 8-byte vectors where M and both caches' starts allow, else
+    single bytes: at M=680 (a multiple of 8) caches that start `shift` bytes
+    past a 16-byte boundary take 8-byte vectors at a shift of 8, and strided
+    single bytes at 1, 2 and 4."""
     g = torch.Generator(device=dev).manual_seed(shift)
     q = torch.randn(3, 8, 32, generator=g, device=dev)
     k_i8, v_i8, ks, vs = da.quantize_kv(*(torch.randn(3, 8, 32, 680, generator=g, device=dev)

@@ -30,10 +30,10 @@ quantiser that K4 runs inside the kernel is held bit for bit against
 K6 (bf16 with S <= 384) projects x through the head's rows of wqkv in depth
 tiles of 16 along E with fp32 sums, rounds q, k, v once, and then runs K1's
 resident tiling with the head's keep weights.  K8 folds Dh^-1/2 and k_scale
-into the fp32 query, splits M into 4 warps' slices of a multiple of the
-tokens a lane owns (16 consecutive where M % 16 == 0, else 8; where M % 4 !=
-0, lane l owns tokens l, l + 32, ... of a step), and within a slice takes
-steps of 32 lanes: an online softmax (running max, rescaled per-lane sums and partial
+into the fp32 query, splits M into 4 warps' slices of a multiple of the 8
+tokens a lane owns in a step (8 consecutive where M % 8 == 0; else lane l
+owns tokens l, l + 32, ... of the step), and within a slice takes steps of
+32 lanes: an online softmax (running max, rescaled per-lane sums and partial
 outputs, p never rounded), then the warps' (m, l, o) merged in warp order
 and v_scale applied to the output.
 """
@@ -67,7 +67,7 @@ K1_SPLIT = 4      # ... and warps that share a row group, chunk i to warp i % 4
 K2_CLUSTER = 8    # decode_shared_cluster_kernel: CTAs a batch row
 K6_DEPTH = 16     # encoder_self_attention_rows_kernel: depth of a projection tile along E
 K8_WARPS = 4      # decode_attention_q8_kernel: warps a (b, h) row, each a slice of M
-K8_TOK = 16       # ... and consecutive tokens a lane owns with 16-byte rows (M % 16 == 0), else 8
+K8_TOK = 8        # ... and tokens a lane owns in a step (consecutive where M % 8 == 0)
 
 
 def _heads(t, nhead):
@@ -418,14 +418,13 @@ def test_k6_tiling_matches_plain_and_pallas(case, dtype_name):
     _assert_close(tiled, ref.astype(jnp.float32), dtype_name)
 
 
-def k8_split(q, k_i8, v_i8, k_scale, v_scale, warps=K8_WARPS, tok=None):
+def k8_split(q, k_i8, v_i8, k_scale, v_scale, warps=K8_WARPS, tok=K8_TOK):
     """K8: the fp32 query with Dh^-1/2 and k_scale folded in (in that order),
     M in `warps` slices of a multiple of `tok` tokens, steps of 32 lanes of
     `tok` tokens with an online softmax (per-lane sums and partial outputs
     rescaled by exp(m - m_new)), the warps merged in order, v_scale last."""
     B, H, Dh, M = k_i8.shape
-    tok = tok or (K8_TOK if M % 16 == 0 else 8)
-    strided = M % 4 != 0  # lane l owns tokens l, l + 32, ... (the kernel's byte loads)
+    strided = M % 8 != 0  # lane l owns tokens l, l + 32, ... (the kernel's byte loads)
 
     def lanes(x):  # [..., step] -> [..., 32 lanes, tok]
         return x.unflatten(-1, (tok, 32)).transpose(-1, -2) if strided else x.unflatten(-1, (32, tok))
@@ -462,8 +461,8 @@ def k8_split(q, k_i8, v_i8, k_scale, v_scale, warps=K8_WARPS, tok=None):
     return (o_all / l_all[..., None] * v_scale[:, :, None]).to(q.dtype)
 
 
-# strided lanes: one token, empty warps, ragged; 8 consecutive tokens a lane, one step a warp
-# (600) and two (1100); 16 a lane, two steps a warp (2064)
+# strided lanes: one token, empty warps, ragged, two steps a warp (1100); 8 consecutive
+# tokens a lane, one step a warp (600) and three (2064)
 @pytest.mark.parametrize("M", [1, 5, 77, 600, 1100, 2064])
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_k8_tiling_matches_plain_and_pallas(M, dtype_name):
