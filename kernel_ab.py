@@ -4,27 +4,34 @@
     python3 kernel_ab.py --other DIR [--names encoder_attention,decode_shared_attention]
 
 DIR is another checkout of this repository (for example the parent commit,
-unpacked with `git archive`).  Each turn is a fresh process that runs from
-one tree's root, builds that tree's kernels and times every case of that
-tree's `chip_smoke.kernel_cases` whose kernel is in --names: the median of
-30 CUDA-event-timed calls of the kernel, its plain version and its library
-call, as chip_smoke.py times them (on an idle card this includes the
-wrapper's time on the host before the launch), and the device time alone
-of the kernel and of the library call, from torch.profiler over 30 calls.  The turns run other, this, this, other,
+unpacked with `git archive`, or a copy of this tree with one change undone).
+Each turn is a fresh process that runs from one tree's root, builds that
+tree's kernels and times every case of that tree's `chip_smoke.kernel_cases`
+whose kernel is in --names: the median of 30 CUDA-event-timed calls of the
+kernel, its plain version and its library call, as chip_smoke.py times them
+(on an idle card this includes the wrapper's time on the host before the
+launch), and the device time alone of the kernel and of the library call,
+from torch.profiler over 30 calls.  The turns run other, this, this, other,
 and the table pairs the cases that both trees have by label and dtype.
+To compare a variant as well, run the script once more with it as DIR.
 It prints the card's name and power limit first and exits non-zero
 without CUDA.
 
-    python3 kernel_ab.py --k6-phases
+    python3 kernel_ab.py --phases k6
+    python3 kernel_ab.py --phases k5
 
-times K6's two phases apart in the same way: copies of this tree under
-tmp/k6_phases/ whose csrc/encoder_attention.cu has the tensor-core route
-(bf16, S <= 384) cut by exact text substitutions (`K6_VARIANTS`): the
-projection alone (no attention), the projection with no copy issued (its
-mma on whatever the ring holds: what the loads of x and wqkv cost), and
-the attention alone (no projection: Q_h, K_h, V_h are whatever memory
-held).  Turns: this tree, each variant, this tree; the variants' outputs
-are wrong by design and only their times count.
+time a kernel's parts apart in the same way: copies of this tree under
+tmp/<k6|k5>_phases/ whose source has the bf16 tensor-core route cut by
+exact text substitutions (`PHASES`).  K6 (csrc/encoder_attention.cu, S <=
+384): the projection alone (no attention), the projection with no copy
+issued (its mma on whatever the ring holds: what the loads of x and wqkv
+cost), and the attention alone (no projection: Q_h, K_h, V_h are whatever
+memory held).  K5 (csrc/encoder_ffn.cu): no weight chunk copied after the
+ring's first fill (the products run on whatever the slots hold: what the
+copies from L2 cost), h over half of E (8 of its 16 k-steps: what the
+first product costs), and no second product (o is never formed, so g is
+not packed either).  Turns: this tree, each variant, this tree; the
+variants' outputs are wrong by design and only their times count.
 """
 
 from __future__ import annotations
@@ -51,6 +58,21 @@ K6_VARIANTS = {  # variant: (text of encoder_self_attention_rows_kernel, its rep
     "projection": [(_K6_PHASE2, _K6_NO_PHASE2)],
     "projection, no loads": [(_K6_PHASE2, _K6_NO_PHASE2), (_K6_PROLOGUE, ""), (_K6_ISSUE, "")],
     "attention": [(_K6_STEPS, "steps = 0;")],
+}
+K5_CU = Path("ralf_tpu_torch/ops/csrc/encoder_ffn.cu")
+_K5_EXPECT = "        mbar_expect_tx(&full[s], kSlotBytes);\n"
+_K5_O_LOOP = "      for (int kk = 0; kk < kChunk / 16; ++kk)\n        wgmma_m64n256k16_rs("
+K5_VARIANTS = {  # variant: (text of fused_ffn_tc_kernel and its helpers, its replacement)
+    "no reloads": [(_K5_EXPECT, "        if (i >= kSlots) {\n          mbar_arrive(&full[s]);\n"
+                                "          continue;\n        }\n" + _K5_EXPECT)],
+    "h over half of E": [("  for (int k = 0; k < kWidth / 16; ++k) {",
+                          "  for (int k = 0; k < kWidth / 32; ++k) {")],
+    "no second product": [(_K5_O_LOOP, _K5_O_LOOP.replace("kk < kChunk / 16", "kk < 0"))],
+}
+# kernel: (source, variants, the kernel's name, the names timed in the whole tree)
+PHASES = {
+    "k6": (K6_CU, K6_VARIANTS, "encoder_self_attention", "encoder_self_attention,encoder_attention"),
+    "k5": (K5_CU, K5_VARIANTS, "fused_ffn", "fused_ffn"),
 }
 
 
@@ -106,30 +128,32 @@ def run_turn(tree: Path, names: str) -> list[dict]:
     return [json.loads(line[4:]) for line in proc.stdout.splitlines() if line.startswith("ROW ")]
 
 
-def k6_variant(name: str) -> Path:
-    """A copy of this tree (with its built kernels) under tmp/k6_phases/ whose
-    K6 source has the substitutions of K6_VARIANTS[name], each made once."""
-    tree = HERE / "tmp" / "k6_phases" / name.replace(",", "").replace(" ", "_")
+def variant_tree(kernel: str, name: str) -> Path:
+    """A copy of this tree under tmp/<kernel>_phases/ whose kernel source has
+    the substitutions of the variant, each made once."""
+    cu, variants, _, _ = PHASES[kernel]
+    tree = HERE / "tmp" / f"{kernel}_phases" / name.replace(",", "").replace(" ", "_")
     shutil.rmtree(tree, ignore_errors=True)
     tree.mkdir(parents=True)
     shutil.copytree(HERE / "ralf_tpu_torch", tree / "ralf_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(HERE / "chip_smoke.py", tree / "chip_smoke.py")
-    src = (tree / K6_CU).read_text()
-    for old, new in K6_VARIANTS[name]:
+    src = (tree / cu).read_text()
+    for old, new in variants[name]:
         if src.count(old) != 1:
-            raise RuntimeError(f"k6 variant {name!r}: {old.strip()!r} is not in {K6_CU} once")
+            raise RuntimeError(f"{kernel} variant {name!r}: {old.strip()!r} is not in {cu} once")
         src = src.replace(old, new)
-    (tree / K6_CU).write_text(src)
+    (tree / cu).write_text(src)
     return tree
 
 
-def k6_phases() -> int:
-    """K6 whole, then each variant, then whole again: per-call and device ms."""
-    runs = [("whole", run_turn(HERE, "encoder_self_attention,encoder_attention"))]
-    for name in K6_VARIANTS:  # built after the first turn: only the K6 source is rebuilt
-        runs.append((name, run_turn(k6_variant(name), "encoder_self_attention")))
-    runs.append(("whole", run_turn(HERE, "encoder_self_attention,encoder_attention")))
+def phases(kernel: str) -> int:
+    """The kernel whole, then each variant, then whole again: per-call and device ms."""
+    _, variants, name, whole = PHASES[kernel]
+    runs = [("whole", run_turn(HERE, whole))]
+    for variant in variants:  # built after the first turn: only the kernel's source is rebuilt
+        runs.append((variant, run_turn(variant_tree(kernel, variant), name)))
+    runs.append(("whole", run_turn(HERE, whole)))
     for who, rows in runs:
         for row in rows:
             print(f"{who} {json.dumps(row)}", flush=True)
@@ -148,7 +172,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the other tree's root")
     ap.add_argument("--names", default=DEFAULT_NAMES, help="kernel names, comma-separated")
-    ap.add_argument("--k6-phases", action="store_true", help="time K6's phases apart")
+    ap.add_argument("--phases", choices=sorted(PHASES), help="time this kernel's parts apart")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     names = args.names.split(",")
@@ -156,14 +180,14 @@ def main() -> int:
         return worker(names)
     import torch
 
-    if not torch.cuda.is_available() or (args.other is None and not args.k6_phases):
-        print("kernel_ab: needs a CUDA card and --other or --k6-phases", file=sys.stderr)
+    if not torch.cuda.is_available() or (args.other is None and args.phases is None):
+        print("kernel_ab: needs a CUDA card and --other or --phases", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
-    if args.k6_phases:
-        return k6_phases()
+    if args.phases is not None:
+        return phases(args.phases)
     turns = [("other", args.other.resolve()), ("this", HERE), ("this", HERE),
              ("other", args.other.resolve())]
     times: dict[tuple, dict[str, list]] = {}

@@ -1,5 +1,6 @@
-// Shared helpers for the port's attention kernels: scalar conversions to and
-// from the fp32 compute type, and warp and block reductions.
+// Shared helpers for the port's kernels: scalar conversions to and from the
+// fp32 compute type, warp and block reductions, and the launchers' opt-in
+// to large dynamic shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,6 +61,34 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   __syncthreads();
   x = lane < nwarps ? red[lane] : 0.f;
   return warp_sum(x);
+}
+
+// Allows `smem` bytes of dynamic shared memory (above 48 KB a kernel must
+// opt in), at most the 227 KB of a block; with kMaxShared the SM's carveout
+// prefers shared memory to L1.  Returns the cudaError_t.
+template <bool kMaxShared, typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  if (kMaxShared) {
+    if (int err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared))
+      return err;
+  }
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+// allow_smem once per device and size: the attribute calls would otherwise
+// cost microseconds of host time on every launch.
+template <auto kKernel, bool kMaxShared = true>
+int allow_smem_once(size_t smem) {
+  static size_t allowed[64] = {};  // per device, the largest size allowed so far
+  int dev = 0;
+  if (int err = cudaGetDevice(&dev)) return err;
+  if (dev < 64 && smem <= allowed[dev]) return 0;
+  if (int err = allow_smem<kMaxShared>(kKernel, smem)) return err;
+  if (dev < 64) allowed[dev] = smem;
+  return 0;
 }
 
 }  // namespace ralf

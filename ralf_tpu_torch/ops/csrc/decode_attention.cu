@@ -940,33 +940,12 @@ __global__ void __launch_bounds__(kQ8Threads, 4) decode_attention_q8_kernel(
   }
 }
 
-// Allows `smem` bytes of dynamic shared memory (above the default 48 KB
-// the kernel must opt in); returns the cudaError_t.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-}
-
-// allow_smem once per device and size: the attribute calls would otherwise
-// cost microseconds of host time on every launch.
-template <auto kKernel>
-int allow_smem_once(size_t smem) {
-  static size_t allowed[64] = {};  // per device, the largest size allowed so far
-  int dev = 0;
-  if (int err = cudaGetDevice(&dev)) return err;
-  if (dev < 64 && smem <= allowed[dev]) return 0;
-  if (int err = allow_smem(kKernel, smem)) return err;
-  if (dev < 64) allowed[dev] = smem;
-  return 0;
-}
-
 template <typename T>
 int launch_shared_cluster(const void* q_tilde, const void* mem, void* out, int B, int M,
                           cudaStream_t stream) {
   auto kernel = decode_shared_cluster_kernel<T>;
   const size_t smem = cluster_smem<T>(M);
-  if (int err = allow_smem_once<decode_shared_cluster_kernel<T>>(smem)) return err;
+  if (int err = allow_smem_once<decode_shared_cluster_kernel<T>, false>(smem)) return err;
   kernel<<<dim3(kCluster, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q_tilde), static_cast<const T*>(mem), static_cast<T*>(out), M);
   return static_cast<int>(cudaGetLastError());
@@ -977,7 +956,8 @@ int launch_shared_q8(const void* q_tilde, const int8_t* mem_i8, const float* mem
                      int B, int M, cudaStream_t stream) {
   auto kernel = decode_shared_q8_cluster_kernel<T, kMxu>;
   const size_t smem = q8_smem<T, kMxu>((M + kCluster - 1) / kCluster).total;
-  if (int err = allow_smem_once<decode_shared_q8_cluster_kernel<T, kMxu>>(smem)) return err;
+  if (int err = allow_smem_once<decode_shared_q8_cluster_kernel<T, kMxu>, false>(smem))
+    return err;
   kernel<<<dim3(kCluster, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q_tilde), mem_i8, mem_scale, static_cast<T*>(out), M);
   return static_cast<int>(cudaGetLastError());
@@ -988,7 +968,7 @@ int launch_kv(const void* q, const void* k_t, const void* v_t, void* out, int BH
               float scale, cudaStream_t stream) {
   auto kernel = decode_attention_kernel<QT, KT, OT>;
   const size_t smem = static_cast<size_t>(Dh + M) * sizeof(float);
-  if (int err = allow_smem_once<decode_attention_kernel<QT, KT, OT>>(smem)) return err;
+  if (int err = allow_smem_once<decode_attention_kernel<QT, KT, OT>, false>(smem)) return err;
   kernel<<<BH, kThreads, smem, stream>>>(static_cast<const QT*>(q), static_cast<const KT*>(k_t),
                                          static_cast<const KT*>(v_t), static_cast<OT*>(out), Dh,
                                          M, scale);

@@ -1001,31 +1001,6 @@ __global__ void __launch_bounds__(kRowsThreads, 2) encoder_self_attention_rows_k
   rows_attention<DH>(out, q_s, k_s, v_s, w_s, dead, o_x, red_m, red_l, out, row0, S, E, col);
 }
 
-// Allows `smem` bytes of dynamic shared memory (above 48 KB a kernel must
-// opt in); returns the cudaError_t.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);  // 227 KB per block
-  if (int err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                     cudaSharedmemCarveoutMaxShared))
-    return err;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-}
-
-// allow_smem once per device and size: the attribute calls would otherwise
-// cost microseconds of host time on every launch.
-template <auto kKernel>
-int allow_smem_once(size_t smem) {
-  static size_t allowed[64] = {};  // per device, the largest size allowed so far
-  int dev = 0;
-  if (int err = cudaGetDevice(&dev)) return err;
-  if (dev < 64 && smem <= allowed[dev]) return 0;
-  if (int err = allow_smem(kKernel, smem)) return err;
-  if (dev < 64) allowed[dev] = smem;
-  return 0;
-}
-
 template <typename T, int DH>
 int launch_k1(const void* q, const void* k, const void* v, const float* key_bias, void* out,
               int B, int S, int E, int nhead, cudaStream_t stream) {

@@ -1,5 +1,6 @@
 // Tensor-core and async-copy building blocks for Hopper (sm_90a) shared by
-// the attention kernels K1-K4: 16-byte cp.async with zero fill, ldmatrix,
+// the attention kernels K1-K4 and K6 (and, through hopper.cuh, K5's
+// smem_addr and pack_bf16): 16-byte cp.async with zero fill, ldmatrix,
 // mma.sync.m16n8k16 with bf16 inputs and fp32 sums, and m16n8k32 with int8
 // inputs and int32 sums.
 //

@@ -3,7 +3,9 @@
 Counterpart of `ralf_tpu/ops/pallas/encoder_ffn.py` (`fused_ffn`).
 `fused_ffn` launches the CUDA kernel of `csrc/encoder_ffn.cu` on CUDA
 tensors and runs `fused_ffn_plain` on CPU tensors; there is no other
-fallback.
+fallback.  In bf16 both products run on the tensor cores (wgmma, operands
+copied by TMA), which needs x, w1 and w2 on a 16-byte boundary; fp32 runs
+on the CUDA cores at any alignment.
 
 Both compute relu(x W1^T + b1) W2^T + b2 (inference, relu only) in the TPU
 kernel's order, which keeps the hidden [B, S, F] on chip through
@@ -75,6 +77,8 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     if not 1 <= M < 2**31:
         raise ValueError(f"{what}: need 1 <= B*S < 2^31, got {M}")
     code = _build.dtype_code(x, what)
+    if x.dtype == torch.bfloat16:
+        _build.require_aligned(what, x, w1, w2)
     lib = _build.library("encoder_ffn", _SIGNATURES)
     nb1 = (-b1).to(x.dtype).contiguous()
     tail = ffn_tail(b1, w2, b2).contiguous()

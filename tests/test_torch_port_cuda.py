@@ -21,6 +21,8 @@ fp32, and only the order of its sums differs (an online softmax over 4
 warps' slices against the plain version's one softmax).
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -129,6 +131,7 @@ def test_encoder_attention_bf16_rounds_p(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,E,F", [
+    (128, 330, 256, 1024),  # the main path's image encoder: 330 tiles of 128 rows, 2.5 waves
     (2, 330, 256, 1024),  # image encoder
     (3, 89, 256, 1024),   # constraint encoder, relation task
     (1, 16, 256, 128),    # the gate's least S, a narrow F
@@ -149,6 +152,170 @@ def test_fused_ffn_kernel_matches_plain(dev, dtype, B, S, E, F):
     ref = ef.fused_ffn_plain(x, w1, b1, w2, b2)
     twice = TOL[dtype][1] * (ref.float().abs() + ef.ffn_tail(b1, w2, b2).abs())
     _close(out, ref, dtype, extra=twice)
+
+
+@pytest.mark.parametrize("B,S,F", [
+    (64, 300, 192),  # 150 tiles of 128 rows on the 132 SMs, 3 chunks (odd) a tile
+    (100, 330, 64),  # 258 tiles, the last one ragged, one chunk a tile
+])
+def test_fused_ffn_bf16_random_rows_differ_by_one_rounding_of_g(dev, B, S, F, capsys):
+    """Random bf16 inputs made as test_fused_ffn_kernel_matches_plain makes
+    them.  The kernel sums h = x W1^T in the tensor cores' order, the plain
+    version in cuBLAS's; where h lies that close to the midpoint between
+    two bf16 values, g = T(max(h, T(-b1))) can round the other way, which
+    moves every output of its row by 2^-8 |g_j| |W2[:, j]|, a term the
+    tolerance of test_fused_ffn_kernel_matches_plain does not state.  So
+    every row with an output outside that tolerance must come within it
+    of the plain version with one g_j (or two) rounded the other way,
+    each one whose exact (fp64) h lies within the reorder bound
+    E 2^-24 sum|x||w1| of that midpoint.  The rows found, the g_j that
+    explain each and their distance over that bound are printed."""
+    E = ef.WIDTH
+    g = torch.Generator(device=dev).manual_seed(S)
+    x = torch.randn(B, S, E, generator=g, device=dev).bfloat16()
+    w1 = (torch.randn(F, E, generator=g, device=dev) * E**-0.5).bfloat16()
+    w2 = (torch.randn(E, F, generator=g, device=dev) * F**-0.5).bfloat16()
+    b1, b2 = (torch.randn(n, generator=g, device=dev).bfloat16() for n in (F, E))
+    out = ef.fused_ffn(x, w1, b1, w2, b2).reshape(-1, E).float()
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    tail = ef.ffn_tail(b1, w2, b2)
+
+    def plain_rows(gr):  # the plain version from g on: T(T(g W2^T) + T(tail))
+        return ((gr.float() @ w2.float().t()).bfloat16() + tail.bfloat16()).float()
+
+    def outside(o, ref):
+        return (o - ref).abs() > atol + rtol * ref.abs() + rtol * (ref.abs() + tail.abs())
+
+    xf = x.reshape(-1, E).float()
+    nb1 = (-b1).float()
+    gp = torch.maximum(xf @ w1.float().t(), nb1).bfloat16()  # the plain version's g
+    ref = plain_rows(gp)
+    bad_rows = outside(out, ref).any(1).nonzero().flatten().tolist()
+    found = []
+    for r in bad_rows:
+        h64 = xf[r].double() @ w1.double().t()
+        bound = E * 2**-24 * (xf[r].double().abs() @ w1.double().abs().t())
+        # the two bf16 values around h: its fp32 bits cut to bf16, and one up
+        lo = (h64.float().view(torch.int32) & -65536).view(torch.float32)
+        hi = (lo.view(torch.int32) + 65536).view(torch.float32)
+        dist = (h64 - (lo.double() + hi.double()) / 2).abs()
+        g_lo, g_hi = (torch.maximum(v, nb1).bfloat16() for v in (lo, hi))
+        other = torch.where(gp[r] == g_lo, g_hi, g_lo)
+        near = [j for j in dist.argsort()[:8].tolist()
+                if other[j] != gp[r, j] and dist[j] <= bound[j]]
+
+        def held_with(flips):
+            gr = gp[r].clone()
+            gr[flips] = other[flips]
+            return not bool(outside(out[r], plain_rows(gr)).any())
+
+        # the fewest of those roundings, taken the other way, that explain the row
+        explains = next((c for n in (1, 2) for c in itertools.combinations(near, n)
+                         if held_with(list(c))), None)
+        assert explains is not None, (r, near)
+        found.append((r, explains, [round(float(dist[j] / bound[j]), 4) for j in explains],
+                      float((out[r] - ref[r]).abs().max())))
+    with capsys.disabled():
+        print(f"\nK5 B={B} S={S} F={F}: {len(bad_rows)} rows outside the tolerance; "
+              "(row, js, |h - midpoint| / reorder bound, max err against plain): " + repr(found))
+
+
+@pytest.mark.parametrize("B,S,F", [
+    (64, 300, 192),  # 150 tiles of 128 rows on the 132 SMs, 3 chunks (odd) a tile
+    (100, 330, 64),  # 258 tiles, the last one ragged, one chunk a tile
+])
+def test_fused_ffn_bf16_is_exact_on_a_binary_grid(dev, B, S, F):
+    """More tiles than SMs and odd or single chunk counts, on inputs where
+    every fp32 sum is exact in any order (x, W1 and W2 on coarse binary
+    grids, b1 and b2 multiples of 1/4): the kernel must equal its plain
+    version bit for bit, so that a tile, chunk or ring phase taken wrong
+    shows as a wrong element.  The same shapes on random inputs are
+    test_fused_ffn_bf16_random_rows_differ_by_one_rounding_of_g."""
+    g = torch.Generator(device=dev).manual_seed(F)
+
+    def grid(shape, lo, step):
+        return (torch.randint(-lo, lo + 1, shape, generator=g, device=dev) * step).bfloat16()
+
+    x, w1, w2 = grid((B, S, 256), 4, 0.25), grid((F, 256), 4, 0.125), grid((256, F), 4, 1 / 64)
+    b1, b2 = grid((F,), 8, 0.25), grid((256,), 8, 0.25)
+    out = ef.fused_ffn(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ef.fused_ffn_plain(x, w1, b1, w2, b2))
+
+
+def test_fused_ffn_hands_g_from_accumulator_to_a_registers(dev):
+    """One 64-row tile and one chunk of 64 hidden units in bf16, where the
+    result is exact: x and W1 on a coarse binary grid (h = x W1^T exact in
+    fp32 in any order), b1 = b2 = 0 and W2 the identity on the first 64 of
+    the 256 outputs, so out[:, :64] = T(relu(h)) = g exactly and the rest
+    0.  A g fragment handed to the second product in the wrong place shows
+    as a wrong element, not as a tolerance."""
+    g = torch.Generator(device=dev).manual_seed(64)
+    x = (torch.randint(-8, 9, (1, 64, 256), generator=g, device=dev) / 4).bfloat16()
+    w1 = (torch.randint(-8, 9, (64, 256), generator=g, device=dev) / 8).bfloat16()
+    w2 = torch.eye(256, 64, device=dev).bfloat16()
+    b1, b2 = torch.zeros(64, device=dev), torch.zeros(256, device=dev)
+    out = ef.fused_ffn(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    relu_h = torch.relu(x.float() @ w1.float().t()).bfloat16()
+    assert torch.equal(out[..., :64], relu_h)
+    assert not bool(out[..., 64:].any())
+    assert torch.equal(out, ef.fused_ffn_plain(x, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "fused_ffn_tc_kernel"),
+                                          (torch.float32, "fused_ffn_kernel")])
+def test_fused_ffn_call_is_one_k5_kernel(dev, dtype, kernel):
+    """One call of K5 is one launch of its kernel (the tensor-core one in
+    bf16, the CUDA-core one in fp32), counted by the wrapper and seen by
+    torch.profiler; the wrapper's own small kernels (T(-b1), the fp32 tail
+    b1 W2^T + b2) are other kernels and not K5's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(4, 330, 256, generator=g, device=dev).to(dtype)
+    w1 = (torch.randn(1024, 256, generator=g, device=dev) / 16).to(dtype)
+    w2 = (torch.randn(256, 1024, generator=g, device=dev) / 32).to(dtype)
+    b1, b2 = torch.randn(1024, generator=g, device=dev), torch.randn(256, generator=g, device=dev)
+    ef.fused_ffn(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    n = ef.fused_ffn.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ef.fused_ffn(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+    assert ef.fused_ffn.launches == n + 1
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    k5 = [k for k in kernels if "fused_ffn" in k]
+    assert len(k5) == 1 and f"{kernel}(" in k5[0], kernels
+
+
+def test_fused_ffn_bf16_needs_16_byte_alignment_and_fp32_does_not(dev):
+    """The bf16 route copies x and the weights by TMA, which needs their
+    starts on a 16-byte boundary: a view 2 bytes off is refused before the
+    launch.  The fp32 route reads elements and takes a view 4 bytes off."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    E, F = 256, 128
+
+    def shifted(t, by):
+        buf = torch.empty(t.numel() + by, dtype=t.dtype, device=dev)[by:].view(t.shape)
+        buf.copy_(t)
+        return buf
+
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(2, 20, E, generator=g, device=dev).to(dtype)
+        w1 = (torch.randn(F, E, generator=g, device=dev) / 16).to(dtype)
+        w2 = (torch.randn(E, F, generator=g, device=dev) / 16).to(dtype)
+        b1, b2 = (torch.randn(n, generator=g, device=dev).to(dtype) for n in (F, E))
+        if dtype == torch.bfloat16:
+            for args in ((shifted(x, 1), w1, w2), (x, shifted(w1, 1), w2), (x, w1, shifted(w2, 1))):
+                with pytest.raises(ValueError, match="16-byte"):
+                    ef.fused_ffn(args[0], args[1], b1, args[2], b2)
+            continue
+        out = ef.fused_ffn(shifted(x, 1), shifted(w1, 1), b1, shifted(w2, 1), b2)
+        ref = ef.fused_ffn_plain(x, w1, b1, w2, b2)
+        _close(out, ref, dtype, extra=TOL[dtype][1] * (ref.abs() + ef.ffn_tail(b1, w2, b2).abs()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,10 +1,11 @@
-"""The decompositions that the CUDA kernels of K1-K4, K6 and K8 follow, in plain torch.
+"""The decompositions that the CUDA kernels of K1-K6 and K8 follow, in plain torch.
 
-`csrc/encoder_attention.cu` and `csrc/decode_attention.cu` cannot run on the
-CPU, but the algebra of their tilings can.  Each function below writes one
-kernel's split of the work in plain torch, and each test holds it against the
-port's plain version (`encoder_attention_plain`, `decode_shared_attention_plain`)
-and against the JAX package's Pallas kernel in interpret mode, on the same
+`csrc/encoder_attention.cu`, `csrc/decode_attention.cu` and
+`csrc/encoder_ffn.cu` cannot run on the CPU, but the algebra of their
+tilings can.  Each function below writes one kernel's split of the work in
+plain torch, and each test holds it against the port's plain version
+(`encoder_attention_plain`, `decode_shared_attention_plain`, ...) and
+against the JAX package's Pallas kernel in interpret mode, on the same
 numpy inputs, in float32 (to 1e-5: only the order of the sums differs) and
 bfloat16 (1e-3 + 2^-7*|ref|: one rounding of the output).
 
@@ -36,6 +37,15 @@ owns tokens l, l + 32, ... of the step), and within a slice takes steps of
 32 lanes: an online softmax (running max, rescaled per-lane sums and partial
 outputs, p never rounded), then the warps' (m, l, o) merged in warp order
 and v_scale applied to the output.
+K5 in bf16 takes row tiles of 128 (two warpgroups of 64; a ragged last
+tile is zero-padded and its extra rows dropped) and walks F in chunks of
+64: h_c = x W1_c^T with fp32 sums, g_c = T(max(h_c, T(-b1_c))) rounded per
+chunk, the fp32 partials g_c W2_c^T added to o in chunk order, and out =
+T(T(o) + T(b1 W2^T + b2)).  Its inputs lie on a coarse binary grid, so that
+every fp32 sum is exact in any order and the split's roundings alone decide
+the result: the hidden units come in pairs f, f + F/2 (in different chunks
+at F = 192) with near-equal W1 rows, equal b1 and opposite W2 columns,
+whose outputs are differences of near-equal g, where the rounding of g shows.
 """
 
 import jax.numpy as jnp
@@ -56,8 +66,10 @@ from ralf_tpu.ops.pallas.encoder_attention import (
     fused_encoder_attention,
     fused_encoder_self_attention,
 )
+from ralf_tpu.ops.pallas.encoder_ffn import fused_ffn as jax_fused_ffn
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
+from ralf_tpu_torch.ops import encoder_ffn as ef
 
 torch.set_num_threads(2)
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=1e-3, rtol=2**-7)}
@@ -68,6 +80,8 @@ K2_CLUSTER = 8    # decode_shared_cluster_kernel: CTAs a batch row
 K6_DEPTH = 16     # encoder_self_attention_rows_kernel: depth of a projection tile along E
 K8_WARPS = 4      # decode_attention_q8_kernel: warps a (b, h) row, each a slice of M
 K8_TOK = 8        # ... and tokens a lane owns in a step (consecutive where M % 8 == 0)
+K5_ROWS = 128     # fused_ffn_tc_kernel: rows a block (two consumer warpgroups of 64)
+K5_CHUNK = 64     # ... and hidden units a step (Fc)
 
 
 def _heads(t, nhead):
@@ -478,4 +492,60 @@ def test_k8_tiling_matches_plain_and_pallas(M, dtype_name):
     assert tiled.dtype == td and bool(torch.isfinite(tiled.float()).all())
     _assert_close(tiled, da.decode_attention_q8_plain(tq, *tc).float(), dtype_name)
     ref = fused_decode_attention_q8(jnp.asarray(q, jd), *cached, interpret=True)
+    _assert_close(tiled, ref.astype(jnp.float32), dtype_name)
+
+
+def k5_tiles(x, w1, b1, w2, b2, rows=K5_ROWS, chunk=K5_CHUNK):
+    """K5's split: row tiles of `rows` (the last zero-padded, as TMA fills
+    it, and its extra rows dropped, as TMA clips the store), F in chunks of
+    `chunk`: g rounded per chunk, o's fp32 partials added in chunk order,
+    then the epilogue's two roundings T(T(o) + T(tail))."""
+    B, S, E = x.shape
+    F = w1.shape[0]
+    xm = x.reshape(-1, E)
+    M = xm.shape[0]
+    xm = torch.cat([xm, xm.new_zeros(-M % rows, E)])
+    nb1 = (-b1).to(x.dtype).float()
+    tail = ef.ffn_tail(b1, w2, b2).to(x.dtype)
+    tiles = []
+    for r0 in range(0, xm.shape[0], rows):
+        xt = xm[r0:r0 + rows].float()
+        o = torch.zeros(rows, E)
+        for f0 in range(0, F, chunk):
+            h = xt @ w1[f0:f0 + chunk].float().t()
+            g = torch.maximum(h, nb1[f0:f0 + chunk]).to(x.dtype)
+            o = o + g.float() @ w2[:, f0:f0 + chunk].float().t()
+        tiles.append(o.to(x.dtype) + tail)
+    return torch.cat(tiles)[:M].reshape(B, S, E)
+
+
+def _k5_inputs(B, S, F, E=256):
+    rng = np.random.default_rng(B * S + F)
+    x = rng.integers(-8, 9, size=(B, S, E)) / 4.0
+    w1 = rng.integers(-8, 9, size=(F, E)) / 8.0
+    b1 = rng.integers(-16, 17, size=F) / 4.0
+    w2 = rng.integers(-8, 9, size=(E, F)) / 64.0
+    b2 = rng.integers(-8, 9, size=E) / 8.0
+    half = F // 2
+    w1[half:] = w1[:half] + (rng.random((half, E)) < 0.1) * rng.integers(-2, 3, (half, E)) / 8
+    b1[half:] = b1[:half]
+    w2[:, :half] = rng.integers(-8, 9, size=(E, half)) * 4.0
+    w2[:, half:] = -w2[:, :half]
+    return [a.astype(np.float32) for a in (x, w1, b1, w2, b2)]
+
+
+# a ragged last row tile (M = 74 of 128) or two tiles (M = 160); one chunk or three
+@pytest.mark.parametrize("B,S", [(2, 37), (4, 40)])
+@pytest.mark.parametrize("F", [64, 192])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_k5_tiling_matches_plain_and_pallas(B, S, F, dtype_name):
+    x, w1, b1, w2, b2 = _k5_inputs(B, S, F)
+    jd, td = getattr(jnp, dtype_name), getattr(torch, dtype_name)
+    tx, tw1, tw2 = (torch.from_numpy(a).to(td) for a in (x, w1, w2))
+    tb1, tb2 = torch.from_numpy(b1), torch.from_numpy(b2)
+    tiled = k5_tiles(tx, tw1, tb1, tw2, tb2)
+    assert tiled.dtype == td and bool(torch.isfinite(tiled.float()).all())
+    _assert_close(tiled, ef.fused_ffn_plain(tx, tw1, tb1, tw2, tb2).float(), dtype_name)
+    ref = jax_fused_ffn(jnp.asarray(x, jd), jnp.asarray(w1.T, jd), jnp.asarray(b1),
+                        jnp.asarray(w2.T, jd), jnp.asarray(b2), interpret=True)
     _assert_close(tiled, ref.astype(jnp.float32), dtype_name)
