@@ -42,7 +42,19 @@ Run from the repository root.  Phases, each of which must pass:
               [2048, 680, 256] int8 slabs (one to warm up, 8 timed) and their
               int16, int32, bit-30-cleared f32 and bf16 views; GB/s per view
               and its share of 3.35 TB/s, and distinct outputs
-  7. report   one JSON line of the kernels, the nvidia-smi line, and last
+  7. cli      the entry points a user runs, in this process: a job dir written
+              by the port's build_config("ralf") at full width in bf16 (random
+              weights from seed 0 as ckpt_final.npz, the synthetic splits of
+              512 gallery and 64 test canvases), then cli.inference on the 64
+              canvases in one batch of 64 for 2 seeds with --cond c (K1 for
+              the encoders and FIDNet's gallery table, K2) and with --cond
+              uncond --kv-quant --self-quant (K1, K3), exact launch counts read
+              around each; 64 records a pickle with coordinates in [0, 1] and
+              no violated constraint of task c; one canvas through
+              single_image_batch; then cli.evaluate on the c pickles on the
+              card (FIDNet, K1) and on the CPU: JAX's score keys, finite
+              scores, the heuristic metrics equal within 1e-5 relative
+  8. report   one JSON line of the kernels, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
 Every configuration is chosen here explicitly (q8_mxu is an argument of the
@@ -55,10 +67,17 @@ check fails.  It imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import csv
+import io
 import json
+import math
+import os
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -102,6 +121,15 @@ LIBRARY = {  # what library_ms times: one PyTorch call, or for K5 and K6 an unfu
 MAIN_DTYPE = {"stream_sum": "int8"}  # the main path's case of each kernel; else bfloat16
 TASKS = ("uncond", "c", "cwh", "partial", "refinement", "relation", "gt")
 N_REQUESTS, BATCH, GALLERY, RETRIES = 3, 128, 256, 8
+CLI_BATCH, CLI_SEEDS = 64, 2  # the cli phase: the non-debug synthetic test split, one batch
+CLI_CONFIG = ["model.dtype=bfloat16", "synthetic_data=true"]  # the ralf preset's full width
+SCORE_KEYS = ["validity", "alignment-LayoutGAN++", "overlap-LayoutGAN++", "overlay",
+              "underlay_effectiveness_loose", "underlay_effectiveness_strict", "occlusion",
+              "unreadability", "utilization", "precision", "recall", "density", "coverage",
+              "fid"]  # scores_all.json of the JAX package's cli.evaluate, in its order
+HEURISTIC_KEYS = SCORE_KEYS[:9]
+NAN_ALLOWED = {"overlay", "underlay_effectiveness_loose",  # no sample with two non-underlays,
+               "underlay_effectiveness_strict"}           # or with an underlay: JAX's NaN
 STREAM_SHAPE, STREAM_SLABS = (2048, 680, 256), 9  # scripts/probe_dma_rate.py main()
 
 
@@ -146,6 +174,25 @@ def counters():
             for n, (kid, _, _) in KERNELS.items()}
 
 
+class LaunchCounter:
+    """Runs a call with every kernel's launch counter at 0 just before it and
+    returns (its result, its launches by kernel id) read just after;
+    `totals` sums the launches over the counted calls."""
+
+    def __init__(self) -> None:
+        self.count = counters()
+        self.totals = dict.fromkeys(self.count, 0)
+
+    def __call__(self, run):
+        for c in self.count.values():
+            c.launches = 0
+        out = run()
+        n = {k: c.launches for k, c in self.count.items()}
+        for k, v in n.items():
+            self.totals[k] += v
+        return out, n
+
+
 def set_fused_encoder(module, on: bool) -> None:
     """The fused encoder: K6 for every self-attention, K5 for every FFN with
     S >= 16 (the JAX modules' use_qkv_folded and use_pallas fields)."""
@@ -158,9 +205,65 @@ def set_fused_encoder(module, on: bool) -> None:
             m.use_pallas = on
 
 
+def k1_one_flip(torch, q, k, v, nhead: int, bias):
+    """K1 in bf16 rounds each normalised p to bf16, as its plain version does,
+    from fp32 scores summed in another order (and 1/l multiplied where the
+    plain version divides), so a p near a bf16 midpoint may round the other
+    way in one of the two.  The reorder bound of p_j, relative, is
+    4 max_j r_j + (S + 8) 2^-24 with r_j = Dh 2^-24 sum_i |q_i k_ji| (the
+    scores' fp32 sums; the row max and the sum l each add their error once
+    more; expf, 1/l and the sum's order the rest).  Returns explain(out,
+    outside): for each element outside the tolerance, whether out comes
+    within it of the output of the exact p (fp64) rounded to bf16 with at
+    most one p_j, lying within its bound of a midpoint, rounded the other
+    way; and the largest share of its bound that an explained element used."""
+    B, S, E = q.shape
+    Dh = E // nhead
+    atol, rtol = TOL["bfloat16"]
+    u = 2.0**-24
+
+    def explain(out, outside):
+        b, s, e = outside.nonzero(as_tuple=True)
+        if not 0 < b.numel() <= 4096:  # none, or too many to be roundings
+            return torch.zeros(b.numel(), dtype=torch.bool, device=q.device), 0.0
+        cols = (e // Dh * Dh)[:, None] + torch.arange(Dh, device=q.device)  # [n, Dh]
+        qh = q[b, s].gather(1, cols).double()                                # [n, Dh]
+        kh = k[b].gather(2, cols[:, None, :].expand(-1, S, -1)).double()     # [n, S, Dh]
+        vcol = v[b, :, e].double()                                           # [n, S]
+        w = torch.ones(b.numel(), S, device=q.device) if bias is None else torch.exp(bias[b])
+        w = w.double()
+        sc = torch.einsum("nd,nsd->ns", qh, kh)
+        kept_any = w.amax(-1, keepdim=True) > 0
+        sc = torch.where(kept_any, sc, 0.0)
+        m = torch.where(kept_any, torch.where(w > 0, sc, -torch.inf).amax(-1, keepdim=True), 0.0)
+        p = torch.exp(torch.clamp(sc - m, max=0.0)) * torch.where(kept_any, w, 1.0)
+        p = p / p.sum(-1, keepdim=True)                                      # exact p, [n, S]
+        r = Dh * u * torch.einsum("nd,nsd->ns", qh.abs(), kh.abs())
+        r = torch.where(w > 0, r, 0.0).amax(-1, keepdim=True)
+        rel = 4 * r + (S + 8) * u
+        pb16 = p.to(torch.bfloat16)
+        pb = pb16.double()
+        step = torch.sign(p - pb).to(torch.int16)  # toward p: the nearer other neighbour
+        other = (pb16.view(torch.int16) + step).view(torch.bfloat16).double()
+        share = (p - (pb + other) / 2).abs() / (rel * p).clamp_min(1e-300)
+        cand = (step != 0) & (p > 0) & (share <= 1)
+        base = (pb * vcol).sum(-1, keepdim=True)
+        options = torch.cat([base, base + (other - pb) * vcol], -1).to(torch.bfloat16).double()
+        used = torch.cat([torch.zeros_like(base), share], -1)
+        allowed = torch.cat([torch.ones_like(base, dtype=torch.bool), cand], -1)
+        got = out[b, s, e].double()[:, None]
+        near = allowed & ((got - options).abs() <= atol + rtol * options.abs())
+        ok = near.any(-1)
+        needed = torch.where(near, used, torch.inf).amin(-1)
+        return ok, float(torch.where(ok, needed, 0.0).max())
+
+    return explain
+
+
 def kernel_cases(torch, dev):
     """(kernel name, case label, dtype, kernel call, plain call, library call or
-    None, bytes, ops, op type of the peak, extra tolerance)."""
+    None, bytes, ops, op type of the peak, extra tolerance or, for K1 in bf16,
+    the test that explains each element outside the tolerance)."""
     import torch.nn.functional as F
 
     from ralf_tpu_torch.ops import decode_attention as da
@@ -174,10 +277,14 @@ def kernel_cases(torch, dev):
         dn = str(dtype).split(".")[1]
         isz = torch.tensor([], dtype=dtype).element_size()
         # K1: image encoder, constraint encoder (task uncond; relation's S=89),
-        # FIDNet (Dh=64), and the largest S the wrapper takes (key tiles streamed)
+        # FIDNet (Dh=64), and the largest S the wrapper takes (key tiles streamed);
+        # then the cli phase's: a batch of 64 (constraint S=23 for task c, S=4
+        # uncond), the single canvas, FIDNet over its 512-canvas gallery and a batch
         for B, S, H, masked in ((128, 330, 8, False), (1, 330, 8, False), (128, 4, 8, True),
                                 (128, 89, 8, True), (256, 11, 4, True), (1, 11, 4, True),
-                                (16, 1024, 8, False)):
+                                (16, 1024, 8, False), (64, 330, 8, False), (64, 23, 8, True),
+                                (64, 4, 8, True), (1, 4, 8, True), (512, 11, 4, True),
+                                (64, 11, 4, True)):
             E, Dh = 256, 256 // H
             q, k, v = (torch.randn(B, S, E, generator=g, device=dev) for _ in range(3))
             q = (q * Dh**-0.5).to(dtype)
@@ -195,12 +302,14 @@ def kernel_cases(torch, dev):
                 "encoder_attention", f"B={B} S={S} H={H} Dh={Dh} mask={masked}", dn,
                 lambda q=q, k=k, v=v, H=H, bias=bias: ea.encoder_attention(q, k, v, H, bias),
                 lambda q=q, k=k, v=v, H=H, bias=bias: ea.encoder_attention_plain(q, k, v, H, bias),
-                lib, 4 * B * S * E * isz + (4 * B * S if masked else 0), 4 * B * S * S * E, dn, 0.0,
+                lib, 4 * B * S * E * isz + (4 * B * S if masked else 0), 4 * B * S * S * E, dn,
+                k1_one_flip(torch, q, k, v, H, bias) if dtype == torch.bfloat16 else 0.0,
             ))
         # K2, K3, K4 also at the wrapper's largest M (K2: slices streamed; K3,
-        # K4: slices of 512 tokens) and K3, K4 at a small M (CTAs with no token)
-        for M in (680, 677, 4096, 5):
-            B, H, E = 128, 8, 256
+        # K4: slices of 512 tokens) and K3, K4 at a small M (CTAs with no token);
+        # K2, K3 also at the cli phase's batch of 64 and its single canvas
+        for B, M in ((128, 680), (128, 677), (128, 4096), (128, 5), (64, 680), (1, 680)):
+            H, E = 8, 256
             qt = (torch.randn(B, H, E, generator=g, device=dev) / 16).to(dtype)
             memf = torch.randn(B, M, E, generator=g, device=dev)
             mem = memf.to(dtype)
@@ -220,6 +329,8 @@ def kernel_cases(torch, dev):
                 lambda qt=qt, mi=mi, ms=ms: da.decode_shared_attention_q8_plain(qt, mi, ms),
                 None, B * M * E + 4 * B * M + 2 * B * H * E * isz, 4 * B * H * M * E, dn, 0.0,
             ))
+            if B != 128:
+                continue
             # K4: int8 contractions; one flipped quantised probability moves an
             # output by at most its row's scale ps
             cases.append((
@@ -355,7 +466,8 @@ def stream_view(torch, slab, view: str):
 def run_kernel_checks(torch, dev, fails: Failures) -> dict:
     """Check and time every case; returns the main-shape bf16 row of each kernel."""
     main_rows = {}
-    extra_names = {"decode_shared_attention_q8mxu": " + ps",
+    extra_names = {"encoder_attention": "; in bf16 else one flipped rounding of a p",
+                   "decode_shared_attention_q8mxu": " + ps",
                    "fused_ffn": " + rtol*(|ref| + |tail|)",
                    "encoder_self_attention": " + 2^-8*max|v| in bf16",
                    "stream_sum": " + 1e-5*sum|x|"}
@@ -364,8 +476,14 @@ def run_kernel_checks(torch, dev, fails: Failures) -> dict:
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
         atol, rtol = TOL[dn]
-        ok = bool(torch.isfinite(out.float()).all()) and bool(
-            (err <= atol + extra + rtol * ref.float().abs()).all())
+        outside = err > atol + (0.0 if callable(extra) else extra) + rtol * ref.float().abs()
+        unexplained, flips = int(outside.sum()), ""
+        if callable(extra) and unexplained:  # each must be one flipped rounding
+            explained, share = extra(out, outside)
+            flips = (f"; {unexplained} outside, {int(explained.sum())} of them at most one "
+                     f"flipped p (using {share:.3f} of its reorder bound)")
+            unexplained -= int(explained.sum())
+        ok = bool(torch.isfinite(out.float()).all()) and unexplained == 0
         row = {
             "max_abs_err": float(err.max()),
             "ms": time_ms(kern), "plain_ms": time_ms(plain),
@@ -373,7 +491,7 @@ def run_kernel_checks(torch, dev, fails: Failures) -> dict:
         }
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops, op_type)
         fails.check(ok, f"{name} {label} {dn}: max_abs_err {row['max_abs_err']:.3e} "
-                        f"(tol {atol} + {rtol}*|ref|{extra_names.get(name, '')})")
+                        f"(tol {atol} + {rtol}*|ref|{extra_names.get(name, '')}){flips}")
         print(f"  {name} {label} {dn}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"library {row['library_ms']} ms ({row['library']}), bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})", flush=True)
@@ -530,17 +648,7 @@ def run_slice(torch, tok, fails: Failures) -> dict:
     print(f"  slice set-up {time.perf_counter() - t0:.1f} s", flush=True)
     sampling = SamplingConfig(name="top_p", top_p=0.9, temperature=1.0)
     L = tok.max_token_length
-    totals = dict.fromkeys(count, 0)
-
-    def counted(run):
-        """Run with every counter at 0 just before; its launches just after."""
-        for c in count.values():
-            c.launches = 0
-        out = run()
-        n = {k: c.launches for k, c in count.items()}
-        for k in totals:
-            totals[k] += n[k]
-        return out, n
+    counted = LaunchCounter()
 
     def check_request(label, cond, toks, layout, n, expect):
         """Forced tokens in place, legal tokens, finite layouts, and exactly the
@@ -683,7 +791,7 @@ def run_slice(torch, tok, fails: Failures) -> dict:
                 f"outputs {shapes}, finite={finite}, "
                 f"{int((~layouts.mask.any(1)).sum())} layouts with no element")
     print(f"  slice phase {time.perf_counter() - t0:.1f} s", flush=True)
-    return totals
+    return counted.totals
 
 
 def run_stream(torch, fails: Failures) -> int:
@@ -750,6 +858,120 @@ def profile_request(torch, label: str, run) -> None:
         print(f"    {us / 1e3:8.2f} ms {n:6d}x {key[:90]}", flush=True)
 
 
+def run_cli(torch, fails: Failures, smi: list, overrides=tuple(CLI_CONFIG)) -> dict:
+    """The inference and evaluation entry points on the card; returns the
+    launches of each kernel summed over the counted calls."""
+    from ralf_tpu_torch.cli import evaluate, inference
+    from ralf_tpu_torch.config import build_config, build_datasets, build_generator, build_tokenizer
+    from ralf_tpu_torch.core.sampling import SamplingConfig
+    from ralf_tpu_torch.retrieval.retriever import Retriever
+    from ralf_tpu_torch.utils.weights import export_params, save_params_npz
+
+    t0 = time.perf_counter()
+    counted = LaunchCounter()
+
+    def want(**launches):
+        return {**dict.fromkeys(counted.totals, 0), **launches}
+
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job")
+        cfg = build_config("ralf", [*overrides, f"cache_dir={tmp}/cache"])
+        cfg.save(job)
+        tok = build_tokenizer(cfg)
+        gen = build_generator(cfg, tok, device="cuda")
+        save_params_npz(os.path.join(job, "ckpt_final.npz"), *export_params(gen.core))
+        train_ds, _, test_ds = build_datasets(cfg)
+        n_test, L = len(test_ds), tok.max_token_length
+        print(f"  cli job dir: ralf, d_model {gen.cfg.d_model}, {gen.cfg.nhead} heads, "
+              f"{gen.cfg.num_encoder_layers}+{gen.cfg.num_decoder_layers} layers, FFN "
+              f"{gen.cfg.dim_feedforward}, {gen.cfg.backbone}, {gen.image_hw}, top-{gen.top_k}, "
+              f"{gen.cfg.dtype}; splits {len(train_ds)} / {n_test}", flush=True)
+        # two seeds: the second times the configuration warm; K1 4 for FIDNet's
+        # gallery table, then per seed 12 for the encoders and 6 * L decode steps
+        per_call = {"K1": 4 + CLI_SEEDS * 12, "decode": CLI_SEEDS * 6 * L}
+        runs = {"c": (["--cond", "c"], want(K1=per_call["K1"], K2=per_call["decode"])),
+                "uncond-int8": (["--cond", "uncond", "--kv-quant", "--self-quant"],
+                                want(K1=per_call["K1"], K3=per_call["decode"]))}
+        for label, (extra, expect) in runs.items():
+            out_dir = os.path.join(job, f"out_{label}")
+            argv = ["--job-dir", job, "--num-seeds", str(CLI_SEEDS), "--batch-size",
+                    str(CLI_BATCH), "--out-dir", out_dir, *extra]
+            t_call = time.perf_counter()
+            summary, n = counted(lambda: inference.main(argv))
+            t_call = time.perf_counter() - t_call
+            for seed in range(CLI_SEEDS):
+                with open(os.path.join(out_dir, f"test_{seed}.pkl"), "rb") as f:
+                    records = pickle.load(f)["results"]
+                with open(os.path.join(out_dir, f"test_{seed}_violation.csv")) as f:
+                    total, violated, rate = list(csv.reader(f))[1]
+                coords = [v for r in records for k in ("center_x", "center_y", "width", "height")
+                          for v in r[k]]
+                in_unit = all(0.0 <= v <= 1.0 for v in coords)
+                ok_rate = label != "c" or (float(rate) == 0.0 and int(total) > 0)
+                fails.check(len(records) == n_test and in_unit and ok_rate,
+                            f"cli inference {label} seed {seed}: {len(records)} records (want "
+                            f"{n_test}), {len(coords)} coordinates in [0, 1]={in_unit}, "
+                            f"violations {violated}/{total} = {rate}")
+                ms, per_s = summary["ms_per_sample"][seed], summary["layouts_per_s"][seed]
+                print(f"  cli inference {label} seed {seed}: {ms:.3f} ms per sample, "
+                      f"{per_s:.1f} layouts/s (batch {CLI_BATCH}; {card})", flush=True)
+            fails.check(n == expect, f"cli inference {label}: launches {n} (want {expect})")
+            timed = sum(summary["ms_per_sample"].values()) * n_test / 1e3
+            print(f"  cli inference {label}: the call {t_call:.2f} s, its timed loops {timed:.2f} s, "
+                  f"set-up (config, splits, retrieval, gallery table, batches) and writing "
+                  f"{t_call - timed:.2f} s", flush=True)
+
+        # one canvas of the split through the single-canvas path
+        from ralf_tpu_torch.cli.inference import load_generator_params, single_image_batch
+
+        load_generator_params(gen, job, "final")
+        retriever = Retriever.build(train_ds, cache_dir=cfg.cache_dir,
+                                    dataset_name=cfg.dataset.name, device="cuda")
+
+        def single():
+            feats = gen.precompute_retrieved_feats(retriever.layouts)
+            batch = single_image_batch(test_ds.get_images(np.arange(1)), cfg, retriever,
+                                       gen.top_k, feats)
+            cond, _ = gen.build_condition(batch, np.random.default_rng(0), task="uncond")
+            with torch.inference_mode():
+                return gen.sample(cond, SamplingConfig(name="deterministic"), return_tokens=True)
+
+        (layout, toks), n = counted(single)
+        finite = all(bool(torch.isfinite(layout.geo(k)).all())
+                     for k in ("center_x", "center_y", "width", "height"))
+        fails.check(n == want(K1=4 + 12, K2=6 * L) and tuple(toks.shape) == (1, L) and finite,
+                    f"cli single canvas: launches {n}, tokens {tuple(toks.shape)}, "
+                    f"{int(layout.mask.sum())} elements, finite={finite}")
+
+        # evaluation of the c pickles on the card and on the CPU
+        scores = {}
+        for device in ("cuda", "cpu"):
+            argv = ["--input-dir", os.path.join(job, "out_c"), "--job-dir", job, "--device",
+                    device, "--cache-dir", os.path.join(tmp, f"eval_{device}")]
+            with contextlib.redirect_stdout(io.StringIO()):  # its JSON dump; checked below
+                scores[device], n = counted(lambda: evaluate.main(argv))
+            if device == "cuda":  # FIDNet over the GT layouts, then each seed's
+                fails.check(n == want(K1=4 * (1 + CLI_SEEDS)),
+                            f"cli evaluate on the card: launches {n}")
+        got = scores["cuda"]
+        bad = [k for k in SCORE_KEYS if not math.isfinite(got[k]["mean"]) and k not in NAN_ALLOWED]
+        fails.check(list(got) == SCORE_KEYS and not bad,
+                    f"cli evaluate: keys {list(got)} (want JAX's {SCORE_KEYS}); not finite: {bad}")
+        pairs = {k: (got[k]["mean"], scores["cpu"][k]["mean"]) for k in HEURISTIC_KEYS}
+        nan_apart = [k for k, (a, b) in pairs.items() if math.isnan(a) != math.isnan(b)]
+        rel = {k: abs(a - b) / max(abs(b), 1e-12) for k, (a, b) in pairs.items()
+               if not (math.isnan(a) or math.isnan(b))}
+        worst = max(rel.values())
+        fails.check(not nan_apart and worst <= 1e-5,
+                    f"cli evaluate: heuristic metrics card vs CPU, NaN on one side only: "
+                    f"{nan_apart}; worst relative difference {worst:.3e} (tol 1e-5)")
+        print("  cli scores on the card: " + ", ".join(
+            f"{k} {v['mean']:.6g}" for k, v in got.items()), flush=True)
+    print(f"  cli phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted.totals
+
+
 def main() -> int:
     import torch
 
@@ -781,6 +1003,8 @@ def main() -> int:
     reference_check(torch, tok, fails)
     launches = run_slice(torch, tok, fails)
     launches["K9"] += run_stream(torch, fails)
+    for kid, n in run_cli(torch, fails, smi).items():
+        launches[kid] += n
 
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[kid], **main_rows[n]} for n, (kid, rep, src) in KERNELS.items()]

@@ -1,7 +1,8 @@
 """Layout <-> token-sequence codec, the counterpart of `ralf_tpu/core/tokenizer.py`.
 
 A layout flattens into (label_1, v1_1, .., v4_1, label_2, ...) in
-`var_order`, geometry quantized into `num_bin` linear bins with a
+`var_order`, geometry quantized into `num_bin` bins (linear, or k-means
+from sorted centers per attribute) with a
 per-attribute ("unshared") or shared location vocabulary.  Vocabulary::
 
     [0, N_label)                          element classes
@@ -14,12 +15,12 @@ Every shape is static: sequences always hold max_seq_length elements.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ralf_tpu_torch.core.bucketizer import Bucketizer, linear_bucketizer
+from ralf_tpu_torch.core.bucketizer import Bucketizer, kmeans_bucketizer, linear_bucketizer
 from ralf_tpu_torch.core.layout import GEO_KEYS, Layout
 
 SPECIAL_TOKENS = ("pad", "bos", "eos", "mask")
@@ -34,6 +35,9 @@ class TokenizerConfig:
     var_order: Sequence[str] = DEFAULT_VAR_ORDER
     special_tokens: Sequence[str] = ("pad", "bos", "eos")
     is_loc_vocab_shared: bool = False
+    geo_quantization: str = "linear"  # "linear" | "kmeans"
+    # sorted kmeans centers per geo key, required iff geo_quantization == "kmeans"
+    kmeans_centers: Optional[dict] = None
 
     def __post_init__(self) -> None:
         assert "pad" in self.special_tokens
@@ -41,13 +45,18 @@ class TokenizerConfig:
         if "mask" in self.special_tokens:
             assert self.special_tokens[-1] == "mask"
         assert set(self.var_order) == {"label", *GEO_KEYS}
+        assert self.geo_quantization in ("linear", "kmeans")
+        if self.geo_quantization == "kmeans":
+            assert self.kmeans_centers is not None
 
 
 class LayoutSequenceTokenizer:
     def __init__(self, config: TokenizerConfig) -> None:
         self.config = config
         self.bucketizers: dict[str, Bucketizer] = {
-            key: linear_bucketizer(config.num_bin) for key in GEO_KEYS
+            key: (linear_bucketizer(config.num_bin) if config.geo_quantization == "linear"
+                  else kmeans_bucketizer(np.asarray(config.kmeans_centers[key])))
+            for key in GEO_KEYS
         }
 
     # ---- vocabulary arithmetic -------------------------------------------

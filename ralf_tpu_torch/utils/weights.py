@@ -17,9 +17,17 @@ after the flax tree, so the leaf at `a/b/c/kernel` lands in submodule
 
 It raises if a leaf has no home in the port, if a shape disagrees, or if a
 parameter or BatchNorm statistic of the port was left unfilled.
+
+`export_params(module)` is its inverse: the port's tensors as the flax
+tree (float32 numpy).  A checkpoint travels between the packages as a flat
+`.npz` whose keys are `params/<flax path>` and `batch_stats/<flax path>`
+(`save_params_npz`, `load_params_npz`); a JAX job writes one from its
+restored TrainState with numpy alone (README.md, "The port's CLIs").
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -85,3 +93,57 @@ def load_jax_params(module: nn.Module, params: dict, batch_stats: dict | None = 
     missing = sorted(set(targets) - filled)
     if missing:
         raise KeyError(f"port tensors not filled from the JAX tree: {missing}")
+
+
+def export_params(module: nn.Module) -> tuple[dict, dict]:
+    """The inverse of `load_jax_params`: (params, batch_stats) as nested
+    dicts of float32 numpy arrays in the flax layout."""
+    inverse = {cls: {v: k for k, v in names.items()} for cls, names in _RENAMES.items()}
+    params: dict = {}
+    batch_stats: dict = {}
+    tensors = list(module.named_parameters())
+    tensors += [(n, b) for n, b in module.named_buffers()
+                if n.endswith(("running_mean", "running_var"))]
+    for full, t in tensors:
+        *mod_path, name = full.split(".")
+        mod = module.get_submodule(".".join(mod_path))
+        value = t.detach().float().cpu().numpy()
+        leaf = name
+        for cls, names in inverse.items():
+            if isinstance(mod, cls) and name in names:
+                leaf = names[name]
+                if leaf == "kernel" and isinstance(mod, nn.Linear):
+                    value = value.T
+                elif leaf == "kernel" and isinstance(mod, nn.Conv2d):
+                    value = value.transpose(2, 3, 1, 0)
+                break
+        tree = batch_stats if leaf in ("mean", "var") and isinstance(mod, BatchNorm) else params
+        for p in mod_path:
+            tree = tree.setdefault(p, {})
+        tree[leaf] = np.ascontiguousarray(value)
+    return params, batch_stats
+
+
+def save_params_npz(path: str, params: dict, batch_stats: dict | None = None) -> None:
+    """Write the flax tree as a flat `.npz`: keys `params/<path>`, `batch_stats/<path>`."""
+    flat = {f"params/{'/'.join(k)}": v for k, v in _leaves(params)}
+    flat.update((f"batch_stats/{'/'.join(k)}", v) for k, v in _leaves(batch_stats or {}))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+
+
+def load_params_npz(path: str) -> tuple[dict, dict]:
+    """A flat `.npz` of the flax tree -> (params, batch_stats) nested dicts,
+    what `load_jax_params` takes.  A key outside the two collections raises."""
+    trees: dict = {"params": {}, "batch_stats": {}}
+    with np.load(path) as z:
+        for key in z.files:
+            collection, _, rest = key.partition("/")
+            if collection not in trees or not rest:
+                raise KeyError(f"{path}: key {key!r} is not params/<path> or batch_stats/<path>")
+            *mods, leaf = rest.split("/")
+            tree = trees[collection]
+            for m in mods:
+                tree = tree.setdefault(m, {})
+            tree[leaf] = z[key]
+    return trees["params"], trees["batch_stats"]

@@ -774,3 +774,106 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         ss.stream_sum(torch.zeros(4, 8, dtype=torch.float64, device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         ss.stream_sum(torch.zeros(8, 4, device=dev).t())
+
+
+# ---- the evaluation metrics and the CLIs on the card --------------------------
+
+
+def _metric_layout(B=64, S=10, seed=0):
+    import numpy as np
+
+    from ralf_tpu_torch.core.layout import Layout
+
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, S + 1, size=B)
+    mask = np.arange(S)[None] < n[:, None]
+    arrays = {"label": np.where(mask, rng.integers(0, 3, (B, S)), 0), "mask": mask}
+    for k, lo, hi in (("center_x", -0.1, 1.1), ("center_y", -0.1, 1.1), ("width", 0.0, 0.7),
+                      ("height", 0.0, 0.7)):
+        arrays[k] = np.where(mask, rng.uniform(lo, hi, (B, S)), 0).astype(np.float32)
+    return Layout.fromdict(arrays), rng.random((B, 70, 48, 4)).astype(np.float32)
+
+
+def test_metrics_on_the_card_equal_the_cpu(dev):
+    """Every metric of eval/metrics.py on CUDA tensors against the same call
+    on the CPU: 1e-6 absolute (float32 sums in another order), rasters and
+    validity masks exact."""
+    from ralf_tpu_torch.core.layout import Layout
+    from ralf_tpu_torch.eval import metrics as tm
+
+    cpu, img = _metric_layout()
+    card = Layout(**{k: getattr(cpu, k).to(dev) for k in ("label", "center_x", "center_y",
+                                                          "width", "height", "mask")})
+    img_c, img_d = torch.from_numpy(img), torch.from_numpy(img).to(dev)
+
+    def same(a, b, atol=1e-6):
+        a, b = a.cpu(), b.cpu()
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.allclose(a.nan_to_num(), b.nan_to_num(), atol=atol, rtol=0), \
+            float((a.nan_to_num() - b.nan_to_num()).abs().max())
+
+    for fn in (tm.compute_alignment, tm.compute_overlap):
+        same(fn(card), fn(cpu))
+    same(tm.compute_overlay(card, 2), tm.compute_overlay(cpu, 2))
+    ue_d, ue_c = tm.compute_underlay_effectiveness(card, 2), tm.compute_underlay_effectiveness(cpu, 2)
+    for k in ue_c:
+        same(ue_d[k], ue_c[k])
+    (fd, rd), (fc, rc) = tm.compute_validity(card), tm.compute_validity(cpu)
+    assert float(rd) == float(rc)
+    for k, a in fc.numpy().items():
+        assert (fd.numpy()[k] == a).all(), k
+    keep = cpu.mask & (cpu.label == 1)
+    assert torch.equal(tm.pixel_box_mask(card, 70, 48, keep.to(dev)).cpu(),
+                       tm.pixel_box_mask(cpu, 70, 48, keep))
+    same(tm.sobel_gradient_map(img_d[..., :3]), tm.sobel_gradient_map(img_c[..., :3]), 1e-5)
+    sd = tm.compute_saliency_aware_metrics(card, img_d, 1, 2)
+    sc = tm.compute_saliency_aware_metrics(cpu, img_c, 1, 2)
+    for k in sc:
+        same(sd[k], sc[k])
+
+
+def test_cli_inference_and_evaluate_on_the_card_equal_the_cpu(dev, tmp_path):
+    """A small RALF job (the kernels' width: d_model 256, 8 heads; 1+1
+    layers, resnet18, 96x64 canvases) in fp32 under deterministic sampling:
+    the records of --device cuda (K1, K2) equal those of --device cpu (plain
+    versions), and the scores agree within 1e-5 relative."""
+    import json
+    import pickle
+
+    from ralf_tpu_torch.cli import evaluate, inference
+    from ralf_tpu_torch.config import build_config, build_generator, build_tokenizer
+    from ralf_tpu_torch.utils.weights import export_params, save_params_npz
+
+    job = str(tmp_path / "job")
+    cfg = build_config("ralf", [
+        "model.d_model=256", "model.nhead=8", "model.num_encoder_layers=1",
+        "model.num_decoder_layers=1", "model.dim_feedforward=512", "model.backbone=resnet18",
+        "dataset.image_h=96", "dataset.image_w=64", "debug=true", "synthetic_data=true",
+        "sampling.name=deterministic", "generator_kwargs.top_k=4",
+        f"cache_dir={tmp_path / 'cache'}"])
+    cfg.save(job)
+    gen = build_generator(cfg, build_tokenizer(cfg), device="cpu")
+    save_params_npz(f"{job}/ckpt_final.npz", *export_params(gen.core))
+    counts = {}
+    for d in ("cpu", "cuda"):
+        ea.encoder_attention.launches = da.decode_shared_attention.launches = 0
+        for cond in ("c", "uncond"):
+            inference.main(["--job-dir", job, "--cond", cond, "--num-seeds", "1",
+                            "--batch-size", "16", "--device", d, "--out-dir", f"{job}/{d}_{cond}"])
+        counts[d] = (ea.encoder_attention.launches, da.decode_shared_attention.launches)
+        evaluate.main(["--input-dir", f"{job}/{d}_c", "--job-dir", job, "--device", d,
+                       "--cache-dir", f"{job}/eval_{d}"])
+    assert counts["cpu"] == (0, 0) and min(counts["cuda"]) > 0, counts
+    for cond in ("c", "uncond"):
+        with open(f"{job}/cpu_{cond}/test_0.pkl", "rb") as f:
+            want = pickle.load(f)
+        with open(f"{job}/cuda_{cond}/test_0.pkl", "rb") as f:
+            got = pickle.load(f)
+        assert got == want, cond
+    with open(f"{job}/cpu_c/scores_all.json") as f:
+        want = json.load(f)
+    with open(f"{job}/cuda_c/scores_all.json") as f:
+        got = json.load(f)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k]["mean"] == pytest.approx(want[k]["mean"], rel=1e-5, abs=1e-9), k

@@ -183,7 +183,7 @@ def test_sample_gives_legal_reproducible_layouts(models, small_canvas):
 
 # ---- plumbing ---------------------------------------------------------------
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ralf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ralf_tpu", "native")
 
 
 def _imported_modules(path):
@@ -197,9 +197,18 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "ralf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(f.relative_to(REPO / "ralf_tpu_torch")) for f in files[:-1]}
+    assert names >= {"config.py", "cache.py", "cli/inference.py", "cli/evaluate.py",
+                     "data/native.py", "data/dataset.py", "eval/metrics.py",
+                     "eval/visualizer.py", "eval/export_tex.py", "train/trainer.py"}
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
+    # the native collator is the port's own copy, built into the port's build dir
+    from ralf_tpu_torch.data import native
+
+    assert native.SRC.parent == REPO / "ralf_tpu_torch" / "data" / "csrc"
+    assert native.BUILD_DIR == REPO / "ralf_tpu_torch" / "_build"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -241,3 +250,51 @@ def test_chip_smoke_refuses_without_the_card_or_the_package(tmp_path):
                            text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_k1_flip_check_takes_only_a_rounding_near_a_midpoint():
+    """chip_smoke.py holds K1 in bf16 to the plain version's tolerance, and
+    lets an element outside it pass only as one p rounded the other way
+    within p's reorder bound of a bf16 midpoint.  Here, on the CPU, such a
+    flip passes; a flip of a p far from a midpoint, or a wrong value, does
+    not."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(str(REPO))
+    from ralf_tpu_torch.ops import encoder_attention as ea
+
+    B, S, E, H = 64, 11, 256, 4
+    Dh = E // H
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(B, S, E, generator=g) for _ in range(3))
+    q, k, v = (q * Dh**-0.5).bfloat16(), k.bfloat16(), (v * 32).bfloat16()
+    ref = ea.encoder_attention_plain(q, k, v, H)
+    explain = cs.k1_one_flip(torch, q, k, v, H, None)
+    atol, rtol = cs.TOL["bfloat16"]
+    qh, kh, vh = (t.double().reshape(B, S, H, Dh) for t in (q, k, v))
+    p = torch.softmax(torch.einsum("bshd,bmhd->bhsm", qh, kh), -1)  # exact p
+    pb16 = p.to(torch.bfloat16)
+    pb = pb16.double()
+    up = (pb16.view(torch.int16) + 1).view(torch.bfloat16).double()
+    down = (pb16.view(torch.int16) - 1).view(torch.bfloat16).double()
+    other = torch.where(p > pb, up, down)
+    dist = (p - (pb + other) / 2).abs() / p  # relative distance to the nearer midpoint
+    counts = {}
+    for name, pick in (("near", dist.argmin()), ("far", dist.argmax())):
+        b, h, s, j = np.unravel_index(int(pick), tuple(p.shape))
+        pf = pb[b, h, s].clone()
+        pf[j] = other[b, h, s, j]
+        fake = ref.clone()
+        fake[b, s, h * Dh:(h + 1) * Dh] = (pf @ vh[b, :, h]).to(torch.bfloat16)
+        outside = (fake.float() - ref.float()).abs() > atol + rtol * ref.float().abs()
+        assert outside.any(), name  # |v| ~ 32 carries one flip past the tolerance
+        ok, share = explain(fake, outside)
+        counts[name] = (int(outside.sum()), int(ok.sum()), share)
+    assert counts["near"][1] == counts["near"][0] and 0 < counts["near"][2] <= 1, counts
+    assert counts["far"][1] == 0, counts
+    wrong = ref.clone()
+    wrong[5, 2, 7] += 0.5
+    outside = (wrong.float() - ref.float()).abs() > atol + rtol * ref.float().abs()
+    assert not explain(wrong, outside)[0].any()
