@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of RALF's sample paths on one CUDA card.
+"""Drive the PyTorch port of RALF's sample and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,10 @@ Run from the repository root.  Phases, each of which must pass:
               its views), with its time beside the plain version's, one
               PyTorch library call's (for K5 and K6 an unfused sequence) and
               the least time the card could take; K8 also over the decode's
-              6 distinct cache sets in turn (past the L2)
+              6 distinct cache sets in turn (past the L2); then K1, K5 and K6's
+              gradients through their autograd.Functions at the main shapes
+              against torch.autograd.grad of the reference their backward
+              recomputes, in bf16 and fp32
   4. check    the full-width RALF in fp32 on the card against the same weights on
               the CPU (plain versions): gallery features, encode_memory, greedy
               tokens of every decode configuration (shared memory through K2, K3
@@ -54,7 +57,17 @@ Run from the repository root.  Phases, each of which must pass:
               single_image_batch; then cli.evaluate on the c pickles on the
               card (FIDNet, K1) and on the CPU: JAX's score keys, finite
               scores, the heuristic metrics equal within 1e-5 relative
-  8. report   one JSON line of the kernels, the nvidia-smi line, and last
+  8. train    one train step of the full-width fp32 RALF (dropout 0, batch 4)
+              on the card against the CPU: loss, each subtree's update, the
+              frozen FIDNet, BatchNorm's statistics; Trainer.fit at the ralf
+              preset's size (fp32, batch 32, dropout 0.1, the 512/64 synthetic
+              splits, retrieval in the train split) for 4 steps and, resumed
+              from its step checkpoint, 4 more: exactly 4 K1 launches a step
+              (FIDNet), 16 a validation batch, finite losses, the resume's
+              steps and meta, ms per step, samples/s, peak memory and one step
+              under torch.profiler; then cli.train --debug in this process and
+              cli.inference --cond c on its checkpoint (fp32; K1 16, K2 300)
+  9. report   one JSON line of the kernels, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
 Every configuration is chosen here explicitly (q8_mxu is an argument of the
@@ -131,6 +144,12 @@ HEURISTIC_KEYS = SCORE_KEYS[:9]
 NAN_ALLOWED = {"overlay", "underlay_effectiveness_loose",  # no sample with two non-underlays,
                "underlay_effectiveness_strict"}           # or with an underlay: JAX's NaN
 STREAM_SHAPE, STREAM_SLABS = (2048, 680, 256), 9  # scripts/probe_dma_rate.py main()
+# the train phase: the ralf preset's batch; train steps per fit call (4, then 4 more resumed)
+TRAIN_BATCH, TRAIN_STEPS = 32, 4
+# K1 in the train phase's eval steps, fp32: the image encoder (S=330) and the
+# constraint encoder of tasks uncond (Lc=4) and c (Lc=23) at batch 32
+TRAIN_K1_SHAPES = ((32, 330, 8, False), (32, 4, 8, True), (32, 23, 8, True))
+TRAIN_CLI_BATCH = 8  # cli.train --debug: 64/16 canvases, 2 steps and 2 val batches of 8
 
 
 class Failures(list):
@@ -260,6 +279,78 @@ def k1_one_flip(torch, q, k, v, nhead: int, bias):
     return explain
 
 
+def plain_gradients(torch, name: str, ins, gout, nhead: int = 0, key_bias=None):
+    """The gradients of K1's, K5's or K6's plain version (`name` as in
+    KERNELS) at `ins` for the output gradient `gout`, by torch.autograd.grad,
+    and for each the allowance of a gradient that computes the same
+    function in another way: atol + rtol A + F, with (atol, rtol) the
+    forward's tolerance.  A >= |gradient| is the backward run on absolute
+    values (every product |a||b|, softmax's p (dp - sum p dp) as
+    p (|dp| + sum p |dp|)), so rtol A is the forward's rtol where the terms
+    of a gradient do not cancel and grows only where they do: the sums over
+    every row of a weight's gradient, and K5's plain b1 and W2 gradients,
+    which add the fused tail's b1 W2^T back (a difference of sums that each
+    exceed the result).  F is K5's only: a hidden unit whose h lies within
+    rounding reach of -b1 (2^(1-p) |h| for the dtype's p-bit rounding of h,
+    plus E 2^-23 sum|x||w1| for the fp32 sums' order) may be on in the plain
+    version, which compares fp32 h with -b1, and off in one that rounds
+    h + b1, so its terms are allowed whole."""
+    f32 = [t.detach().float() for t in ins]
+    g = gout.float()
+    dt = ins[0].dtype
+    atol, rtol = TOL[str(dt).split(".")[1]]
+    from ralf_tpu_torch.ops import encoder_attention as ea
+    from ralf_tpu_torch.ops import encoder_ffn as ef
+
+    def abs_attention(q, k, v):
+        B, S, E = q.shape
+        qh, kh, vh, gh = (t.reshape(B, S, nhead, E // nhead) for t in (q, k, v, g))
+        sc = torch.einsum("bshd,bmhd->bhsm", qh, kh)
+        if key_bias is not None:
+            kb = key_bias.float()
+            sc = sc + (kb[:, :, None, :] if kb.dim() == 3 else kb[:, None, None, :])
+        p = torch.softmax(sc, dim=-1)
+        adp = torch.einsum("bshd,bmhd->bhsm", gh.abs(), vh.abs())
+        adl = p * (adp + (p * adp).sum(-1, keepdim=True))
+        out = (torch.einsum("bhsm,bmhd->bshd", adl, kh.abs()),
+               torch.einsum("bhsm,bshd->bmhd", adl, qh.abs()),
+               torch.einsum("bhsm,bshd->bmhd", p, gh.abs()))
+        return [t.reshape(B, S, E) for t in out]
+
+    flip = None
+    if name == "encoder_attention":
+        plain = lambda q, k, v: ea.encoder_attention_plain(q, k, v, nhead, key_bias)  # noqa: E731
+        scale = abs_attention(*f32)
+    elif name == "encoder_self_attention":
+        plain = lambda x, w: ea.encoder_self_attention_plain(x, w, nhead, key_bias)  # noqa: E731
+        x, w = f32
+        E = x.shape[-1]
+        qkv = x @ w.t()
+        aqkv = torch.cat(abs_attention(qkv[..., :E], qkv[..., E:2 * E], qkv[..., 2 * E:]), -1)
+        scale = [aqkv @ w.abs(), torch.einsum("bso,bsi->oi", aqkv, x.abs())]
+    else:
+        plain = ef.fused_ffn_plain
+        x, w1, b1, w2, _ = f32
+        E = x.shape[-1]
+        h = x @ w1.t()
+        on = h > -b1
+        bits = {torch.float32: 24, torch.bfloat16: 8}[dt]
+        reach = 2.0**(1 - bits) * h.abs() + E * 2.0**-23 * (x.abs() @ w1.abs().t())
+        near = ((h + b1).abs() <= reach).float()
+        adg = g.abs() @ w2.abs()
+        adh = adg * on
+        rows = lambda a, b: torch.einsum("bsi,bsj->ij", a, b)  # noqa: E731
+        scale = [adh @ w1.abs(), rows(adh, x.abs()), (adg * (2 - on.float())).sum((0, 1)),
+                 rows(g.abs(), torch.maximum(h, -b1).abs() + b1.abs()), g.abs().sum((0, 1))]
+        fn = adg * near
+        flip = [fn @ w1.abs(), rows(fn, x.abs()), fn.sum((0, 1)), None, None]
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(plain(*leaves), leaves, gout)
+    allow = [atol + rtol * a + (0.0 if flip is None or flip[i] is None else flip[i])
+             for i, a in enumerate(scale)]
+    return want, allow
+
+
 def kernel_cases(torch, dev):
     """(kernel name, case label, dtype, kernel call, plain call, library call or
     None, bytes, ops, op type of the peak, extra tolerance or, for K1 in bf16,
@@ -280,11 +371,13 @@ def kernel_cases(torch, dev):
         # FIDNet (Dh=64), and the largest S the wrapper takes (key tiles streamed);
         # then the cli phase's: a batch of 64 (constraint S=23 for task c, S=4
         # uncond), the single canvas, FIDNet over its 512-canvas gallery and a batch
-        for B, S, H, masked in ((128, 330, 8, False), (1, 330, 8, False), (128, 4, 8, True),
-                                (128, 89, 8, True), (256, 11, 4, True), (1, 11, 4, True),
-                                (16, 1024, 8, False), (64, 330, 8, False), (64, 23, 8, True),
-                                (64, 4, 8, True), (1, 4, 8, True), (512, 11, 4, True),
-                                (64, 11, 4, True)):
+        # (FIDNet at the train step's B*K = 512 is among them); in fp32 also the
+        # train phase's encoders at batch 32 (constraint lengths of uncond and c)
+        k1_shapes = ((128, 330, 8, False), (1, 330, 8, False), (128, 4, 8, True),
+                     (128, 89, 8, True), (256, 11, 4, True), (1, 11, 4, True),
+                     (16, 1024, 8, False), (64, 330, 8, False), (64, 23, 8, True),
+                     (64, 4, 8, True), (1, 4, 8, True), (512, 11, 4, True), (64, 11, 4, True))
+        for B, S, H, masked in k1_shapes + (TRAIN_K1_SHAPES if dtype == torch.float32 else ()):
             E, Dh = 256, 256 // H
             q, k, v = (torch.randn(B, S, E, generator=g, device=dev) for _ in range(3))
             q = (q * Dh**-0.5).to(dtype)
@@ -307,8 +400,10 @@ def kernel_cases(torch, dev):
             ))
         # K2, K3, K4 also at the wrapper's largest M (K2: slices streamed; K3,
         # K4: slices of 512 tokens) and K3, K4 at a small M (CTAs with no token);
-        # K2, K3 also at the cli phase's batch of 64 and its single canvas
-        for B, M in ((128, 680), (128, 677), (128, 4096), (128, 5), (64, 680), (1, 680)):
+        # K2, K3 also at the cli phase's batch of 64 and its single canvas, and in
+        # fp32 at the train phase's cli.inference batch (16 canvases, task c)
+        k2_shapes = ((128, 680), (128, 677), (128, 4096), (128, 5), (64, 680), (1, 680))
+        for B, M in k2_shapes + (((16, 699),) if dtype == torch.float32 else ()):
             H, E = 8, 256
             qt = (torch.randn(B, H, E, generator=g, device=dev) / 16).to(dtype)
             memf = torch.randn(B, M, E, generator=g, device=dev)
@@ -834,28 +929,35 @@ def run_stream(torch, fails: Failures) -> int:
 
 
 def profile_request(torch, label: str, run) -> None:
-    """One more request under torch.profiler: the summed CUDA kernel time
-    against the host wall time (the device's busy share), the kernels
-    that take most of it, and the port's own kernels below those.  For
-    information; it checks nothing."""
+    """One more request (or train step) under torch.profiler: the summed
+    CUDA kernel time against the host wall time (the device's busy share),
+    the kernels that take most of it, and the port's own kernels below
+    those, each with its share of the kernel time.  A record_function
+    range (the optimizer's step) spans kernels on the device timeline: it
+    is printed, not summed.  For information; it checks nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         run()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]  # the kernels themselves, not the ops above them
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    spans = [e for e in events if getattr(e, "is_user_annotation", False)]
+    rows = [(e.self_device_time_total, e.count, e.key) for e in events
+            if e not in spans]  # the kernels themselves, not the ops above them
     if not rows:
         print(f"  {label} profile: no device time recorded (busy share not measured)", flush=True)
         return
     busy = sum(r[0] for r in rows)
     print(f"  {label} profile: wall {wall_us / 1e3:.1f} ms, kernels {busy / 1e3:.1f} ms on the "
-          f"device ({100 * busy / wall_us:.1f}% busy)", flush=True)
+          f"device ({100 * busy / wall_us:.1f}% busy), {sum(r[1] for r in rows)} launches"
+          + "".join(f"; span {e.key} {e.device_time_total / 1e3:.2f} ms" for e in spans),
+          flush=True)
     ranked = sorted(rows, reverse=True)
     for us, n, key in ranked[:8] + [r for r in ranked[8:] if "ralf::" in r[2]]:
-        print(f"    {us / 1e3:8.2f} ms {n:6d}x {key[:90]}", flush=True)
+        print(f"    {us / 1e3:8.2f} ms {100 * us / busy:5.2f}% {n:6d}x {key[:90]}", flush=True)
 
 
 def run_cli(torch, fails: Failures, smi: list, overrides=tuple(CLI_CONFIG)) -> dict:
@@ -972,6 +1074,281 @@ def run_cli(torch, fails: Failures, smi: list, overrides=tuple(CLI_CONFIG)) -> d
     return counted.totals
 
 
+def run_backward_checks(torch, dev, fails: Failures) -> None:
+    """K1, K5 and K6 carry gradients through their autograd.Function: the
+    kernel's forward (one launch a call), and a backward that recomputes the
+    reference JAX's custom_vjp differentiates (ops' `attention_reference`,
+    `self_attention_reference`, `ffn_reference`).  At the main shapes in
+    bf16 and fp32, the Function's gradients against torch.autograd.grad of
+    the plain version on the same inputs, within the forward's tolerance
+    taken against the sums each gradient adds up (`plain_gradients`).  K1's
+    case has no mask and K6's key bias is finite: no row is fully masked,
+    where the plain version and JAX's reference part ways."""
+    from ralf_tpu_torch.ops import encoder_attention as ea
+    from ralf_tpu_torch.ops import encoder_ffn as ef
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    B, S, E, H, Fh = 128, 330, 256, 8, 1024
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        kb = rand(B, H, S)  # K6's per-head key logits, as bq gives them
+        cases = (
+            ("encoder_attention", [rand(B, S, E, scale=(E // H) ** -0.5), rand(B, S, E),
+                                   rand(B, S, E)],
+             lambda q, k, v: ea.encoder_attention(q, k, v, H), None),
+            ("fused_ffn", [rand(B, S, E), rand(Fh, E, scale=E ** -0.5), rand(Fh),
+                           rand(E, Fh, scale=Fh ** -0.5), rand(E)], ef.fused_ffn, None),
+            ("encoder_self_attention", [rand(B, S, E), rand(3 * E, E, scale=E ** -0.5)],
+             lambda x, w: ea.encoder_self_attention(x, w, H, kb), kb),
+        )
+        for name, raw, function, key_bias in cases:
+            ins = [t.to(dtype).requires_grad_() for t in raw]
+            count = counters()[KERNELS[name][0]]
+            before = count.launches
+            out = function(*ins)
+            launched = count.launches - before
+            gout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+            got = torch.autograd.grad(out, ins, gout)
+            want, allow = plain_gradients(torch, name, ins, gout, H, key_bias)
+            ok, worst, used = launched == 1 and out.grad_fn is not None, 0.0, 0.0
+            for a, b, tol in zip(got, want, allow):
+                err = (a.float() - b.float()).abs()
+                ok &= bool(torch.isfinite(a.float()).all()) and bool((err <= tol).all())
+                worst = max(worst, float(err.max()))
+                used = max(used, float((err / tol).max()))
+            torch.cuda.synchronize()
+            fails.check(ok, f"backward {name} {dn} at the main shape: {launched} kernel launch in "
+                            f"the forward; gradients of {len(ins)} inputs against the plain "
+                            f"version's max_abs_err {worst:.3e}, at most {used:.3f} of the "
+                            f"allowance (forward tol {TOL[dn]} against the sums)")
+            del ins, out, got, want, allow
+
+
+def train_step_check(torch, tok, fails: Failures, tmp: str, model: dict) -> None:
+    """One train step of the fp32 RALF (`model`'s fields over the full
+    width; dropout 0, batch 4) on the card and on the CPU from the same
+    seeded weights and the same batch."""
+    from ralf_tpu_torch.data.dataset import BatchLoader, DatasetConfig, SyntheticPosterDataset
+    from ralf_tpu_torch.models.base import GeneratorConfig
+    from ralf_tpu_torch.models.ralf import RALFGenerator
+    from ralf_tpu_torch.retrieval.retriever import Retriever
+    from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
+    from ralf_tpu_torch.train.trainer import TrainConfig, Trainer
+    from ralf_tpu_torch.utils.weights import export_params
+
+    cfg = GeneratorConfig(**{**model, "dtype": torch.float32, "dropout": 0.0})
+    ds = SyntheticPosterDataset(DatasetConfig(name="synthetic"), size=64, seed=0)
+    loader = RetrievalAugmentedLoader(BatchLoader(ds, 4, shuffle=False),
+                                      Retriever.build(ds, device="cpu"), 16, is_train_split=True)
+    batch = next(iter(loader))  # one host batch, fed to both
+    out = {}
+    for d in ("cuda", "cpu"):
+        gen = RALFGenerator(tok, cfg, "uncond", device=d, seed=0)
+        before = export_params(gen.core)
+        trainer = Trainer(gen, TrainConfig(job_dir=os.path.join(tmp, f"step_{d}")))
+        state = trainer.init_state()
+        inputs, targets = gen.preprocess(batch, np.random.default_rng(0))
+        loss = float(trainer.train_step(state, inputs, targets)["loss"])
+        out[d] = (loss, before, export_params(gen.core))
+    (lc, before, (pc, sc)), (lp, _, (pp, sp)) = out["cuda"], out["cpu"]
+    rel = abs(lc - lp) / abs(lp)
+    fails.check(rel <= 1e-4, f"train step card vs CPU: loss {lc:.7f} vs {lp:.7f}, relative "
+                             f"{rel:.2e} (tol 1e-4)")
+
+    def flat(tree):  # a subtree, or a leaf such as flag_emb
+        if not isinstance(tree, dict):
+            return np.ravel(tree)
+        return np.concatenate([np.ravel(a) for _, a in sorted(_leaves(tree))])
+
+    for key in sorted(before[0]):
+        d_c, d_p = flat(pc[key]) - flat(before[0][key]), flat(pp[key]) - flat(before[0][key])
+        if key == "layout_encoder":
+            fails.check(not d_c.any() and not d_p.any(),
+                        "train step: the frozen layout_encoder did not move, card or CPU")
+            continue
+        norm_p = float(np.linalg.norm(d_p))
+        cos = float(d_c @ d_p / max(float(np.linalg.norm(d_c)) * norm_p, 1e-30))
+        ratio = float(np.linalg.norm(d_c)) / max(norm_p, 1e-30)
+        fails.check(cos > 0.99 and 0.97 < ratio < 1.03,
+                    f"train step card vs CPU, update of {key}: cosine {cos:.5f} (> 0.99), norm "
+                    f"ratio {ratio:.5f} (0.97-1.03), CPU norm {norm_p:.3e}")
+    worst = max(float((np.abs(flat(sc[k]) - flat(sp[k])) /
+                       (1e-6 + 1e-4 * np.abs(flat(sp[k])))).max()) for k in sp)
+    fails.check(worst <= 1.0, f"train step card vs CPU: BatchNorm running statistics within "
+                              f"1e-6 + 1e-4*|CPU| (worst element uses {worst:.3f} of it)")
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def run_train(torch, tok, fails: Failures, smi: list, overrides=()) -> dict:
+    """Training on the card: the one-step check against the CPU, Trainer.fit
+    at the ralf preset's size and its resume, then cli.train -> cli.inference;
+    returns the launches of each kernel summed over the counted calls.
+    `overrides` (dotted config keys, `model.*` among them) cut the model
+    for a rehearsal without a card; the script passes none."""
+    from ralf_tpu_torch.cli import inference
+    from ralf_tpu_torch.cli import train as cli_train
+    from ralf_tpu_torch.config import build_config, build_datasets, build_generator, build_tokenizer
+    from ralf_tpu_torch.data.dataset import BatchLoader
+    from ralf_tpu_torch.retrieval.retriever import Retriever
+    from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
+    from ralf_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    counted = LaunchCounter()
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+
+    def want(**launches):
+        return {**dict.fromkeys(counted.totals, 0), **launches}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train_step_check(torch, tok, fails, tmp, build_config("ralf", list(overrides)).model)
+        print(f"  train step check {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # Trainer.fit at the ralf preset's size: full width, fp32, batch 32,
+        # dropout 0.1, the non-debug synthetic splits, retrieval in the train split
+        job = os.path.join(tmp, "fit")
+        cfg = build_config("ralf", ["synthetic_data=true", f"cache_dir={tmp}/cache",
+                                    f"train.job_dir={job}", "train.epochs=1",
+                                    f"train.save_every_steps={TRAIN_STEPS}", *overrides])
+        gen = build_generator(cfg, build_tokenizer(cfg), device="cuda")
+        train_ds, val_ds, _ = build_datasets(cfg)
+        retriever = Retriever.build(train_ds, cache_dir=cfg.cache_dir,
+                                    dataset_name=cfg.dataset.name, device="cuda")
+        top_k = gen.top_k
+        tables = {"train": retriever.precompute_table(train_ds, top_k, is_train_split=True),
+                  "val": retriever.precompute_table(val_ds, top_k, is_train_split=False)}
+
+        def loaders():
+            tl = BatchLoader(train_ds, TRAIN_BATCH, transforms=cfg.transforms, seed=cfg.train.seed)
+            vl = BatchLoader(val_ds, TRAIN_BATCH, shuffle=False, transforms=cfg.transforms,
+                             seed=cfg.train.seed)
+            return (RetrievalAugmentedLoader(tl, retriever, top_k, table=tables["train"]),
+                    RetrievalAugmentedLoader(vl, retriever, top_k, table=tables["val"]))
+
+        trainer = Trainer(gen, cfg.train)
+        records = {"train": [], "eval": []}
+        count = counters()
+
+        def instrumented(kind, inner):
+            def step(state, inputs, targets):
+                n0 = {k: c.launches for k, c in count.items()}
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                m = inner(state, inputs, targets)
+                loss = float(m["loss"])  # waits for the step
+                b = time.perf_counter()
+                records[kind].append({"step": state.step, "loss": loss, "s": b - a, "start": a,
+                                      "n": {k: c.launches - n0[k] for k, c in count.items()}})
+                return m
+            return step
+
+        inner_train = trainer.train_step
+        trainer.train_step = instrumented("train", inner_train)
+        trainer.eval_step = instrumented("eval", trainer.eval_step)
+        print(f"  fit set-up (config, model, splits {len(train_ds)}/{len(val_ds)}, retrieval "
+              f"tables) {time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        t_fit = time.perf_counter()
+        _, n1 = counted(lambda: trainer.fit(*loaders(), num_steps_cap=TRAIN_STEPS))
+        t_fit1 = time.perf_counter() - t_fit
+        first = len(records["train"])
+        state, n2 = counted(lambda: trainer.fit(*loaders(), num_steps_cap=2 * TRAIN_STEPS,
+                                                resume=True))
+        t_fit2 = time.perf_counter() - t_fit - t_fit1
+        peak = torch.cuda.max_memory_allocated()
+        steps, evals = records["train"], records["eval"]
+        # validation batches a call: the split's, under each call's num_steps_cap
+        n_val = [min(len(val_ds) // TRAIN_BATCH, cap) for cap in (TRAIN_STEPS, 2 * TRAIN_STEPS)]
+        k1_step = want(K1=4)  # FIDNet's 4 layers over the B*K = 512 retrieved layouts
+        k1_eval = want(K1=4 + 6 + 6)  # and, in eval mode, the 6 + 6 encoder self-attentions
+        fails.check(all(r["n"] == k1_step for r in steps) and len(steps) == 2 * TRAIN_STEPS,
+                    f"fit: {len(steps)} train steps, launches per step "
+                    f"{sorted({str(r['n']) for r in steps})} (want {k1_step})")
+        fails.check(all(r["n"] == k1_eval for r in evals) and len(evals) == sum(n_val),
+                    f"fit: {len(evals)} validation batches ({n_val} in the two calls), launches "
+                    f"per batch {sorted({str(r['n']) for r in evals})} (want {k1_eval})")
+        fails.check([n1, n2] == [want(K1=4 * TRAIN_STEPS + 16 * v) for v in n_val],
+                    f"fit: launches a call {n1}, {n2} (want 4 x {TRAIN_STEPS} steps + 16 x "
+                    f"{n_val} validation batches)")
+        losses = [r["loss"] for r in steps + evals]
+        fails.check(all(math.isfinite(x) for x in losses),
+                    f"fit: every loss finite ({', '.join(f'{x:.4f}' for x in losses)})")
+        with open(os.path.join(job, "ckpt_step_meta.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(job, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        resumed = [r["step"] for r in steps]
+        fails.check(resumed == list(range(1, 2 * TRAIN_STEPS + 1)) and first == TRAIN_STEPS
+                    and state.step == 2 * TRAIN_STEPS
+                    and meta == {"epoch": 1, "step_in_epoch": 2 * TRAIN_STEPS,
+                                 "global_step": 2 * TRAIN_STEPS}
+                    and len(recs) == 2 and all(math.isfinite(r["val_loss"]) for r in recs),
+                    f"fit resume: the first call ends at step {steps[first - 1]['step']}, the "
+                    f"resumed one takes steps {resumed[first:]} (global step {state.step}); "
+                    f"ckpt_step_meta.json {meta}; metrics.jsonl {recs}")
+        timed = [r["s"] for r in steps[1:first] + steps[first + 1:]]  # steps 2-4 and 6-8
+        ms = 1e3 * statistics.median(timed)
+        loop = [b["start"] - a["start"] for a, b in zip(steps, steps[1:]) if b["step"] != first + 1]
+        loop_ms = 1e3 * statistics.median(loop[1:])
+        print(f"  fit: {ms:.2f} ms per train step (median of steps 2-4 and 6-8: "
+              f"{', '.join(f'{1e3 * x:.2f}' for x in timed)}), {TRAIN_BATCH / ms * 1e3:.1f} "
+              f"samples/s; {loop_ms:.2f} ms between step starts (loader, retrieval gather and "
+              f"preprocess included), {TRAIN_BATCH / loop_ms * 1e3:.1f} samples/s; "
+              f"validation {1e3 * statistics.median(r['s'] for r in evals):.2f} ms a batch; "
+              f"peak memory {peak / 2**30:.2f} GiB; calls {t_fit1:.1f} s and {t_fit2:.1f} s; "
+              f"fp32, batch {TRAIN_BATCH}, {card}", flush=True)
+        batch = next(iter(loaders()[0]))
+        inputs, targets = gen.preprocess(batch, np.random.default_rng(0))
+        profile_request(torch, "fit train step", lambda: inner_train(state, inputs, targets))
+        del trainer, state, gen, inputs, targets
+        torch.cuda.empty_cache()
+
+        # the entry points: cli.train --debug at full width on the card, then
+        # cli.inference on its ckpt_final.npz in the job's dtype (fp32)
+        job = os.path.join(tmp, "cli")
+        argv = ["--experiment", "ralf", "--synthetic", "--debug", "--batch-size",
+                str(TRAIN_CLI_BATCH), "--job-dir", job, "--cache-dir", os.path.join(tmp, "cli_cache"),
+                *overrides]
+        t_call = time.perf_counter()
+        _, n = counted(lambda: cli_train.main(argv))
+        t_call = time.perf_counter() - t_call
+        files = [f for f in ("config.json", "metrics.jsonl", "ckpt_final.npz", "ckpt_final_opt.pt",
+                             "ckpt_best.npz") if os.path.exists(os.path.join(job, f))]
+        expect = want(K1=2 * 4 + 2 * 16)  # 2 steps, 2 validation batches of 8
+        fails.check(n == expect and len(files) == 5,
+                    f"cli.train --debug: launches {n} (want {expect}); wrote {files}; {t_call:.1f} s")
+        out_dir = os.path.join(job, "out_c")
+        argv = ["--job-dir", job, "--cond", "c", "--num-seeds", "1", "--batch-size", "16",
+                "--out-dir", out_dir]
+        summary, n = counted(lambda: inference.main(argv))
+        L = tok.max_token_length
+        expect = want(K1=4 + 12, K2=6 * L)  # FIDNet's gallery table; one batch of 16
+        with open(os.path.join(out_dir, "test_0.pkl"), "rb") as f:
+            records_c = pickle.load(f)["results"]
+        with open(os.path.join(out_dir, "test_0_violation.csv")) as f:
+            total, violated, rate = list(csv.reader(f))[1]
+        coords = [v for r in records_c for k in ("center_x", "center_y", "width", "height")
+                  for v in r[k]]
+        fails.check(n == expect and len(records_c) == 16 and all(0 <= v <= 1 for v in coords)
+                    and float(rate) == 0.0 and int(total) > 0,
+                    f"cli.inference on the trained checkpoint (fp32, --cond c): launches {n} "
+                    f"(want {expect}), {len(records_c)} records, violations {violated}/{total}, "
+                    f"{summary['ms_per_sample'][0]:.3f} ms per sample")
+    print(f"  train phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted.totals
+
+
 def main() -> int:
     import torch
 
@@ -999,11 +1376,14 @@ def main() -> int:
 
     dev = torch.device("cuda")
     main_rows = run_kernel_checks(torch, dev, fails)
+    run_backward_checks(torch, dev, fails)
     tok = LayoutSequenceTokenizer(TokenizerConfig(num_labels=3, max_seq_length=10, num_bin=128))
     reference_check(torch, tok, fails)
     launches = run_slice(torch, tok, fails)
     launches["K9"] += run_stream(torch, fails)
     for kid, n in run_cli(torch, fails, smi).items():
+        launches[kid] += n
+    for kid, n in run_train(torch, tok, fails, smi).items():
         launches[kid] += n
 
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,

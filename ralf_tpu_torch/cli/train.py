@@ -1,0 +1,147 @@
+"""Training entry point, the counterpart of `ralf_tpu/cli/train.py` for the
+`autoreg` and `ralf` presets:
+
+    python -m ralf_tpu_torch.cli.train --experiment ralf --dataset pku10 \\
+        --job-dir tmp/jobs/ralf_pku --epochs 2 --synthetic \\
+        train.lr=1e-4 generator_kwargs.top_k=16
+
+Dotted key=value overrides as in JAX.  It writes the job dir's
+`config.json` (JAX's format), trains with `train.trainer.Trainer` and writes
+`metrics.jsonl` and the checkpoints `ckpt_<tag>.npz` (the flat flax tree,
+which `cli.inference` reads) beside `ckpt_<tag>_opt.pt`.  `ralf` retrieves
+for every canvas of the train split from the others (`is_train_split`),
+through the cached top-k tables where the cache dir holds them; FIDNet runs
+on the B*K retrieved layouts in each step, as in JAX.
+
+It runs on the card (`--device cuda`, the default, which raises without
+CUDA) or on the CPU with `--device cpu`.  These raise, naming the item of
+ROADMAP.md Queue A that ports them: the GAN, `icvt` and `retriever`
+presets and the rest of the zoo (item 8), and from `Trainer`,
+`train.gallery_shards > 1` (item 10) and `model.dtype=bfloat16` (item 11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+import numpy as np
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--experiment", default="ralf")
+    p.add_argument("--dataset", default="pku10")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--job-dir", default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--task", default="uncond", help="auxiliary task")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--synthetic", action="store_true",
+                   help="hermetic synthetic dataset (no parquet dumps needed)")
+    p.add_argument("--cache-dir", default="cache",
+                   help="offline-artifact dir (retrieval tables, gallery features)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the rolling mid-epoch 'step' checkpoint in job-dir")
+    p.add_argument("--save-every-steps", type=int, default=0,
+                   help="rolling mid-epoch checkpoint cadence (train steps)")
+    p.add_argument("--save-every-secs", type=float, default=0.0,
+                   help="rolling mid-epoch checkpoint cadence (wall seconds)")
+    p.add_argument("--uint8-images", action="store_true",
+                   help="canvases travel to the device as uint8 and are normalized there")
+    p.add_argument("--allow-linear-fallback", action="store_true",
+                   help="permit kmeans-preset tokenizers to downgrade to the linear vocabulary")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without CUDA) or cpu")
+    p.add_argument("overrides", nargs="*")
+    return p
+
+
+def main(argv=None) -> str:
+    """Train; returns the job dir."""
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
+
+    from ralf_tpu_torch import cache as cache_mod
+    from ralf_tpu_torch.config import (
+        EXPERIMENTS,
+        build_config,
+        build_datasets,
+        build_generator,
+        build_tokenizer,
+    )
+    from ralf_tpu_torch.data.dataset import BatchLoader, DatasetConfig
+    from ralf_tpu_torch.train.trainer import Trainer
+    from ralf_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    cfg = build_config(args.experiment, args.overrides)
+    if EXPERIMENTS[cfg.experiment]["generator"] not in ("autoreg", "ralf"):
+        raise NotImplementedError(
+            f"experiment {cfg.experiment!r}: the port trains 'autoreg' and 'ralf'; the GAN, "
+            "icvt and retriever presets and the rest of the zoo come with ROADMAP.md "
+            "Queue A item 8")
+    cfg.dataset = DatasetConfig(name=args.dataset, data_dir=args.data_dir)
+    cfg.auxiliary_task = args.task
+    cfg.debug = args.debug
+    cfg.synthetic_data = args.synthetic
+    cfg.cache_dir = args.cache_dir
+    if args.allow_linear_fallback:  # don't clobber a dotted override
+        cfg.allow_linear_fallback = True
+    if args.epochs:
+        cfg.train.epochs = args.epochs
+    if args.batch_size:
+        cfg.train.batch_size = args.batch_size
+    if args.save_every_steps:
+        cfg.train.save_every_steps = args.save_every_steps
+    if args.save_every_secs:
+        cfg.train.save_every_secs = args.save_every_secs
+    cfg.train.job_dir = args.job_dir or f"tmp/jobs/{args.experiment}_{args.dataset}_{args.task}"
+    if args.debug:
+        cfg.train.epochs = 1
+    cfg.save(cfg.train.job_dir)
+
+    train_ds, val_ds, _ = build_datasets(cfg)
+    tokenizer = build_tokenizer(cfg)
+    gen = build_generator(cfg, tokenizer, device=dev)
+
+    # relation task: the precomputed clause table indexes elements in the
+    # canonical sorted order, so it applies to deterministic-order pipelines
+    deterministic_order = set(cfg.transforms) <= {"image", "sort_label", "sort_lexicographic"}
+    if args.task in ("relation", "multitask") and deterministic_order:
+        gen.relationships_table = cache_mod.load_relationships(cfg.cache_dir, cfg.dataset.name)
+
+    image_dtype = np.uint8 if args.uint8_images else np.float32
+    train_loader = BatchLoader(train_ds, cfg.train.batch_size, transforms=cfg.transforms,
+                               seed=cfg.train.seed, image_dtype=image_dtype)
+    val_loader = BatchLoader(val_ds, cfg.train.batch_size, shuffle=False,
+                             transforms=cfg.transforms, seed=cfg.train.seed,
+                             image_dtype=image_dtype)
+
+    if cfg.experiment == "ralf" or cfg.generator_kwargs.get("with_retrieval"):
+        from ralf_tpu_torch.retrieval.retriever import Retriever
+        from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
+
+        retriever = Retriever.build(train_ds, cache_dir=cfg.cache_dir,
+                                    dataset_name=cfg.dataset.name, device=dev)
+        top_k = cfg.generator_kwargs.get("top_k", 16)
+        tables = {  # a cache hit skips the per-run gallery scoring pass
+            split: cache_mod.load_retrieval_table(
+                cfg.cache_dir, cfg.dataset.name, split, retriever.backbone_name, top_k,
+                expect_rows=len(ds))
+            for split, ds in (("train", train_ds), ("val", val_ds))
+        }
+        train_loader = RetrievalAugmentedLoader(train_loader, retriever, top_k,
+                                                is_train_split=True, table=tables["train"])
+        val_loader = RetrievalAugmentedLoader(val_loader, retriever, top_k, table=tables["val"])
+
+    trainer = Trainer(gen, cfg.train)
+    trainer.fit(train_loader, val_loader, num_steps_cap=2 if cfg.debug else None,
+                resume=args.resume)
+    print(f"done: {cfg.train.job_dir}")
+    return cfg.train.job_dir
+
+
+if __name__ == "__main__":
+    main()

@@ -8,8 +8,11 @@ counterpart of `ralf_tpu/models/autoreg.py`:
 `AutoregGenerator` is the shell every AR generator shares: it turns a batch
 into a `Condition` (any task of `COND_TYPES`, or a multitask draw), encodes
 it, and runs the KV-cached constrained decode, or for `relation` the
-decode with retries (`ops/relation_decode.py`).  `RALFGenerator`
-(models/ralf.py) supplies its own core.
+decode with retries (`ops/relation_decode.py`).  For training it turns a
+batch into the teacher-forced tensors (`preprocess`) and gives the
+label-smoothed cross-entropy of the core's logits (`loss`), in the core's
+mode: `train.trainer.Trainer` sets it.  `RALFGenerator` (models/ralf.py)
+supplies its own core.
 """
 
 from __future__ import annotations
@@ -44,11 +47,12 @@ class ConstraintEncoder(nn.Module):
     """Embedding + 1-d PE + pre-LN encoder over the serialized constraint."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, nhead: int = 8,
-                 num_layers: int = 6, dim_feedforward: int = 1024) -> None:
+                 num_layers: int = 6, dim_feedforward: int = 1024, dropout: float = 0.1) -> None:
         super().__init__()
         self.Embed_0 = nn.Embedding(vocab_size, d_model)
-        self.pos_emb = PositionalEncoding1D(d_model)
-        self.TransformerEncoder_0 = TransformerEncoder(d_model, nhead, num_layers, dim_feedforward)
+        self.pos_emb = PositionalEncoding1D(d_model, dropout)
+        self.TransformerEncoder_0 = TransformerEncoder(d_model, nhead, num_layers, dim_feedforward,
+                                                       dropout=dropout)
 
     def forward(self, seq: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
         return self.TransformerEncoder_0(self.pos_emb(self.Embed_0(seq)), keep=keep)
@@ -62,12 +66,13 @@ class AutoregCore(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.encoder = ImageEncoder(cfg.backbone, d, cfg.nhead, cfg.num_encoder_layers,
-                                    cfg.dim_feedforward)
+                                    cfg.dim_feedforward, cfg.dropout)
         self.const_encoder = ConstraintEncoder(const_vocab_size, d, cfg.nhead,
-                                               cfg.num_encoder_layers, cfg.dim_feedforward)
+                                               cfg.num_encoder_layers, cfg.dim_feedforward,
+                                               cfg.dropout)
         self.flag_emb = nn.Parameter(torch.randn(2, 1) * 0.02)  # image rows / constraint rows
         self.decoder = TokenDecoder(vocab_size, d, cfg.nhead, cfg.num_decoder_layers,
-                                    cfg.dim_feedforward)
+                                    cfg.dim_feedforward, cfg.dropout)
 
     def encode_memory(self, image: torch.Tensor, const_seq: torch.Tensor,
                       const_keep: torch.Tensor) -> torch.Tensor:
@@ -77,6 +82,25 @@ class AutoregCore(nn.Module):
         const_mem = self.const_encoder(const_seq, const_keep)
         flag = self.flag_emb.to(img_mem.dtype)
         return torch.cat([img_mem + flag[0], const_mem + flag[1]], dim=1)
+
+    def forward(self, seq: torch.Tensor, image: torch.Tensor, const_seq: torch.Tensor,
+                const_keep: torch.Tensor, tgt_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Teacher-forced logits [B, S, V] of the causal decoder."""
+        memory = self.encode_memory(image, const_seq, const_keep)
+        return self.decoder(seq, memory, tgt_keep=tgt_keep, causal=True)
+
+
+def smoothed_ce_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_id: int,
+                     smoothing: float = 0.1) -> torch.Tensor:
+    """torch's CrossEntropyLoss(label_smoothing, ignore_index) as JAX writes
+    it: the mean over non-ignored positions of -(1 - s) log p_target -
+    (s / V) sum log p, in fp32."""
+    V = logits.shape[-1]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tgt_logp = logp.gather(-1, targets[..., None].long())[..., 0]
+    loss = -((1.0 - smoothing) * tgt_logp + (smoothing / V) * logp.sum(dim=-1))
+    keep = (targets != ignore_id).float()
+    return (loss * keep).sum() / keep.sum().clamp_min(1.0)
 
 
 class AutoregGenerator:
@@ -129,6 +153,27 @@ class AutoregGenerator:
     @torch.inference_mode()
     def encode_memory(self, cond: Condition) -> torch.Tensor:
         return self.core.encode_memory(self._image(cond), *self._constraint(cond))
+
+    def preprocess(self, batch: dict, rng: np.random.Generator) -> tuple[dict, dict]:
+        """Training-side: the condition and the teacher-forced decoder
+        tensors on the generator's device, drawing from `rng` as JAX does."""
+        cond, target = self.build_condition(batch, rng)
+        enc = self.tokenizer.encode(target)
+        seq, mask = enc["seq"].to(self.device), enc["mask"].to(self.device)
+        const_seq, const_keep = self._constraint(cond)
+        inputs = {"seq": seq[:, :-1], "tgt_keep": mask[:, :-1], "image": self._image(cond),
+                  "const_seq": const_seq, "const_keep": const_keep}
+        return inputs, {"seq": seq[:, 1:]}
+
+    def logits(self, inputs: dict) -> torch.Tensor:
+        return self.core(inputs["seq"], inputs["image"], inputs["const_seq"],
+                         inputs["const_keep"], inputs["tgt_keep"])
+
+    def loss(self, inputs: dict, targets: dict) -> tuple[torch.Tensor, dict]:
+        """(the smoothed CE, {'nll_loss': it}) of the core in its current mode."""
+        nll = smoothed_ce_loss(self.logits(inputs), targets["seq"], self.tokenizer.pad_id,
+                               self.cfg.label_smoothing)
+        return nll, {"nll_loss": nll}
 
     def build_condition(self, batch: dict, rng: np.random.Generator,
                         task: Optional[str] = None) -> tuple[Condition, Layout]:

@@ -3,7 +3,9 @@
 
 Submodule names follow the flax parameter tree (`q_proj`, `Dense_0`,
 `layer_0`, `norm1`, ...) so that `utils.weights.load_jax_params` maps the
-JAX variables mechanically.  Inference only: no dropout.
+JAX variables mechanically.  Dropout sits where flax's does (attention
+probabilities, the FFN's hidden, each residual branch), at the JAX modules'
+rate (default 0.1), and acts in train mode only (`models.dropout`).
 
 Conventions: padding masks are True for VALID positions ("keep"); masks
 become additive biases with the finite NEG_INF = -1e9.  Decode caches use
@@ -26,9 +28,12 @@ tensors):
   * `attend_t_any` over the int8 (k, v, k_scale, v_scale) caches -> K8
     `ops.decode_attention_q8`.
 Each of them takes the bias-free case only; a bias takes the einsum path.
-`use_qkv_folded` and `use_pallas` are the JAX modules' fields of the same
-names and, as there, off by default: set them on a built model's modules to
-run its encoders through K6 and K5.  Decode steps (S = 1) never take them.
+K1, K6 and K5 are taken in eval mode only, as JAX takes them only when
+`deterministic`: a module in train mode runs the einsum path even at
+dropout 0.  `use_qkv_folded` and `use_pallas` are the JAX modules' fields
+of the same names and, as there, off by default: set them on a built
+model's modules to run its encoders through K6 and K5.  Decode steps
+(S = 1) never take them.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ralf_tpu_torch.models.dropout import Dropout
 from ralf_tpu_torch.models.positional import PositionalEncoding1D, sincos_1d
 from ralf_tpu_torch.ops.decode_attention import (
     decode_attention,
@@ -82,9 +88,10 @@ def quantize_per_token(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 class MultiHeadAttention(nn.Module):
     """MHA with separable K/V projection for cache reuse; `use_qkv_folded`
-    sends self-attention through K6."""
+    sends self-attention through K6 in eval mode."""
 
-    def __init__(self, d_model: int, nhead: int, use_qkv_folded: bool = False) -> None:
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.1,
+                 use_qkv_folded: bool = False) -> None:
         super().__init__()
         assert d_model % nhead == 0
         self.d_model, self.nhead, self.head_dim = d_model, nhead, d_model // nhead
@@ -93,6 +100,7 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
+        self.attn_drop = Dropout(dropout)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         B, S, _ = x.shape
@@ -116,7 +124,7 @@ class MultiHeadAttention(nn.Module):
         B, S = q_in.shape[:2]
         M = k.shape[1]
         key_only = bias is not None and bias.dim() == 4 and bias.shape[1:3] == (1, 1)
-        if S == M and (bias is None or key_only):
+        if not self.training and S == M and (bias is None or key_only):
             key_bias = None if bias is None else bias[:, 0, 0, :].float().expand(B, M)
             out = encoder_attention(
                 self.q_proj(q_in) * self.head_dim**-0.5,
@@ -128,13 +136,13 @@ class MultiHeadAttention(nn.Module):
         logits = torch.einsum("bshd,bmhd->bhsm", q, k).float()
         if bias is not None:
             logits = logits + bias.float()
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        probs = self.attn_drop(torch.softmax(logits, dim=-1).to(v.dtype))
         out = torch.einsum("bhsm,bmhd->bshd", probs, v)
         return self.out_proj(out.reshape(B, S, self.d_model))
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if q_in is kv_in and self.use_qkv_folded:
+        if q_in is kv_in and self.use_qkv_folded and not self.training:
             out = self._self_attend_folded(q_in, bias)
             if out is not None:
                 return out
@@ -255,53 +263,58 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Linear -> ReLU -> Linear; `use_pallas` (the JAX field's name) sends
-    [B, S, E] inputs with S >= 16 through K5, under the JAX module's gate."""
+    """Linear -> ReLU -> Dropout -> Linear; `use_pallas` (the JAX field's
+    name) sends [B, S, E] inputs with S >= 16 through K5 in eval mode,
+    under the JAX module's gate."""
 
-    def __init__(self, d_model: int, dim_feedforward: int, use_pallas: bool = False) -> None:
+    def __init__(self, d_model: int, dim_feedforward: int, dropout: float = 0.1,
+                 use_pallas: bool = False) -> None:
         super().__init__()
         self.Dense_0 = nn.Linear(d_model, dim_feedforward)
         self.Dense_1 = nn.Linear(dim_feedforward, d_model)
+        self.drop = Dropout(dropout)
         self.use_pallas = use_pallas
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.use_pallas and x.dim() == 3 and x.shape[1] >= 16:
+        if self.use_pallas and not self.training and x.dim() == 3 and x.shape[1] >= 16:
             return fused_ffn(x, self.Dense_0.weight, self.Dense_0.bias, self.Dense_1.weight,
                              self.Dense_1.bias)
-        return self.Dense_1(F.relu(self.Dense_0(x)))
+        return self.Dense_1(self.drop(F.relu(self.Dense_0(x))))
 
 
 class TransformerEncoderLayer(nn.Module):
     """Pre-LN (norm_first, the model zoo default) or post-LN (FIDNet) layer."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 norm_first: bool = True) -> None:
+                 norm_first: bool = True, dropout: float = 0.1) -> None:
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.ffn = FeedForward(d_model, dim_feedforward)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.ffn = FeedForward(d_model, dim_feedforward, dropout)
         self.norm1 = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
         self.norm_first = norm_first
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.norm_first:
             h = self.norm1(x)
-            x = x + self.self_attn(h, h, bias)
-            return x + self.ffn(self.norm2(x))
-        x = self.norm1(x + self.self_attn(x, x, bias))
-        return self.norm2(x + self.ffn(x))
+            x = x + self.drop1(self.self_attn(h, h, bias))
+            return x + self.drop2(self.ffn(self.norm2(x)))
+        x = self.norm1(x + self.drop1(self.self_attn(x, x, bias)))
+        return self.norm2(x + self.drop2(self.ffn(x)))
 
 
 class TransformerEncoder(nn.Module):
     """Stack of encoder layers `layer_i`; the keep-mask becomes a key bias."""
 
     def __init__(self, d_model: int, nhead: int, num_layers: int, dim_feedforward: int,
-                 norm_first: bool = True) -> None:
+                 norm_first: bool = True, dropout: float = 0.1) -> None:
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer_{i}", TransformerEncoderLayer(
-                d_model, nhead, dim_feedforward, norm_first))
+                d_model, nhead, dim_feedforward, norm_first, dropout))
 
     def layers(self) -> list[nn.Module]:
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
@@ -316,22 +329,26 @@ class TransformerEncoder(nn.Module):
 class TransformerDecoderLayer(nn.Module):
     """Pre-LN decoder layer with a full forward and single-step cached paths."""
 
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int) -> None:
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 dropout: float = 0.1) -> None:
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.cross_attn = MultiHeadAttention(d_model, nhead)
-        self.ffn = FeedForward(d_model, dim_feedforward)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.ffn = FeedForward(d_model, dim_feedforward, dropout)
         self.norm1 = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
         self.norm3 = layer_norm(d_model)
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
+        self.drop3 = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor,
                 self_bias: Optional[torch.Tensor] = None,
                 mem_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.norm1(x)
-        x = x + self.self_attn(h, h, self_bias)
-        x = x + self.cross_attn(self.norm2(x), memory, mem_bias)
-        return x + self.ffn(self.norm3(x))
+        x = x + self.drop1(self.self_attn(h, h, self_bias))
+        x = x + self.drop2(self.cross_attn(self.norm2(x), memory, mem_bias))
+        return x + self.drop3(self.ffn(self.norm3(x)))
 
     def _new_kv(self, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         k, v = self.self_attn.project_kv(h)  # [B, 1, H, Dh]
@@ -378,11 +395,13 @@ class TransformerDecoderLayer(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    def __init__(self, d_model: int, nhead: int, num_layers: int, dim_feedforward: int) -> None:
+    def __init__(self, d_model: int, nhead: int, num_layers: int, dim_feedforward: int,
+                 dropout: float = 0.1) -> None:
         super().__init__()
         self.d_model, self.nhead, self.num_layers = d_model, nhead, num_layers
         for i in range(num_layers):
-            self.add_module(f"layer_{i}", TransformerDecoderLayer(d_model, nhead, dim_feedforward))
+            self.add_module(f"layer_{i}", TransformerDecoderLayer(d_model, nhead,
+                                                                  dim_feedforward, dropout))
 
     def layers(self) -> list[nn.Module]:
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
@@ -454,12 +473,12 @@ class TokenDecoder(nn.Module):
     """Embedding + 1-d PE + decoder stack + (LayerNorm, bias-free Linear) head."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, nhead: int = 8,
-                 num_layers: int = 6, dim_feedforward: int = 1024) -> None:
+                 num_layers: int = 6, dim_feedforward: int = 1024, dropout: float = 0.1) -> None:
         super().__init__()
         self.d_model = d_model
         self.emb = nn.Embedding(vocab_size, d_model)
-        self.pos_emb = PositionalEncoding1D(d_model)
-        self.stack = TransformerDecoder(d_model, nhead, num_layers, dim_feedforward)
+        self.pos_emb = PositionalEncoding1D(d_model, dropout)
+        self.stack = TransformerDecoder(d_model, nhead, num_layers, dim_feedforward, dropout)
         self.head_norm = layer_norm(d_model)
         self.head_out = nn.Linear(d_model, vocab_size, bias=False)
         self.register_buffer("step_pe", torch.from_numpy(sincos_1d(4096, d_model)),

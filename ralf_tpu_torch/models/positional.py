@@ -8,6 +8,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ralf_tpu_torch.models.dropout import Dropout
+
 
 def sincos_1d(max_len: int, d_model: int) -> np.ndarray:
     """Interleaved sin/cos table, [max_len, d_model] float32."""
@@ -39,17 +41,18 @@ def sine_2d_table(h: int, w: int, d_model: int, temperature: float = 10000.0) ->
 
 
 class PositionalEncoding1D(nn.Module):
-    """x * sqrt(d) + sine PE (inference: no dropout)."""
+    """Dropout(x * sqrt(d) + sine PE)."""
 
-    def __init__(self, d_model: int, max_len: int = 5000) -> None:
+    def __init__(self, d_model: int, dropout: float = 0.1, max_len: int = 5000) -> None:
         super().__init__()
         self.d_model = d_model
         self.register_buffer("pe", torch.from_numpy(sincos_1d(max_len, d_model)),
                              persistent=False)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x * torch.tensor(self.d_model, dtype=x.dtype).sqrt()
-        return h + self.pe[: x.shape[-2]].to(x.dtype)
+        return self.drop(h + self.pe[: x.shape[-2]].to(x.dtype))
 
 
 class PositionEmbeddingSine2D(nn.Module):

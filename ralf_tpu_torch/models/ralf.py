@@ -9,8 +9,13 @@
     logits    = TokenDecoder(tokens | memory', causal)
 
 The frozen FIDNet features of the gallery are computed once
-(`RALFGenerator.precompute_retrieved_feats`) and gathered per batch.  The
-other six fusion ablations of the JAX package are not ported.
+(`RALFGenerator.precompute_retrieved_feats`) and gathered per batch, or,
+as in training, FIDNet runs on the B*K retrieved layouts.  The tower stays
+frozen: `RALFCore.train()` leaves it in eval mode (JAX runs it
+deterministic inside the loss, so K1 stays on and its dropout off), and
+it runs under torch.no_grad(), the port's stop_gradient.  The ViT blocks'
+dropout rate is 0.0 in JAX, so they carry none.  The other six fusion
+ablations of the JAX package are not ported.
 """
 
 from __future__ import annotations
@@ -83,18 +88,24 @@ class RALFCore(nn.Module):
             raise NotImplementedError(f"fusion {fusion!r}: only 'concat_crossattn' is ported")
         d = cfg.d_model
         self.encoder = ImageEncoder(cfg.backbone, d, cfg.nhead, cfg.num_encoder_layers,
-                                    cfg.dim_feedforward)
+                                    cfg.dim_feedforward, cfg.dropout)
         self.layout_encoder = FIDNetV3(num_labels, 256, 4, 4, max_bbox=max_seq_length,
                                        aux_heads=False)
         self.layout_adapter = ViTFeedForward(256, 4 * d, d)
-        self.pos_emb_1d = PositionalEncoding1D(d)
+        self.pos_emb_1d = PositionalEncoding1D(d, cfg.dropout)
         self.attn = ViTCrossAttention(d, heads=8, dim_head=64)
         self.fusion_head = ViTFeedForward(d, 4 * d, d)
         self.const_encoder = ConstraintEncoder(const_vocab_size, d, cfg.nhead,
-                                               cfg.num_encoder_layers, cfg.dim_feedforward)
+                                               cfg.num_encoder_layers, cfg.dim_feedforward,
+                                               cfg.dropout)
         self.flag_emb = nn.Parameter(torch.randn(2, 1) * 0.02)
         self.decoder = TokenDecoder(vocab_size, d, cfg.nhead, cfg.num_decoder_layers,
-                                    cfg.dim_feedforward)
+                                    cfg.dim_feedforward, cfg.dropout)
+
+    def train(self, mode: bool = True) -> "RALFCore":
+        super().train(mode)
+        self.layout_encoder.train(False)  # the frozen tower runs deterministic, as in JAX
+        return self
 
     def encode_retrieved(self, retrieved: dict) -> torch.Tensor:
         """{'feats': [B, K, 256]} (or the layouts {'label': [B, K, S], ...})
@@ -105,7 +116,8 @@ class RALFCore(nn.Module):
         else:
             B, K, S = retrieved["label"].shape
             flat = Layout(**{k: retrieved[k].reshape(B * K, S) for k in RETRIEVED_KEYS})
-            feats = self.layout_encoder.extract_features(flat)
+            with torch.no_grad():  # frozen: JAX's stop_gradient
+                feats = self.layout_encoder.extract_features(flat)
         return self.pos_emb_1d(self.layout_adapter(feats.reshape(B, K, -1)))
 
     def encode_memory(self, image: torch.Tensor, retrieved: dict, const_seq: torch.Tensor,
@@ -117,6 +129,13 @@ class RALFCore(nn.Module):
         const = self.const_encoder(const_seq, const_keep)
         flag = self.flag_emb.to(fused.dtype)
         return torch.cat([fused + flag[0], const + flag[1]], dim=1)
+
+    def forward(self, seq: torch.Tensor, image: torch.Tensor, retrieved: dict,
+                const_seq: torch.Tensor, const_keep: torch.Tensor,
+                tgt_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Teacher-forced logits [B, S, V] of the causal decoder."""
+        memory = self.encode_memory(image, retrieved, const_seq, const_keep)
+        return self.decoder(seq, memory, tgt_keep=tgt_keep, causal=True)
 
 
 class RALFGenerator(AutoregGenerator):
@@ -155,6 +174,17 @@ class RALFGenerator(AutoregGenerator):
             out["feats"] = torch.as_tensor(np.asarray(retrieved["feats"], np.float32),
                                            device=self.device)
         return out
+
+    def preprocess(self, batch: dict, rng: np.random.Generator) -> tuple[dict, dict]:
+        if "retrieved" not in batch:
+            raise ValueError("RALF needs retrieval-augmented batches (retrieval.wrapper)")
+        inputs, targets = super().preprocess(batch, rng)
+        inputs["retrieved"] = self._retrieved_arrays(batch["retrieved"])
+        return inputs, targets
+
+    def logits(self, inputs: dict) -> torch.Tensor:
+        return self.core(inputs["seq"], inputs["image"], inputs["retrieved"],
+                         inputs["const_seq"], inputs["const_keep"], inputs["tgt_keep"])
 
     @torch.inference_mode()
     def precompute_retrieved_feats(self, gallery_layouts: dict, chunk: int = 4096) -> np.ndarray:

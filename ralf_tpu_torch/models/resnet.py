@@ -4,8 +4,9 @@ counterpart of `ralf_tpu/models/resnet.py`.
 Images enter in the JAX package's layout, [B, H, W, 4] (RGB + saliency),
 float in [0, 1] or uint8 0..255 (normalized here).  Inside, the NHWC tensor
 is viewed as NCHW, which is PyTorch's channels_last layout, so no copy is
-made.  BatchNorm is inference-only (running statistics), folded into a
-per-channel scale and shift.
+made.  BatchNorm follows flax's `nn.BatchNorm(momentum=0.9)`: in eval mode
+the running statistics, folded into a per-channel scale and shift; in train
+mode the batch's (ROADMAP.md Queue C).
 
     f4p = 1x1(layer3); f5p = 1x1(layer4); f5up = nearest(f5p, size of f4p)
     out = 1x1(concat[f5up, 3x3(f5up + f4p)]) -> [B, H/16, W/16, d_model]
@@ -26,10 +27,18 @@ from ralf_tpu_torch.models.nn import TransformerEncoder
 from ralf_tpu_torch.models.positional import PositionEmbeddingSine2D
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's convention: ra = 0.9 ra + 0.1 batch (torch's momentum 0.1)
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over NCHW: x * (w / sqrt(var + eps)) + (b - mean * that)."""
+    """BatchNorm over NCHW with flax's semantics.
+
+    eval: x * (w / sqrt(ra_var + eps)) + (b - ra_mean * that).
+    train: the batch's mean and BIASED variance, E[x^2] - E[x]^2 clipped at
+    0 (flax's fast variance), in fp32; y = (x - mean) * (rsqrt(var + eps) w)
+    + b; and the running statistics move to 0.9 ra + 0.1 batch, the biased
+    variance included, where torch's F.batch_norm would store the unbiased
+    one, n/(n-1) larger."""
 
     def __init__(self, channels: int) -> None:
         super().__init__()
@@ -39,9 +48,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x)
         scale = self.weight.float() * torch.rsqrt(self.running_var.float() + BN_EPS)
         shift = self.bias.float() - self.running_mean.float() * scale
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            for ra, batch in ((self.running_mean, mean), (self.running_var, var)):
+                ra.copy_(BN_MOMENTUM * ra + (1.0 - BN_MOMENTUM) * batch)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight.float()
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> nn.Conv2d:
@@ -153,11 +175,12 @@ class ImageEncoder(nn.Module):
     """extractor -> 2-d sine PE -> pre-LN TransformerEncoder: [B, H'W', d_model]."""
 
     def __init__(self, backbone: str = "resnet50", d_model: int = 256, nhead: int = 8,
-                 num_layers: int = 6, dim_feedforward: int = 1024) -> None:
+                 num_layers: int = 6, dim_feedforward: int = 1024, dropout: float = 0.1) -> None:
         super().__init__()
         self.extractor = ResNetFPNEncoder(backbone, d_model)
         self.pos_2d = PositionEmbeddingSine2D(d_model)
-        self.transformer = TransformerEncoder(d_model, nhead, num_layers, dim_feedforward)
+        self.transformer = TransformerEncoder(d_model, nhead, num_layers, dim_feedforward,
+                                              dropout=dropout)
 
     def features(self, img: torch.Tensor) -> torch.Tensor:
         return self.pos_2d(self.extractor(img))

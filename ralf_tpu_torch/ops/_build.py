@@ -125,8 +125,11 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on one device,
-    and none of them needs a gradient: the kernels are forward only, and the
-    tensor a kernel fills has no grad_fn, which would cut autograd silently."""
+    and none of them needs a gradient while grad is enabled: the tensor a
+    kernel fills has no grad_fn, which would cut autograd silently.  K1, K5
+    and K6 launch inside `RecomputedBackward.forward`, where grad is
+    disabled and autograd records the Function instead; the other kernels
+    are forward only, as their Pallas calls are (no VJP)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
@@ -136,6 +139,30 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{what}: the CUDA kernel is forward only and an input requires "
                            "grad; call it under torch.no_grad() or torch.inference_mode()")
+
+
+class RecomputedBackward(torch.autograd.Function):
+    """A forward made differentiable as JAX's custom_vjps make K1, K5 and K6:
+    `RecomputedBackward.apply(forward, reference, *inputs)` returns
+    forward(*inputs) (the kernel on CUDA tensors, its plain version on CPU
+    ones), and its backward recomputes reference(*inputs) on
+    detached copies under enable_grad and returns torch.autograd.grad of
+    it, as JAX's VJPs recompute their XLA references (there is no backward
+    kernel).  Nothing outside `inputs` gets a gradient: K1's and K6's
+    key_bias, bound into `forward` and `reference`, get none, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, forward, reference, *inputs):
+        ctx.reference = reference
+        ctx.save_for_backward(*inputs)
+        return forward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.reference(*inputs)
+        return (None, None, *torch.autograd.grad(out, inputs, grad))
 
 
 def require_aligned(what: str, *tensors: torch.Tensor) -> None:

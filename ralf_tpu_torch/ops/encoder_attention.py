@@ -1,4 +1,4 @@
-"""K1 and K6: fused bidirectional encoder self-attention (forward only).
+"""K1 and K6: fused bidirectional encoder self-attention.
 
 Counterpart of `ralf_tpu/ops/pallas/encoder_attention.py`:
 `encoder_attention` (K1) of `fused_encoder_attention`, and
@@ -6,6 +6,18 @@ Counterpart of `ralf_tpu/ops/pallas/encoder_attention.py`:
 attention with the q/k/v projections folded into the kernel.  Each
 launches its CUDA kernel of `csrc/encoder_attention.cu` on CUDA tensors and
 runs its plain version on CPU tensors; there is no other fallback.
+
+Both are differentiable as JAX's custom_vjps make them: the forward (kernel
+or plain version) runs inside `_build.RecomputedBackward`, whose backward
+recomputes JAX's XLA reference written in torch (`attention_reference`,
+`self_attention_reference`; there is no backward kernel), so both devices
+take one backward.  The reference
+adds key_bias to the logits where the plain version weights the keys, so
+on a fully masked row, uniform in both forwards, its softmax of s - 1e9
+still passes a gradient to q and k, as JAX's does.  key_bias gets no
+gradient (JAX's VJPs return None for it): for K6 that drops the per-key
+logit of q_proj's bias, and the terms of x and Wk that reach the loss
+through it (ROADMAP.md Queue C).
 
 Semantics shared by both, those of the TPU kernels' `_attend_block`:
 q, k, v are [B, S, E] with head h in columns h*Dh.., the softmax scale
@@ -66,6 +78,29 @@ def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nhead: int,
     return torch.einsum("bhsm,bmhd->bshd", p, vh).reshape(B, S, E).to(q.dtype)
 
 
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nhead: int,
+                        key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """JAX's `_reference_attention`, what its custom_vjps differentiate:
+    softmax(q k^T + key_bias) v with fp32 logits, p in q's dtype; key_bias
+    [B, S] or per head [B, H, S]."""
+    B, S, E = q.shape
+    qh, kh, vh = (t.reshape(B, S, nhead, E // nhead) for t in (q, k, v))
+    logits = torch.einsum("bshd,bmhd->bhsm", qh.float(), kh.float())
+    if key_bias is not None:
+        kb = key_bias[:, :, None, :] if key_bias.dim() == 3 else key_bias[:, None, None, :]
+        logits = logits + kb.float()
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhsm,bmhd->bshd", p, vh).reshape(B, S, E)
+
+
+def self_attention_reference(x: torch.Tensor, wqkv: torch.Tensor, nhead: int,
+                             key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """JAX's `_reference_self_attention` for wqkv [3E, E]."""
+    E = x.shape[-1]
+    qkv = x @ wqkv.to(x.dtype).t()
+    return attention_reference(qkv[..., :E], qkv[..., E:2 * E], qkv[..., 2 * E:], nhead, key_bias)
+
+
 def encoder_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nhead: int,
     key_bias: Optional[torch.Tensor] = None,
@@ -87,9 +122,15 @@ def encoder_attention(
     key_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K1: multi-head softmax(q k^T, keep weights exp(key_bias)) v over
-    [B, S, E] -> [B, S, E]."""
-    if q.device.type == "cpu":
-        return encoder_attention_plain(q, k, v, nhead, key_bias)
+    [B, S, E] -> [B, S, E]; gradients to q, k and v."""
+    forward = encoder_attention_plain if q.device.type == "cpu" else _launch_encoder_attention
+    kb = None if key_bias is None else key_bias.detach()
+    return _build.RecomputedBackward.apply(
+        lambda q, k, v: forward(q, k, v, nhead, kb),
+        lambda q, k, v: attention_reference(q, k, v, nhead, kb), q, k, v)
+
+
+def _launch_encoder_attention(q, k, v, nhead, key_bias):
     what = "encoder_attention"
     tensors = (q, k, v) if key_bias is None else (q, k, v, key_bias)
     _build.require_cuda(what, *tensors)
@@ -145,9 +186,17 @@ def encoder_self_attention(
     [B, H, S].  The projection biases are the caller's
     (`models.nn.MultiHeadAttention._self_attend_folded`).  bf16 with
     S <= 384 runs on the tensor cores (and needs x and wqkv on a 16-byte
-    boundary); fp32, and bf16 past 384, on the CUDA cores."""
-    if x.device.type == "cpu":
-        return encoder_self_attention_plain(x, wqkv, nhead, key_bias)
+    boundary); fp32, and bf16 past 384, on the CUDA cores.  Gradients to
+    x and wqkv."""
+    forward = (encoder_self_attention_plain if x.device.type == "cpu"
+               else _launch_encoder_self_attention)
+    kb = None if key_bias is None else key_bias.detach()
+    return _build.RecomputedBackward.apply(
+        lambda x, wqkv: forward(x, wqkv, nhead, kb),
+        lambda x, wqkv: self_attention_reference(x, wqkv, nhead, kb), x, wqkv)
+
+
+def _launch_encoder_self_attention(x, wqkv, nhead, key_bias):
     what = "encoder_self_attention"
     tensors = (x, wqkv) if key_bias is None else (x, wqkv, key_bias)
     _build.require_cuda(what, *tensors)

@@ -1,11 +1,15 @@
-"""K5: the encoder's fused feed-forward block (forward only).
+"""K5: the encoder's fused feed-forward block.
 
 Counterpart of `ralf_tpu/ops/pallas/encoder_ffn.py` (`fused_ffn`).
 `fused_ffn` launches the CUDA kernel of `csrc/encoder_ffn.cu` on CUDA
 tensors and runs `fused_ffn_plain` on CPU tensors; there is no other
-fallback.  In bf16 both products run on the tensor cores (wgmma, operands
-copied by TMA), which needs x, w1 and w2 on a 16-byte boundary; fp32 runs
-on the CUDA cores at any alignment.
+fallback.  It is differentiable as JAX's custom_vjp makes it: the forward
+(kernel or plain version) runs inside `_build.RecomputedBackward`, whose
+backward recomputes JAX's XLA reference written in torch (`ffn_reference`)
+on both devices.  In bf16
+both products run on the tensor cores (wgmma, operands copied by TMA),
+which needs x, w1 and w2 on a 16-byte boundary; fp32 runs on the CUDA
+cores at any alignment.
 
 Both compute relu(x W1^T + b1) W2^T + b2 (inference, relu only) in the TPU
 kernel's order, which keeps the hidden [B, S, F] on chip through
@@ -45,6 +49,13 @@ def ffn_tail(b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tens
     return b1.float() @ w2.float().t() + b2.float()
 
 
+def ffn_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                  b2: torch.Tensor) -> torch.Tensor:
+    """JAX's `_reference_ffn`, what its custom_vjp differentiates:
+    relu(x W1^T + b1), in x's dtype, W2^T + b2."""
+    return torch.relu(x @ w1.t() + b1).to(x.dtype) @ w2.t() + b2
+
+
 def fused_ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                     b2: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel, [B, S, E] -> [B, S, E]."""
@@ -57,9 +68,12 @@ def fused_ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: tor
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor) -> torch.Tensor:
     """relu(x W1^T + b1) W2^T + b2 with the hidden tile kept on chip; x
-    [B, S, E], w1 [F, E], b1 [F], w2 [E, F], b2 [E]."""
-    if x.device.type == "cpu":
-        return fused_ffn_plain(x, w1, b1, w2, b2)
+    [B, S, E], w1 [F, E], b1 [F], w2 [E, F], b2 [E]; gradients to all five."""
+    forward = fused_ffn_plain if x.device.type == "cpu" else _launch_fused_ffn
+    return _build.RecomputedBackward.apply(forward, ffn_reference, x, w1, b1, w2, b2)
+
+
+def _launch_fused_ffn(x, w1, b1, w2, b2):
     what = "fused_ffn"
     _build.require_cuda(what, x, w1, b1, w2, b2)
     if x.dim() != 3:

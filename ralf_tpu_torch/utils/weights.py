@@ -19,7 +19,7 @@ It raises if a leaf has no home in the port, if a shape disagrees, or if a
 parameter or BatchNorm statistic of the port was left unfilled.
 
 `export_params(module)` is its inverse: the port's tensors as the flax
-tree (float32 numpy).  A checkpoint travels between the packages as a flat
+tree (float32 numpy copies).  A checkpoint travels between the packages as a flat
 `.npz` whose keys are `params/<flax path>` and `batch_stats/<flax path>`
 (`save_params_npz`, `load_params_npz`); a JAX job writes one from its
 restored TrainState with numpy alone (README.md, "The port's CLIs").
@@ -95,28 +95,43 @@ def load_jax_params(module: nn.Module, params: dict, batch_stats: dict | None = 
         raise KeyError(f"port tensors not filled from the JAX tree: {missing}")
 
 
+_INVERSE = {cls: {v: k for k, v in names.items()} for cls, names in _RENAMES.items()}
+
+
+def flax_names(module: nn.Module) -> dict[str, tuple[str, ...]]:
+    """The flax path of each parameter and BatchNorm statistic of `module`,
+    by its torch name (`encoder.trunk.conv1.weight` -> `('encoder', 'trunk',
+    'conv1', 'kernel')`): the map that `load_jax_params` and `export_params`
+    go by, and the one the optimizer's decay mask and groups are read from
+    (`train.optim`), so that both packages partition the same leaves."""
+    tensors = [n for n, _ in module.named_parameters()]
+    tensors += [n for n, _ in module.named_buffers() if n.endswith(("running_mean", "running_var"))]
+    out = {}
+    for full in tensors:
+        *mod_path, name = full.split(".")
+        mod = module.get_submodule(".".join(mod_path))
+        leaf = next((names[name] for cls, names in _INVERSE.items()
+                     if isinstance(mod, cls) and name in names), name)
+        out[full] = (*mod_path, leaf)
+    return out
+
+
 def export_params(module: nn.Module) -> tuple[dict, dict]:
     """The inverse of `load_jax_params`: (params, batch_stats) as nested
     dicts of float32 numpy arrays in the flax layout."""
-    inverse = {cls: {v: k for k, v in names.items()} for cls, names in _RENAMES.items()}
     params: dict = {}
     batch_stats: dict = {}
-    tensors = list(module.named_parameters())
-    tensors += [(n, b) for n, b in module.named_buffers()
-                if n.endswith(("running_mean", "running_var"))]
-    for full, t in tensors:
-        *mod_path, name = full.split(".")
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    for full, (*mod_path, leaf) in flax_names(module).items():
         mod = module.get_submodule(".".join(mod_path))
-        value = t.detach().float().cpu().numpy()
-        leaf = name
-        for cls, names in inverse.items():
-            if isinstance(mod, cls) and name in names:
-                leaf = names[name]
-                if leaf == "kernel" and isinstance(mod, nn.Linear):
-                    value = value.T
-                elif leaf == "kernel" and isinstance(mod, nn.Conv2d):
-                    value = value.transpose(2, 3, 1, 0)
-                break
+        # a copy: on the CPU .numpy() shares the module's storage, which
+        # training then changes in place
+        value = tensors[full].detach().float().cpu().numpy().copy()
+        if leaf == "kernel" and isinstance(mod, nn.Linear):
+            value = value.T
+        elif leaf == "kernel" and isinstance(mod, nn.Conv2d):
+            value = value.transpose(2, 3, 1, 0)
         tree = batch_stats if leaf in ("mean", "var") and isinstance(mod, BatchNorm) else params
         for p in mod_path:
             tree = tree.setdefault(p, {})

@@ -448,8 +448,8 @@ def test_stream_sum_kernel_matches_plain(dev, view, shape):
 def test_fused_encoder_flags_launch_k5_and_k6(dev):
     """use_qkv_folded sends self-attention through K6 (K1 untouched), a key
     bias included; use_pallas sends the FFN through K5 at S >= 16 only."""
-    mha = tnn.MultiHeadAttention(256, 8, use_qkv_folded=True).to(dev)
-    ffn = tnn.FeedForward(256, 1024, use_pallas=True).to(dev)
+    mha = tnn.MultiHeadAttention(256, 8, use_qkv_folded=True).to(dev).eval()
+    ffn = tnn.FeedForward(256, 1024, use_pallas=True).to(dev).eval()
     x = torch.randn(4, 20, 256, device=dev)
     keep = torch.ones(4, 20, dtype=torch.bool, device=dev)
     keep[0, 5:] = False
@@ -662,25 +662,20 @@ def test_decode_attention_q8_takes_caches_at_any_alignment(dev, shift):
 
 
 def test_kernel_wrappers_refuse_inputs_that_need_a_gradient(dev):
-    """The kernels are forward only: on CUDA tensors every wrapper K1-K8
-    raises when grad is enabled and an input requires grad, instead of
-    returning a tensor with no grad_fn; under no_grad it launches."""
-    x = torch.randn(2, 20, 256, device=dev)
+    """K2-K4 and K7-K9 are forward only, as their Pallas calls are (no VJP):
+    on CUDA tensors each wrapper raises when grad is enabled and an input
+    requires grad, instead of returning a tensor with no grad_fn; under
+    no_grad it launches.  K1, K5 and K6 carry gradients instead (below)."""
     qt, mem = torch.randn(2, 8, 256, device=dev) / 16, torch.randn(2, 10, 256, device=dev)
     mi, ms = da.quantize_shared_memory(mem)
     qh, k_t = torch.randn(2, 8, 32, device=dev), torch.randn(2, 8, 32, 10, device=dev)
-    w1, w2 = torch.randn(1024, 256, device=dev) / 16, torch.randn(256, 1024, device=dev) / 32
-    b1, b2 = torch.randn(1024, device=dev), torch.randn(256, device=dev)
-    wqkv = torch.randn(768, 256, device=dev) / 16
-    calls = (  # the kernel and the position of the argument that will require grad
-        (lambda a: ea.encoder_attention(a, x, x, 8), x),
+    calls = (  # the kernel and the argument that will require grad
         (lambda a: da.decode_shared_attention(a, mem), qt),
         (lambda a: da.decode_shared_attention_q8(a, mi, ms), qt),
         (lambda a: da.decode_shared_attention_q8mxu(a, mi, ms), qt),
-        (lambda a: ef.fused_ffn(x, a, b1, w2, b2), w1),
-        (lambda a: ea.encoder_self_attention(x, a, 8), wqkv),
         (lambda a: da.decode_attention(a, k_t, k_t), qh),
         (lambda a: da.decode_attention_q8(a, *da.quantize_kv(k_t, k_t)), qh),
+        (ss.stream_sum, torch.randn(3, 16, device=dev)),
     )
     for call, arg in calls:
         leaf = arg.clone().requires_grad_()
@@ -689,6 +684,59 @@ def test_kernel_wrappers_refuse_inputs_that_need_a_gradient(dev):
         with torch.no_grad():
             assert bool(torch.isfinite(call(leaf)).all())
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["encoder_attention", "fused_ffn", "encoder_self_attention"])
+def test_k1_k5_k6_carry_gradients_through_their_function(dev, dtype, name):
+    """K1, K5 and K6 are differentiable as JAX's custom_vjps make them: one
+    kernel launch in the forward, and gradients equal to torch.autograd.grad
+    of the plain version within the forward's tolerance taken against the
+    sums each gradient adds up (chip_smoke.py's `plain_gradients`); K1's and
+    K6's key_bias gets none.  Keys are masked but no row is fully masked,
+    where the plain version and JAX's reference part ways (the CPU tests
+    hold that row against JAX)."""
+    import chip_smoke
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, S, E, H, Fh = 4, 40, 256, 8, 1024
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    keep = torch.ones(B, S, dtype=torch.bool, device=dev)
+    keep[0, 25:] = False
+    keep[1, 1:] = False
+    bias = tnn.keep_to_bias(keep).requires_grad_()
+    kb = (rand(B, H, S) + tnn.keep_to_bias(keep)[:, None, :]).requires_grad_()
+    if name == "encoder_attention":
+        raw = [rand(B, S, E, scale=(E // H) ** -0.5), rand(B, S, E), rand(B, S, E)]
+        function = lambda q, k, v: ea.encoder_attention(q, k, v, H, bias)  # noqa: E731
+        key_bias = bias.detach()
+    elif name == "fused_ffn":
+        raw = [rand(B, S, E), rand(Fh, E, scale=E ** -0.5), rand(Fh),
+               rand(E, Fh, scale=Fh ** -0.5), rand(E)]
+        function, key_bias = ef.fused_ffn, None
+    else:
+        raw = [rand(B, S, E), rand(3 * E, E, scale=E ** -0.5)]
+        function = lambda x, w: ea.encoder_self_attention(x, w, H, kb)  # noqa: E731
+        key_bias = kb.detach()
+    ins = [t.to(dtype).requires_grad_() for t in raw]
+    counter = getattr(ef if name == "fused_ffn" else ea, name)
+    n = counter.launches
+    out = function(*ins)
+    assert counter.launches == n + 1 and out.grad_fn is not None
+    gout = rand(*out.shape).to(dtype)
+    got = torch.autograd.grad(out, ins + ([bias] if name == "encoder_attention" else
+                                          [kb] if name == "encoder_self_attention" else []),
+                              gout, allow_unused=True)
+    if name != "fused_ffn":
+        assert got[-1] is None  # key_bias: no gradient, as JAX's VJP returns None
+        got = got[:-1]
+    want, allow = chip_smoke.plain_gradients(torch, name, ins, gout, H, key_bias)
+    for a, b, tol in zip(got, want, allow):
+        assert a.dtype == dtype and bool(torch.isfinite(a.float()).all())
+        assert bool(((a.float() - b.float()).abs() <= tol).all())
 
 
 def test_q8_mxu_switch_launches_k4(dev):

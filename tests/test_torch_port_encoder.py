@@ -116,7 +116,7 @@ def test_mha_qkv_folded_matches_jax(case, jax_interpret, spies):
     jm = jnn.MultiHeadAttention(D, H, dropout=0.0, use_qkv_folded=True)
     v = jm.init(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(x))
     v = {"params": _random_biases(v["params"])}
-    tm = tnn.MultiHeadAttention(D, H, use_qkv_folded=True)
+    tm = tnn.MultiHeadAttention(D, H, use_qkv_folded=True).eval()  # K6 is an eval-mode path
     load_jax_params(tm, _np(v["params"]))
     keep = rng.random((B, S)) > 0.3
     keep[:, 0] = True
@@ -144,7 +144,7 @@ def test_feedforward_use_pallas_matches_jax(S, jax_interpret, spies):
     jf = jnn.FeedForward(D, 64, dropout=0.0, use_pallas=True)
     v = jf.init(jax.random.PRNGKey(2), jnp.asarray(x))
     v = {"params": _random_biases(v["params"], seed=1)}
-    tf = tnn.FeedForward(D, 64, use_pallas=True)
+    tf = tnn.FeedForward(D, 64, use_pallas=True).eval()  # K5 is an eval-mode path
     load_jax_params(tf, _np(v["params"]))
     ref = jf.apply(v, jnp.asarray(x))
     out = tf(_t(x))
@@ -223,7 +223,7 @@ def test_fidnet_full_forward_matches_jax(fused, spies):
     jf = jfid.FIDNetV3(3, 64, 4, 2, max_bbox=10)
     v = jf.init(jax.random.PRNGKey(4), jl)
     v = {"params": _random_biases(v["params"], seed=2, scale=0.1)}
-    tf = tfid.FIDNetV3(3, 64, 4, 2, max_bbox=10)
+    tf = tfid.FIDNetV3(3, 64, 4, 2, max_bbox=10).eval()
     load_jax_params(tf, _np(v["params"]))  # every head of the full forward is filled
     if fused:
         set_fused_encoder(tf)

@@ -438,11 +438,11 @@ def test_q8mxu_probs_equal_the_reference_on_rounding_ties():
 
 
 def test_plain_versions_carry_the_gradients_of_the_jax_kernels():
-    """On CPU tensors the wrappers run their plain versions, which keep
-    autograd (the kernels on the card are forward only and raise instead):
-    K1's, K5's and K6's gradients equal those of the JAX kernels' custom_vjps,
-    which recompute through their XLA references, in fp32; K2, K3, K7 and K8
-    give finite, nonzero gradients to their float inputs."""
+    """On CPU tensors the wrappers run their plain versions: K1's, K5's and
+    K6's gradients, through the backward they take on the card too, equal
+    those of the JAX kernels' custom_vjps, which recompute through their
+    XLA references, in fp32; K2, K3, K7 and K8, forward only on the card,
+    give finite, nonzero gradients to their float inputs on the CPU."""
     rng = np.random.default_rng(15)
     B, S, E, H = 2, 9, 64, 2
     x, q, k, v, cot = (rng.normal(size=(B, S, E)).astype(np.float32) for _ in range(5))
