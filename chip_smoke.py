@@ -57,7 +57,25 @@ Run from the repository root.  Phases, each of which must pass:
               single_image_batch; then cli.evaluate on the c pickles on the
               card (FIDNet, K1) and on the CPU: JAX's score keys, finite
               scores, the heuristic metrics equal within 1e-5 relative
-  8. train    one train step of the full-width fp32 RALF (dropout 0, batch 4)
+  8. zoo      MaskGIT, LayoutDM, VQDiffusion and RA-LayoutDM at their presets'
+              full width (random weights from seed 0; the diffusion presets' kmeans
+              vocabulary fitted on the synthetic train split): each of the four in
+              fp32 on the card against the CPU on one batch (encode_memory, RA's
+              with its neighbours; one denoising step's logits; deterministic
+              tokens of task c and, for layoutdm, relation); then in bf16
+              requests of 128 canvases, 2 uncond per preset
+              and maskgit c, layoutdm c, refinement and relation, RA-LayoutDM's
+              top-16 from the 256-canvas gallery: legal tokens (no MASK left; VQDiffusion
+              may put any token anywhere, so with random weights its layouts hold
+              no whole element and the fp32 check above carries it), the given
+              tokens in place, finite layouts,
+              distinct uncond outputs, exactly 6 K1 launches a MaskGIT request (the
+              image encoder), 306 a LayoutDM or VQDiffusion one (6 more a denoising
+              step, 50 steps) and 310 a RA-LayoutDM one (FIDNet's 4), ms per request,
+              one layoutdm request profiled; then cli.inference --cond c on a
+              layoutdm job dir (64 test canvases, one batch; no violated
+              constraint, K1 306) and cli.evaluate on its pickle on the card (K1 8)
+  9. train    one train step of the full-width fp32 RALF (dropout 0, batch 4)
               on the card against the CPU: loss, each subtree's update, the
               frozen FIDNet, BatchNorm's statistics; Trainer.fit at the ralf
               preset's size (fp32, batch 32, dropout 0.1, the 512/64 synthetic
@@ -67,7 +85,7 @@ Run from the repository root.  Phases, each of which must pass:
               steps and meta, ms per step, samples/s, peak memory and one step
               under torch.profiler; then cli.train --debug in this process and
               cli.inference --cond c on its checkpoint (fp32; K1 16, K2 300)
-  9. report   one JSON line of the kernels, the nvidia-smi line, and last
+  10. report  one JSON line of the kernels, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
 Every configuration is chosen here explicitly (q8_mxu is an argument of the
@@ -150,6 +168,15 @@ TRAIN_BATCH, TRAIN_STEPS = 32, 4
 # constraint encoder of tasks uncond (Lc=4) and c (Lc=23) at batch 32
 TRAIN_K1_SHAPES = ((32, 330, 8, False), (32, 4, 8, True), (32, 23, 8, True))
 TRAIN_CLI_BATCH = 8  # cli.train --debug: 64/16 canvases, 2 steps and 2 val batches of 8
+# the zoo phase's fp32 card-vs-CPU check: each preset, the tasks whose deterministic
+# tokens it compares
+ZOO_CHECK = {"maskgit": ("c",), "layoutdm": ("c", "relation"), "vqdiffusion": ("c",),
+             "layoutdm_ra": ("c",)}
+# the zoo phase: per preset, ZOO_REQUESTS uncond requests of ZOO_BATCH canvases, then one
+# request per task listed, over the GALLERY-canvas gallery (RA-LayoutDM's retrieval)
+ZOO_SERVE = {"maskgit": ("c",), "layoutdm": ("c", "refinement", "relation"),
+             "vqdiffusion": (), "layoutdm_ra": ()}
+ZOO_REQUESTS, ZOO_BATCH = 2, 128
 
 
 class Failures(list):
@@ -371,12 +398,16 @@ def kernel_cases(torch, dev):
         # FIDNet (Dh=64), and the largest S the wrapper takes (key tiles streamed);
         # then the cli phase's: a batch of 64 (constraint S=23 for task c, S=4
         # uncond), the single canvas, FIDNet over its 512-canvas gallery and a batch
-        # (FIDNet at the train step's B*K = 512 is among them); in fp32 also the
-        # train phase's encoders at batch 32 (constraint lengths of uncond and c)
+        # (FIDNet at the train step's B*K = 512 is among them); then the zoo's:
+        # the diffusion decoders' self-attention (S = L = 50, no mask) at a request
+        # of 128 and the cli's batch of 64, RA-LayoutDM's FIDNet over B*K = 2048;
+        # in fp32 also the train phase's encoders at batch 32 (constraint lengths
+        # of uncond and c)
         k1_shapes = ((128, 330, 8, False), (1, 330, 8, False), (128, 4, 8, True),
                      (128, 89, 8, True), (256, 11, 4, True), (1, 11, 4, True),
                      (16, 1024, 8, False), (64, 330, 8, False), (64, 23, 8, True),
-                     (64, 4, 8, True), (1, 4, 8, True), (512, 11, 4, True), (64, 11, 4, True))
+                     (64, 4, 8, True), (1, 4, 8, True), (512, 11, 4, True), (64, 11, 4, True),
+                     (128, 50, 8, False), (64, 50, 8, False), (2048, 11, 4, True))
         for B, S, H, masked in k1_shapes + (TRAIN_K1_SHAPES if dtype == torch.float32 else ()):
             E, Dh = 256, 256 // H
             q, k, v = (torch.randn(B, S, E, generator=g, device=dev) for _ in range(3))
@@ -1074,6 +1105,220 @@ def run_cli(torch, fails: Failures, smi: list, overrides=tuple(CLI_CONFIG)) -> d
     return counted.totals
 
 
+def write_kmeans_centers(cfg, dataset) -> None:
+    """Fit the kmeans vocabulary of the diffusion presets on a split's
+    geometry and write it where build_tokenizer reads it (the cache's
+    `{dataset}_kmeans_train_clusters.pkl`, `{key}-{bins}` per geometry key)."""
+    from ralf_tpu_torch.cache import kmeans_clusters_path
+    from ralf_tpu_torch.core.bucketizer import fit_kmeans_1d
+    from ralf_tpu_torch.core.layout import GEO_KEYS
+
+    lay = dataset.get_layouts(np.arange(len(dataset)))
+    n_bin = cfg.tokenizer.get("num_bin", 128)
+    centers = {f"{k}-{n_bin}": fit_kmeans_1d(lay[k][lay["mask"]], n_bin, n_iters=10)
+               for k in GEO_KEYS}
+    path = kmeans_clusters_path(cfg.cache_dir, cfg.dataset.name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(centers, f)
+
+
+def zoo_generator(experiment: str, tmp: str, device: str, overrides=()):
+    """(config, generator) of a zoo preset at the preset's full width (random
+    weights from seed 0), the diffusion presets' kmeans vocabulary fitted on
+    the synthetic train split."""
+    from ralf_tpu_torch.config import build_config, build_datasets, build_generator, build_tokenizer
+
+    cfg = build_config(experiment, ["synthetic_data=true", f"cache_dir={tmp}/cache", *overrides])
+    if cfg.tokenizer.get("geo_quantization") == "kmeans":
+        write_kmeans_centers(cfg, build_datasets(cfg)[0])
+    return cfg, build_generator(cfg, build_tokenizer(cfg), device=device)
+
+
+def zoo_batches(gen, cfg, n_requests: int, batch: int, gallery_size: int, image_dtype=np.uint8):
+    """Requests of `batch` canvases (the synthetic set, seed 0) in the preset's
+    element order; with retrieval, each canvas's top-k of a synthetic
+    gallery (seed 1) ride on the batch."""
+    from ralf_tpu_torch.data.dataset import BatchLoader, DatasetConfig, SyntheticPosterDataset
+    from ralf_tpu_torch.retrieval.retriever import Retriever
+    from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
+
+    ds = SyntheticPosterDataset(DatasetConfig(name="synthetic"), size=n_requests * batch,
+                                seed=0, image_hw=gen.image_hw)
+    loader = BatchLoader(ds, batch, shuffle=False, transforms=cfg.transforms,
+                         image_dtype=image_dtype, seed=0)
+    if getattr(gen, "with_retrieval", False):
+        gallery = SyntheticPosterDataset(DatasetConfig(name="synthetic"), size=gallery_size,
+                                         seed=1, image_hw=gen.image_hw)
+        loader = RetrievalAugmentedLoader(loader, Retriever.build(gallery, device=gen.device),
+                                          top_k=gen.top_k)
+    return list(loader)
+
+
+def zoo_check(torch, fails: Failures, tmp: str, overrides=()) -> None:
+    """Full-width fp32 maskgit, layoutdm, vqdiffusion and layoutdm_ra, card
+    against CPU on the same weights and the same batch (RA's neighbours
+    retrieved once, on the CPU): encode_memory (RA's with FIDNet over the
+    B*K neighbours, the adapter, cross-attention and fusion head), one
+    denoising step's logits, deterministic tokens."""
+    from ralf_tpu_torch.core.sampling import SamplingConfig
+
+    greedy = SamplingConfig(name="deterministic", temperature=0.0)
+    for exp, tasks in ZOO_CHECK.items():
+        built = {d: zoo_generator(exp, tmp, d, ("model.dtype=float32", *overrides))
+                 for d in ("cuda", "cpu")}
+        gens = {d: g for d, (_, g) in built.items()}
+        batch = zoo_batches(gens["cpu"], built["cpu"][0], 1, 2, GALLERY, np.float32)[0]
+        conds = {d: g.build_condition(batch, np.random.default_rng(0), task=tasks[0])[0]
+                 for d, g in gens.items()}
+        if exp == "maskgit":
+            mems = {d: g.encode_memory(conds[d]).cpu() for d, g in gens.items()}
+            seq = gens["cpu"].user_tokens(conds["cpu"])[0]
+            with torch.inference_mode():
+                logits = {d: g.core.decoder(seq.to(g.device), mems["cpu"].to(g.device),
+                                            causal=False).cpu() for d, g in gens.items()}
+        else:
+            with torch.inference_mode():
+                prepared = {d: g.prepare_sample(conds[d]) for d, g in gens.items()}
+                mems = {d: g.core.encode_memory(prepared[d]["image"],
+                                                prepared[d].get("retrieved")).cpu()
+                        for d, g in gens.items()}
+                L = gens["cpu"].tokenizer.max_token_length
+                x_t = torch.full((2, L), gens["cpu"].diffusion.mask_id, dtype=torch.long)
+                logits = {d: g.core.decoder(x_t.to(g.device), mems["cpu"].to(g.device),
+                                            torch.full((2,), 25, device=g.device)).cpu()
+                          for d, g in gens.items()}
+        m_err = float((mems["cuda"] - mems["cpu"]).abs().max())
+        l_err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        fails.check(m_err < 1e-3 and l_err < 1e-3,
+                    f"zoo check {exp}: encode_memory {tuple(mems['cpu'].shape)} card vs CPU "
+                    f"max_abs_err {m_err:.3e}, one step's logits {tuple(logits['cpu'].shape)} "
+                    f"{l_err:.3e} (tol 1e-3)")
+        for task in tasks:
+            toks = {}
+            for d, g in gens.items():
+                cond, _ = g.build_condition(batch, np.random.default_rng(1), task=task)
+                toks[d] = g.sample(cond, greedy, return_tokens=True)[1].cpu()
+            same = float((toks["cuda"] == toks["cpu"]).float().mean())
+            fails.check(same >= AGREE, f"zoo check {exp} task {task}: deterministic tokens card "
+                                       f"vs CPU {same:.4f} equal (least {AGREE})")
+
+
+def zoo_k1(gen) -> int:
+    """K1 launches of one request: the image encoder's layers, the diffusion
+    decoder's self-attention at every denoising step (MaskGIT's decoder
+    attends with a bias and takes none), and RA-LayoutDM's 4 FIDNet layers."""
+    denoise = 0 if not hasattr(gen, "diffusion") else gen.cfg.num_decoder_layers * gen.num_timesteps
+    return gen.cfg.num_encoder_layers + denoise + (4 if getattr(gen, "with_retrieval", False) else 0)
+
+
+def run_zoo(torch, fails: Failures, smi: list, overrides=()) -> dict:
+    """MaskGIT, LayoutDM, VQDiffusion and RA-LayoutDM on the card: the fp32
+    check against the CPU, requests of ZOO_BATCH canvases in bf16 with exact
+    K1 counts, one profiled request, then cli.inference and cli.evaluate on
+    a layoutdm job dir; returns the launches of each kernel summed over the
+    counted calls.  `overrides` cut the models for a rehearsal without a
+    card; the script passes none."""
+    from ralf_tpu_torch.cli import evaluate, inference
+    from ralf_tpu_torch.utils.weights import export_params, save_params_npz
+
+    t0 = time.perf_counter()
+    counted = LaunchCounter()
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+
+    def want(**launches):
+        return {**dict.fromkeys(counted.totals, 0), **launches}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo_check(torch, fails, tmp, overrides)
+        print(f"  zoo check {time.perf_counter() - t0:.1f} s", flush=True)
+
+        for exp, tasks in ZOO_SERVE.items():
+            cfg, gen = zoo_generator(exp, tmp, "cuda", ("model.dtype=bfloat16", *overrides))
+            tok, L, k1 = gen.tokenizer, gen.tokenizer.max_token_length, zoo_k1(gen)
+            batches = zoo_batches(gen, cfg, ZOO_REQUESTS, ZOO_BATCH, GALLERY)
+            token_mask = torch.as_tensor(tok.token_mask, device=gen.device)
+            pos = torch.arange(L, device=gen.device)[None, :]
+
+            def request(batch, task, seed):
+                cond, _ = gen.build_condition(batch, np.random.default_rng(seed), task=task)
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                layout, toks = gen.sample(cond, cfg.sampling,
+                                          torch.Generator(device=gen.device).manual_seed(seed),
+                                          return_tokens=True)
+                torch.cuda.synchronize()
+                return cond, layout, toks, time.perf_counter() - a
+
+            request(batches[0], "uncond", 99)  # warm-up, outside the counted runs
+            outs = []
+            for i, (task, batch) in enumerate([("uncond", b) for b in batches]
+                                              + [(t, batches[0]) for t in tasks]):
+                (cond, layout, toks, dt), n = counted(lambda: request(batch, task, i))
+                no_mask = not bool((toks == tok.name_to_id("mask")).any())
+                # VQDiffusion replaces over the whole vocabulary: a slot may hold another
+                # attribute's token (its element then decodes as invalid), never MASK
+                legal = no_mask and (exp == "vqdiffusion" or bool(token_mask[pos, toks].all()))
+                kept = True
+                if cond.seq is not None:
+                    known = torch.as_tensor(np.asarray(cond.seq_mask), device=gen.device)
+                    given = torch.as_tensor(np.asarray(cond.seq), device=gen.device)
+                    kept = bool((toks[known] == given[known]).all())
+                finite = all(bool(torch.isfinite(layout.geo(k)).all())
+                             for k in ("center_x", "center_y", "width", "height"))
+                fails.check(n == want(K1=k1) and legal and kept and finite
+                            and tuple(toks.shape) == (ZOO_BATCH, L),
+                            f"zoo {exp} {task} request {i}: launches {n} (want K1 {k1}), tokens "
+                            f"legal={legal}, given tokens in place={kept}, layouts finite="
+                            f"{finite} ({int(layout.mask.sum())} elements)")
+                print(f"  zoo {exp} {task} request {i}: {dt * 1e3:.1f} ms, "
+                      f"{ZOO_BATCH / dt:.1f} layouts/s ({card})", flush=True)
+                if task == "uncond":
+                    outs.append(toks.cpu().numpy().tobytes())
+            fails.check(len(set(outs)) == len(outs), f"zoo {exp}: the {len(outs)} uncond "
+                                                     "requests give distinct outputs")
+            if exp == "layoutdm":
+                profile_request(torch, "zoo layoutdm uncond",
+                                lambda: request(batches[0], "uncond", 7))
+            del gen
+            torch.cuda.empty_cache()
+        print(f"  zoo serve {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # the entry points: a layoutdm job dir, cli.inference --cond c on the
+        # 64-canvas test split in one batch, then cli.evaluate on the card
+        job = os.path.join(tmp, "job")
+        cfg, gen = zoo_generator("layoutdm", tmp, "cuda",
+                                 ("model.dtype=bfloat16", *overrides))
+        cfg.save(job)
+        save_params_npz(os.path.join(job, "ckpt_final.npz"), *export_params(gen.core))
+        k1 = zoo_k1(gen)
+        del gen
+        out_dir = os.path.join(job, "out_c")
+        argv = ["--job-dir", job, "--cond", "c", "--num-seeds", "1", "--batch-size",
+                str(CLI_BATCH), "--out-dir", out_dir]
+        summary, n = counted(lambda: inference.main(argv))
+        with open(os.path.join(out_dir, "test_0.pkl"), "rb") as f:
+            records = pickle.load(f)["results"]
+        with open(os.path.join(out_dir, "test_0_violation.csv")) as f:
+            total, violated, rate = list(csv.reader(f))[1]
+        fails.check(n == want(K1=k1) and len(records) == CLI_BATCH and float(rate) == 0.0
+                    and int(total) > 0,
+                    f"zoo cli.inference layoutdm --cond c: launches {n} (want K1 {k1}), "
+                    f"{len(records)} records, violations {violated}/{total}, "
+                    f"{summary['ms_per_sample'][0]:.3f} ms per sample ({card})")
+        argv = ["--input-dir", out_dir, "--job-dir", job, "--device", "cuda",
+                "--cache-dir", os.path.join(tmp, "eval")]
+        with contextlib.redirect_stdout(io.StringIO()):
+            scores, n = counted(lambda: evaluate.main(argv))
+        bad = [k for k in SCORE_KEYS if not math.isfinite(scores[k]["mean"])
+               and k not in NAN_ALLOWED]
+        fails.check(n == want(K1=8) and list(scores) == SCORE_KEYS and not bad,
+                    f"zoo cli.evaluate on the card: launches {n} (want K1 8), keys "
+                    f"{list(scores) == SCORE_KEYS}, not finite: {bad}")
+    print(f"  zoo phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted.totals
+
+
 def run_backward_checks(torch, dev, fails: Failures) -> None:
     """K1, K5 and K6 carry gradients through their autograd.Function: the
     kernel's forward (one launch a call), and a backward that recomputes the
@@ -1382,6 +1627,8 @@ def main() -> int:
     launches = run_slice(torch, tok, fails)
     launches["K9"] += run_stream(torch, fails)
     for kid, n in run_cli(torch, fails, smi).items():
+        launches[kid] += n
+    for kid, n in run_zoo(torch, fails, smi).items():
         launches[kid] += n
     for kid, n in run_train(torch, tok, fails, smi).items():
         launches[kid] += n

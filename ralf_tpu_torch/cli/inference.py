@@ -1,5 +1,6 @@
 """Batch inference entry point, the counterpart of `ralf_tpu/cli/inference.py`
-for the `autoreg` and `ralf` presets:
+for the `autoreg`, `ralf`, `maskgit`, `layoutdm`, `layoutdm_ra` and
+`vqdiffusion` presets:
 
     python -m ralf_tpu_torch.cli.inference --job-dir tmp/jobs/ralf_pku \\
         --cond uncond --split test --num-seeds 3
@@ -22,8 +23,12 @@ conditions is seeded by the seed, as in JAX; the decode's draws come from
 a `torch.Generator` on the device seeded from (seed, layouts so far),
 where JAX folds the same count into its key (`jax.random.fold_in`): torch
 cannot reproduce `jax.random`'s numbers, so only `sampling.name=
-deterministic` decodes equal JAX's.  `--mesh on` (multi-GPU) is not ported
-yet; `auto` and `off` run the single-card path.
+deterministic` decodes equal JAX's (MaskGIT's re-masking noise also needs
+`sampling.temperature=0`).  `--kv-quant` and `--self-quant` exist for the
+AR decodes only and raise for the other presets, as JAX's do; `--no-backtrack`
+and `--max-retries` concern the AR relation decode and are ignored by the
+others.  `--mesh on` (multi-GPU) is not ported yet; `auto` and `off` run
+the single-card path.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from ralf_tpu_torch.core.layout import GEO_KEYS, Layout
+from ralf_tpu_torch.models.autoreg import AutoregGenerator
 
 COND_CHOICES = ["uncond", "c", "cwh", "partial", "refinement", "relation", "gt"]
 
@@ -182,6 +188,10 @@ def main(argv=None) -> dict:
         ds = unannotated_dataset(cfg.dataset, ds, args.split)
     tokenizer = build_tokenizer(cfg)
     gen = build_generator(cfg, tokenizer, device=dev)
+    is_ar = isinstance(gen, AutoregGenerator)
+    if (args.kv_quant or args.self_quant) and not is_ar:
+        raise ValueError(f"--kv-quant/--self-quant require an AR-family generator with int8 "
+                         f"cache support; {type(gen).__name__} has none")
 
     # the precomputed relation clauses index the elements in sorted order:
     # valid only under deterministic element order
@@ -199,8 +209,8 @@ def main(argv=None) -> dict:
 
         retriever = Retriever.build(train_ds, cache_dir=cfg.cache_dir,
                                     dataset_name=cfg.dataset.name, device=dev)
-        # the frozen layout tower's features of the fixed gallery, once a run
-        feats_table = gen.precompute_retrieved_feats(retriever.layouts)
+        if hasattr(gen, "precompute_retrieved_feats"):  # RALF's frozen tower, once a run
+            feats_table = gen.precompute_retrieved_feats(retriever.layouts)
 
     if args.single_image:
         img = _load_single_image(args.single_image, cfg)
@@ -224,8 +234,10 @@ def main(argv=None) -> dict:
                                               feats_table=feats_table)
         batches = list(loader)
 
-    extra = {"kv_quant": args.kv_quant, "self_quant": args.self_quant,
-             "use_backtrack": not args.no_backtrack, "max_retries": args.max_retries}
+    extra = {}
+    if is_ar:
+        extra = {"kv_quant": args.kv_quant, "self_quant": args.self_quant,
+                 "use_backtrack": not args.no_backtrack, "max_retries": args.max_retries}
     summary = {"out_dir": out_dir, "ms_per_sample": {}, "layouts_per_s": {}}
     for seed in range(num_seeds):
         pkl_path = os.path.join(out_dir, f"{args.split}_{seed}.pkl")

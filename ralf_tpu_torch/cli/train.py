@@ -15,9 +15,10 @@ on the B*K retrieved layouts in each step, as in JAX.
 
 It runs on the card (`--device cuda`, the default, which raises without
 CUDA) or on the CPU with `--device cpu`.  These raise, naming the item of
-ROADMAP.md Queue A that ports them: the GAN, `icvt` and `retriever`
-presets and the rest of the zoo (item 8), and from `Trainer`,
-`train.gallery_shards > 1` (item 10) and `model.dtype=bfloat16` (item 11).
+ROADMAP.md Queue A that ports them: MaskGIT and the diffusion presets (item
+13, the zoo's training), the GAN presets (item 14), `icvt` and
+`retriever` (item 15), and from `Trainer`, `train.gallery_shards > 1`
+(item 10) and `model.dtype=bfloat16` (item 11).
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ def main(argv=None) -> str:
     from ralf_tpu_torch import cache as cache_mod
     from ralf_tpu_torch.config import (
         EXPERIMENTS,
+        UNPORTED,
         build_config,
         build_datasets,
         build_generator,
@@ -77,11 +79,12 @@ def main(argv=None) -> str:
 
     dev = resolve_device(args.device)
     cfg = build_config(args.experiment, args.overrides)
-    if EXPERIMENTS[cfg.experiment]["generator"] not in ("autoreg", "ralf"):
+    generator = EXPERIMENTS[cfg.experiment]["generator"]
+    if generator not in ("autoreg", "ralf"):
+        item = UNPORTED.get(generator, 13)  # maskgit, layoutdm: the zoo's training
         raise NotImplementedError(
-            f"experiment {cfg.experiment!r}: the port trains 'autoreg' and 'ralf'; the GAN, "
-            "icvt and retriever presets and the rest of the zoo come with ROADMAP.md "
-            "Queue A item 8")
+            f"experiment {cfg.experiment!r}: the port trains 'autoreg' and 'ralf'; training "
+            f"{generator!r} comes with ROADMAP.md Queue A item {item}")
     cfg.dataset = DatasetConfig(name=args.dataset, data_dir=args.data_dir)
     cfg.auxiliary_task = args.task
     cfg.debug = args.debug

@@ -5,9 +5,10 @@ generator.
 
 A job's config serializes to `job_dir/config.json` in the JAX package's
 format, so each package loads what the other saved.  `build_generator`
-builds the `autoreg` and `ralf` presets (on `device`, the card by default);
-every other preset raises NotImplementedError until the rest of the zoo is
-ported (ROADMAP.md Queue A item 8).
+builds the `autoreg`, `ralf`, `maskgit`, `layoutdm`, `layoutdm_ra` and
+`vqdiffusion` presets (on `device`, the card by default); the GAN presets
+(ROADMAP.md Queue A item 14), `icvt` and `retriever` (item 15) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -213,27 +214,37 @@ def build_tokenizer(cfg: FrameworkConfig) -> Optional[LayoutSequenceTokenizer]:
     return LayoutSequenceTokenizer(TokenizerConfig(**tk))
 
 
+# the presets not ported yet, by generator, and the ROADMAP.md item that ports them
+UNPORTED = {"cglgan": 14, "dsgan": 14, "icvt": 15, "retriever": 15}
+
+
 def build_generator(cfg: FrameworkConfig, tokenizer=None, device="cuda"):
     """The generator of the experiment preset, with random weights from
-    `cfg.train.seed` until `utils.weights.load_jax_params` fills its core.
-    `autoreg` and `ralf` only; the other presets raise."""
+    `cfg.train.seed` until `utils.weights.load_jax_params` fills its core."""
     name = EXPERIMENTS[cfg.experiment]["generator"]
     gcfg = GeneratorConfig(**cfg.model)
     hw = (cfg.dataset.image_h, cfg.dataset.image_w)
     kw = dict(cfg.generator_kwargs)
+    common = dict(device=device, seed=cfg.train.seed)
     if name == "autoreg":
         from ralf_tpu_torch.models.autoreg import AutoregGenerator
 
-        return AutoregGenerator(tokenizer, gcfg, cfg.auxiliary_task, hw, device=device,
-                                seed=cfg.train.seed, **kw)
+        return AutoregGenerator(tokenizer, gcfg, cfg.auxiliary_task, hw, **common, **kw)
     if name == "ralf":
         from ralf_tpu_torch.models.ralf import RALFGenerator
 
-        return RALFGenerator(tokenizer, gcfg, cfg.auxiliary_task, hw, device=device,
-                             seed=cfg.train.seed, **kw)
+        return RALFGenerator(tokenizer, gcfg, cfg.auxiliary_task, hw, **common, **kw)
+    if name == "maskgit":
+        from ralf_tpu_torch.models.maskgit import MaskGITGenerator
+
+        return MaskGITGenerator(tokenizer, gcfg, image_hw=hw, **common, **kw)
+    if name == "layoutdm":
+        from ralf_tpu_torch.models.diffusion import LayoutDMGenerator
+
+        return LayoutDMGenerator(tokenizer, gcfg, image_hw=hw, **common, **kw)
     raise NotImplementedError(
-        f"experiment {cfg.experiment!r} (generator {name!r}) is not ported yet: the port "
-        "builds 'autoreg' and 'ralf' (ROADMAP.md Queue A item 8, the rest of the zoo)")
+        f"experiment {cfg.experiment!r} (generator {name!r}) is not ported yet: "
+        f"ROADMAP.md Queue A item {UNPORTED[name]}")
 
 
 def build_datasets(cfg: FrameworkConfig):

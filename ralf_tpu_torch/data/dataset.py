@@ -290,7 +290,7 @@ class BatchLoader:
             if n <= 1:
                 continue
             sample = {k: lay[k][b, :n] for k in ("label", "center_x", "center_y", "width", "height")}
-            for k, v in self._transform(sample).items():
+            for k, v in self._transform(sample, self._rng).items():
                 out[k][b, :n] = v
         return out
 

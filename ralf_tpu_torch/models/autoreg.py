@@ -34,7 +34,7 @@ from ralf_tpu_torch.core.conditioning import (
 from ralf_tpu_torch.core.layout import Layout
 from ralf_tpu_torch.core.sampling import SamplingConfig
 from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer
-from ralf_tpu_torch.models.base import GeneratorConfig
+from ralf_tpu_torch.models.base import GeneratorConfig, build_core, device_image
 from ralf_tpu_torch.models.nn import TokenDecoder, TransformerEncoder
 from ralf_tpu_torch.models.positional import PositionalEncoding1D
 from ralf_tpu_torch.models.resnet import ImageEncoder
@@ -130,21 +130,14 @@ class AutoregGenerator:
         self.image_hw = image_hw
         # optional precomputed {str(id): clause list} table of the relations
         self.relationships_table: Optional[dict] = None
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            core = self._build_core()
-        self.core = core.to(device=self.device, dtype=cfg.dtype or torch.float32).eval()
-        self.core.requires_grad_(False)
+        self.core = build_core(self._build_core, cfg, self.device, seed)
         self.token_mask = torch.as_tensor(tokenizer.token_mask, device=self.device)
 
     def _build_core(self) -> nn.Module:
         return AutoregCore(self.tokenizer.N_total, self.vocab.N_total, self.cfg)
 
     def _image(self, cond: Condition) -> torch.Tensor:
-        image = cond.image
-        if not isinstance(image, torch.Tensor):
-            image = torch.from_numpy(np.asarray(image))
-        return image.to(self.device)
+        return device_image(cond.image, self.device)
 
     def _constraint(self, cond: Condition) -> tuple[torch.Tensor, torch.Tensor]:
         return (torch.as_tensor(cond.const_seq, device=self.device).long(),

@@ -1,4 +1,7 @@
-"""Generator configuration, the counterpart of `ralf_tpu/models/base.py`.
+"""Generator configuration, the counterpart of `ralf_tpu/models/base.py`,
+and what every generator of the port does alike: building its core from
+a seed on its device (`build_core`), bringing a condition's canvases
+there (`device_image`), and the zoo's FFN width (`zoo_feedforward`).
 
 It holds every field of JAX's `GeneratorConfig`, with the same defaults, so
 that a job dir's `config.json` written by either package loads in the
@@ -12,9 +15,11 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
+from torch import nn
 
 _DTYPE_NAMES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                 "float16": torch.float16}
@@ -46,3 +51,28 @@ class GeneratorConfig:
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "dtype", parse_dtype(self.dtype))
+
+
+def zoo_feedforward(cfg: GeneratorConfig) -> int:
+    """The FFN width of MaskGIT's and the diffusion models' encoders and
+    decoders: 2048 at d_model 256, else 4 d_model (not `dim_feedforward`)."""
+    return 2048 if cfg.d_model == 256 else 4 * cfg.d_model
+
+
+def build_core(make: Callable[[], nn.Module], cfg: GeneratorConfig, device: torch.device,
+               seed: int) -> nn.Module:
+    """`make()` with torch's global generator seeded by `seed` (and left as it
+    was), on `device` in the config's dtype, in eval mode, needing no grad."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        core = make()
+    core = core.to(device=device, dtype=cfg.dtype or torch.float32).eval()
+    core.requires_grad_(False)
+    return core
+
+
+def device_image(image: Any, device: torch.device) -> torch.Tensor:
+    """A condition's canvases [B, H, W, 4] (numpy or tensor) on `device`."""
+    if not isinstance(image, torch.Tensor):
+        image = torch.from_numpy(np.asarray(image))
+    return image.to(device)

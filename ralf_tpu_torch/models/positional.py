@@ -1,6 +1,7 @@
 """Positional encodings, the counterpart of `ralf_tpu/models/positional.py`:
 the 1-d interleaved sine table and the normalized 2-d sine table (numpy,
-fp32), and the modules that add them."""
+fp32), the modules that add them, and the diffusion decoders' learned
+element/attribute encoding."""
 
 from __future__ import annotations
 
@@ -53,6 +54,29 @@ class PositionalEncoding1D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x * torch.tensor(self.d_model, dtype=x.dtype).sqrt()
         return self.drop(h + self.pe[: x.shape[-2]].to(x.dtype))
+
+
+class ElemAttrPositionalEncoding1D(nn.Module):
+    """Dropout(x * sqrt(d) + concat[attribute embedding, element embedding]):
+    position i of the token sequence is attribute i % n_attr of element
+    i // n_attr, each half learned (flax's `Embed_0`, `Embed_1`)."""
+
+    def __init__(self, d_model: int, dropout: float = 0.1, max_len: int = 5000,
+                 n_attr_per_elem: int = 5) -> None:
+        super().__init__()
+        self.d_model, self.n_attr = d_model, n_attr_per_elem
+        self.Embed_0 = nn.Embedding(n_attr_per_elem, d_model // 2)
+        self.Embed_1 = nn.Embedding(max_len // n_attr_per_elem, d_model // 2)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        S = x.shape[1]
+        if S % self.n_attr:
+            raise ValueError(f"sequence length {S} is not a multiple of {self.n_attr}")
+        h = x * torch.tensor(self.d_model, dtype=x.dtype).sqrt()
+        idx = torch.arange(S, device=x.device)
+        pe = torch.cat([self.Embed_0(idx % self.n_attr), self.Embed_1(idx // self.n_attr)], -1)
+        return self.drop(h + pe[None].to(h.dtype))
 
 
 class PositionEmbeddingSine2D(nn.Module):

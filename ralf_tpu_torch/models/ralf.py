@@ -40,6 +40,17 @@ from ralf_tpu_torch.models.resnet import ImageEncoder
 RETRIEVED_KEYS = ("label", "center_x", "center_y", "width", "height", "mask")
 
 
+def retrieved_tensors(retrieved: dict, device) -> dict:
+    """Host retrieval arrays {key: [B, K, S]} -> tensors on `device` (label
+    int64, mask bool, geometry fp32), with the features [B, K, 256] when given."""
+    dtypes = {"label": torch.int64, "mask": torch.bool}
+    out = {k: torch.as_tensor(np.asarray(retrieved[k]), device=device).to(
+        dtypes.get(k, torch.float32)) for k in RETRIEVED_KEYS}
+    if retrieved.get("feats") is not None:
+        out["feats"] = torch.as_tensor(np.asarray(retrieved["feats"], np.float32), device=device)
+    return out
+
+
 class ViTFeedForward(nn.Module):
     """LayerNorm -> Linear -> GELU (tanh) -> Linear."""
 
@@ -162,24 +173,11 @@ class RALFGenerator(AutoregGenerator):
             fusion=self.fusion,
         )
 
-    def _retrieved_arrays(self, retrieved: dict) -> dict:
-        """Host retrieval arrays -> tensors on the generator's device."""
-        dtypes = {"label": torch.int64, "mask": torch.bool}
-        out = {
-            k: torch.as_tensor(np.asarray(retrieved[k]), device=self.device).to(
-                dtypes.get(k, torch.float32))
-            for k in RETRIEVED_KEYS
-        }
-        if retrieved.get("feats") is not None:
-            out["feats"] = torch.as_tensor(np.asarray(retrieved["feats"], np.float32),
-                                           device=self.device)
-        return out
-
     def preprocess(self, batch: dict, rng: np.random.Generator) -> tuple[dict, dict]:
         if "retrieved" not in batch:
             raise ValueError("RALF needs retrieval-augmented batches (retrieval.wrapper)")
         inputs, targets = super().preprocess(batch, rng)
-        inputs["retrieved"] = self._retrieved_arrays(batch["retrieved"])
+        inputs["retrieved"] = retrieved_tensors(batch["retrieved"], self.device)
         return inputs, targets
 
     def logits(self, inputs: dict) -> torch.Tensor:
@@ -202,5 +200,6 @@ class RALFGenerator(AutoregGenerator):
     @torch.inference_mode()
     def encode_memory(self, cond: Condition) -> torch.Tensor:
         """[B, 2M + K + Lc, D]: Lc, the constraint length, depends on the task."""
-        return self.core.encode_memory(self._image(cond), self._retrieved_arrays(cond.retrieved),
+        return self.core.encode_memory(self._image(cond),
+                                       retrieved_tensors(cond.retrieved, self.device),
                                        *self._constraint(cond))

@@ -1,5 +1,5 @@
-"""ResNet image backbone with the `ralf`-style mini-FPN head, the
-counterpart of `ralf_tpu/models/resnet.py`.
+"""ResNet image backbone with its mini-FPN head, the counterpart of
+`ralf_tpu/models/resnet.py`.
 
 Images enter in the JAX package's layout, [B, H, W, 4] (RGB + saliency),
 float in [0, 1] or uint8 0..255 (normalized here).  Inside, the NHWC tensor
@@ -8,13 +8,24 @@ made.  BatchNorm follows flax's `nn.BatchNorm(momentum=0.9)`: in eval mode
 the running statistics, folded into a per-channel scale and shift; in train
 mode the batch's (ROADMAP.md Queue C).
 
+Two heads, as in JAX.  `fpn_style="ralf"` (RALF and autoreg):
+
     f4p = 1x1(layer3); f5p = 1x1(layer4); f5up = nearest(f5p, size of f4p)
     out = 1x1(concat[f5up, 3x3(f5up + f4p)]) -> [B, H/16, W/16, d_model]
+
+`fpn_style="cgl"` (MaskGIT, LayoutDM, VQDiffusion): ImageNet normalisation
+of the RGB channels first (in the image's dtype, after the uint8 cast),
+then d_model/2-channel laterals:
+
+    f_up = bilinear(1x1(layer4), size of layer3); out = concat[f_up, 1x1(f_up + 1x1(layer3))]
 
 The nearest upsample is `nearest-exact`: `jax.image.resize(..., "nearest")`
 samples at half-pixel centres, and at a 350x240 canvas the 11x8 -> 22x15
 width factor is not an integer, where torch's legacy `nearest` picks other
-pixels.
+pixels.  The bilinear one is torch's with `align_corners=False`: JAX's
+also samples at half-pixel centres and renormalises its triangle kernel
+over the pixels inside the map, which at an edge is torch's clamp (its
+antialiasing acts only when it shrinks a map).
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ from ralf_tpu_torch.models.nn import TransformerEncoder
 from ralf_tpu_torch.models.positional import PositionEmbeddingSine2D
 
 BN_EPS = 1e-5
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 BN_MOMENTUM = 0.9  # flax's convention: ra = 0.9 ra + 0.1 batch (torch's momentum 0.1)
 
 
@@ -145,25 +158,45 @@ class ResNetTrunk(nn.Module):
 
 
 class ResNetFPNEncoder(nn.Module):
-    """Trunk + `ralf`-style mini-FPN: [B, H, W, 4] -> [B, H/16, W/16, d_model]."""
+    """Trunk + mini-FPN: [B, H, W, 4] -> [B, H/16, W/16, d_model]."""
 
-    def __init__(self, backbone: str = "resnet50", d_model: int = 256) -> None:
+    def __init__(self, backbone: str = "resnet50", d_model: int = 256,
+                 fpn_style: str = "ralf") -> None:
         super().__init__()
+        if fpn_style not in ("ralf", "cgl"):
+            raise ValueError(f"fpn_style {fpn_style!r}: 'ralf' or 'cgl'")
+        self.fpn_style = fpn_style
+        self.normalize_rgb = fpn_style == "cgl"
         self.trunk = ResNetTrunk(backbone)
         c3, c4 = self.trunk.out_channels
-        self.fpn_conv11_4 = conv(c3, 256, 1, bias=True)
-        self.fpn_conv11_5 = conv(c4, 256, 1, bias=True)
-        self.fpn_conv33 = conv(256, 256, 3, bias=True)
-        self.proj = conv(512, d_model, 1, bias=True)
+        if fpn_style == "cgl":
+            half = d_model // 2
+            self.conv11 = conv(c4, half, 1, bias=True)
+            self.conv22 = conv(c3, half, 1, bias=True)
+            self.conv33 = conv(half, half, 1, bias=True)
+        else:
+            self.fpn_conv11_4 = conv(c3, 256, 1, bias=True)
+            self.fpn_conv11_5 = conv(c4, 256, 1, bias=True)
+            self.fpn_conv33 = conv(256, 256, 3, bias=True)
+            self.proj = conv(512, d_model, 1, bias=True)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
-        dtype = self.proj.weight.dtype
+        dtype = self.trunk.conv1.weight.dtype
         if img.is_floating_point():
             img = img.to(dtype)
         else:  # uint8 ingress: normalized on the device
             img = img.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype)
+        if self.normalize_rgb:
+            mean = torch.tensor(IMAGENET_MEAN + (0.0,), dtype=img.dtype, device=img.device)
+            std = torch.tensor(IMAGENET_STD + (1.0,), dtype=img.dtype, device=img.device)
+            img = (img - mean) / std
         x = img.permute(0, 3, 1, 2)  # NHWC storage viewed as NCHW (channels_last)
         f3, f4 = self.trunk(x)
+        if self.fpn_style == "cgl":
+            f_up = F.interpolate(self.conv11(f4), size=f3.shape[-2:], mode="bilinear",
+                                 align_corners=False, antialias=False)
+            fused = self.conv33(f_up + self.conv22(f3))
+            return torch.cat([f_up, fused], dim=1).permute(0, 2, 3, 1)
         f4p = self.fpn_conv11_4(f3)
         f5p = self.fpn_conv11_5(f4)
         f5up = F.interpolate(f5p, size=f4p.shape[-2:], mode="nearest-exact")
@@ -175,9 +208,10 @@ class ImageEncoder(nn.Module):
     """extractor -> 2-d sine PE -> pre-LN TransformerEncoder: [B, H'W', d_model]."""
 
     def __init__(self, backbone: str = "resnet50", d_model: int = 256, nhead: int = 8,
-                 num_layers: int = 6, dim_feedforward: int = 1024, dropout: float = 0.1) -> None:
+                 num_layers: int = 6, dim_feedforward: int = 1024, dropout: float = 0.1,
+                 fpn_style: str = "ralf") -> None:
         super().__init__()
-        self.extractor = ResNetFPNEncoder(backbone, d_model)
+        self.extractor = ResNetFPNEncoder(backbone, d_model, fpn_style)
         self.pos_2d = PositionEmbeddingSine2D(d_model)
         self.transformer = TransformerEncoder(d_model, nhead, num_layers, dim_feedforward,
                                               dropout=dropout)

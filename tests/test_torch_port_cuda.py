@@ -925,3 +925,86 @@ def test_cli_inference_and_evaluate_on_the_card_equal_the_cpu(dev, tmp_path):
     assert list(got) == list(want)
     for k in want:
         assert got[k]["mean"] == pytest.approx(want[k]["mean"], rel=1e-5, abs=1e-9), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,mask", [
+    (128, 50, 8, False),  # the diffusion decoders' self-attention, a request of 128
+    (2048, 11, 4, True),  # RA-LayoutDM's FIDNet over B*K = 128 * 16 retrieved layouts
+])
+def test_encoder_attention_at_the_zoo_shapes(dev, dtype, B, S, H, mask):
+    """K1 at the zoo's new shapes against its plain version; in bf16 an element
+    outside the tolerance passes only as one p rounded the other way near a
+    bf16 midpoint (chip_smoke.py's `k1_one_flip`, ROADMAP.md Queue C 30)."""
+    import chip_smoke
+
+    g = torch.Generator(device=dev).manual_seed(B + S)
+    q, k, v = (torch.randn(B, S, 256, generator=g, device=dev) for _ in range(3))
+    q = (q * (256 // H) ** -0.5).to(dtype)
+    k, v = k.to(dtype), v.to(dtype)
+    bias = None
+    if mask:
+        keep = torch.rand(B, S, generator=g, device=dev) > 0.3
+        keep[::3] = False
+        bias = torch.where(keep, 0.0, -1e9).float()
+    n = ea.encoder_attention.launches
+    out = ea.encoder_attention(q, k, v, H, bias)
+    assert ea.encoder_attention.launches == n + 1
+    ref = ea.encoder_attention_plain(q, k, v, H, bias)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    outside = (out.float() - ref.float()).abs() > atol + rtol * ref.float().abs()
+    if dtype == torch.bfloat16 and bool(outside.any()):
+        explained, _ = chip_smoke.k1_one_flip(torch, q, k, v, H, bias)(out, outside)
+        assert bool(explained.all()), int((~explained).sum())
+    else:
+        _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("experiment", ["maskgit", "layoutdm", "vqdiffusion", "layoutdm_ra"])
+def test_zoo_generator_on_the_card_equals_the_cpu(dev, experiment):
+    """A narrow zoo model at the kernels' width (d_model 256, 8 heads; 1+1
+    layers, resnet18, 96x64 canvases) in fp32 on the same weights and batch
+    (RA-LayoutDM's top-16 retrieved once, on the CPU): memory within 1e-3
+    (RA's with FIDNet over the neighbours, the adapter, cross-attention and
+    fusion head), deterministic tokens of task c equal at a share >= 0.99,
+    and on the card exactly its K1 launches (the image encoder's layer; for
+    the diffusion models the decoder's self-attention at each of its 50
+    steps; for RA-LayoutDM FIDNet's 4 layers)."""
+    import numpy as np
+
+    from ralf_tpu_torch.config import build_config, build_datasets, build_generator, build_tokenizer
+    from ralf_tpu_torch.core.sampling import SamplingConfig
+    from ralf_tpu_torch.data.dataset import BatchLoader
+    from ralf_tpu_torch.retrieval.retriever import Retriever
+    from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
+
+    cfg = build_config(experiment, [
+        "model.d_model=256", "model.nhead=8", "model.num_encoder_layers=1",
+        "model.num_decoder_layers=1", "model.backbone=resnet18", "dataset.image_h=96",
+        "dataset.image_w=64", "debug=true", "synthetic_data=true", "allow_linear_fallback=true"])
+    tok = build_tokenizer(cfg)
+    train, _, test = build_datasets(cfg)
+    loader = BatchLoader(test, 8, shuffle=False, transforms=cfg.transforms, use_native=False)
+    with_retrieval = experiment == "layoutdm_ra"
+    if with_retrieval:
+        loader = RetrievalAugmentedLoader(loader, Retriever.build(train, device="cpu"), top_k=16)
+    batch = next(iter(loader))
+    greedy = SamplingConfig(name="deterministic", temperature=0.0)
+    mems, toks = {}, {}
+    for d in ("cpu", "cuda"):
+        gen = build_generator(cfg, tok, device=d)
+        cond, _ = gen.build_condition(batch, np.random.default_rng(0), task="c")
+        with torch.inference_mode():
+            if experiment == "maskgit":
+                mems[d] = gen.encode_memory(cond).cpu()
+            else:
+                prepared = gen.prepare_sample(cond)
+                mems[d] = gen.core.encode_memory(prepared["image"],
+                                                 prepared.get("retrieved")).cpu()
+        ea.encoder_attention.launches = 0
+        toks[d] = gen.sample(cond, greedy, return_tokens=True)[1].cpu()
+        launches = ea.encoder_attention.launches
+    assert float((mems["cuda"] - mems["cpu"]).abs().max()) < 1e-3
+    assert float((toks["cuda"] == toks["cpu"]).float().mean()) >= 0.99
+    assert launches == 1 + (0 if experiment == "maskgit" else 50) + (4 if with_retrieval else 0)

@@ -141,8 +141,8 @@ def test_prefetch_passes_producer_errors_on():
 
 def test_loader_rejects_a_transform_it_cannot_apply():
     _, td = _datasets(size=8)
-    with pytest.raises(KeyError, match="shuffle"):
-        tdata.BatchLoader(td, 4, transforms=("shuffle",))
+    with pytest.raises(KeyError, match="flip_horizontal"):
+        tdata.BatchLoader(td, 4, transforms=("shuffle", "flip_horizontal"))
 
 
 # ---- the parquet reader --------------------------------------------------------
