@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of RALF's sample and training paths on one CUDA card.
+"""Drive the PyTorch port of RALF's sample and training paths, and of the baselines'
+sample paths, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,8 +9,9 @@ Run from the repository root.  Phases, each of which must pass:
   1. device   the card's name and power limit; TF32 off for matmuls and convolutions
   2. build    nvcc builds every kernel of ralf_tpu_torch/ops/csrc (sm_90a), in parallel
   3. kernels  each kernel (K1-K9) against its plain PyTorch version at the
-              paths' shapes, in bf16 and fp32 (K9 on the probe's int8 slab and
-              its views), with its time beside the plain version's, one
+              paths' shapes (K1 also at ICVT's E=200, Dh=25), in bf16 and
+              fp32 (K9 on the probe's int8 slab and its views), with its
+              time beside the plain version's, one
               PyTorch library call's (for K5 and K6 an unfused sequence) and
               the least time the card could take; K8 also over the decode's
               6 distinct cache sets in turn (past the L2); then K1, K5 and K6's
@@ -75,7 +77,22 @@ Run from the repository root.  Phases, each of which must pass:
               one layoutdm request profiled; then cli.inference --cond c on a
               layoutdm job dir (64 test canvases, one batch; no violated
               constraint, K1 306) and cli.evaluate on its pickle on the card (K1 8)
-  9. train    one train step of the full-width fp32 RALF (dropout 0, batch 4)
+  9. baselines CGL-GAN, DS-GAN (each also with retrieval), ICVT and the
+              retriever at their presets' full width (random weights from seed
+              0): each in fp32 on the card against the CPU on 8 canvases (the
+              GANs' logits and boxes within 1e-3, labels; ICVT's image memory and
+              its tokens under one fixed z; the retriever's layouts exactly);
+              then in bf16 requests of 128 canvases, 2 uncond per preset and
+              cglgan c and refinement, dsgan c (its reorder), the _ra presets'
+              top-16 from the 256-canvas gallery: legal layouts, exactly 6 K1
+              launches a CGL-GAN request (the image encoder), 10 a CGL-GAN-RA
+              one (FIDNet's 4), none a DS-GAN one, 4 a DS-GAN-RA one, 6 an ICVT
+              one, every one at head width 25, none a retriever one; ms per
+              request, one cglgan and one icvt request profiled; then
+              cli.inference on a cglgan, an icvt and a retriever job dir (the
+              last written by cli.train; 64 test canvases in one batch, 2 seeds)
+              and cli.evaluate on the cglgan pickles on the card (K1 12)
+  10. train   one train step of the full-width fp32 RALF (dropout 0, batch 4)
               on the card against the CPU: loss, each subtree's update, the
               frozen FIDNet, BatchNorm's statistics; Trainer.fit at the ralf
               preset's size (fp32, batch 32, dropout 0.1, the 512/64 synthetic
@@ -85,7 +102,7 @@ Run from the repository root.  Phases, each of which must pass:
               steps and meta, ms per step, samples/s, peak memory and one step
               under torch.profiler; then cli.train --debug in this process and
               cli.inference --cond c on its checkpoint (fp32; K1 16, K2 300)
-  10. report  one JSON line of the kernels, the nvidia-smi line, and last
+  11. report  one JSON line of the kernels, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
 Every configuration is chosen here explicitly (q8_mxu is an argument of the
@@ -177,6 +194,17 @@ ZOO_CHECK = {"maskgit": ("c",), "layoutdm": ("c", "relation"), "vqdiffusion": ("
 ZOO_SERVE = {"maskgit": ("c",), "layoutdm": ("c", "refinement", "relation"),
              "vqdiffusion": (), "layoutdm_ra": ()}
 ZOO_REQUESTS, ZOO_BATCH = 2, 128
+# the baselines phase: per preset, BASELINE_REQUESTS uncond requests of BASELINE_BATCH
+# canvases, then one request per task listed (the generator's task, set for it), over
+# the GALLERY-canvas gallery; the fp32 card-vs-CPU check on BASELINE_CHECK canvases
+BASELINE_SERVE = {"cglgan": ("c", "refinement"), "cglgan_ra": (), "dsgan": ("c",),
+                  "dsgan_ra": (), "icvt": (), "retriever": ()}
+BASELINE_REQUESTS, BASELINE_BATCH, BASELINE_CHECK = 2, 128, 8
+BASELINE_CLI = ("cglgan", "icvt", "retriever")  # cli.inference job dirs; cli.evaluate on the first
+# K1 at ICVT's image encoder: E=200, H=8, Dh=25 (padded to 32) at a request, the cli's
+# batch and the fp32 check's
+K1_PADDED_SHAPES = ((BASELINE_BATCH, 330, 8, 200), (CLI_BATCH, 330, 8, 200),
+                    (BASELINE_CHECK, 330, 8, 200))
 
 
 class Failures(list):
@@ -402,14 +430,18 @@ def kernel_cases(torch, dev):
         # the diffusion decoders' self-attention (S = L = 50, no mask) at a request
         # of 128 and the cli's batch of 64, RA-LayoutDM's FIDNet over B*K = 2048;
         # in fp32 also the train phase's encoders at batch 32 (constraint lengths
-        # of uncond and c)
+        # of uncond and c); last ICVT's image encoder, E=200 and Dh=25, padded
+        # to 32 in the kernel
         k1_shapes = ((128, 330, 8, False), (1, 330, 8, False), (128, 4, 8, True),
                      (128, 89, 8, True), (256, 11, 4, True), (1, 11, 4, True),
                      (16, 1024, 8, False), (64, 330, 8, False), (64, 23, 8, True),
                      (64, 4, 8, True), (1, 4, 8, True), (512, 11, 4, True), (64, 11, 4, True),
                      (128, 50, 8, False), (64, 50, 8, False), (2048, 11, 4, True))
-        for B, S, H, masked in k1_shapes + (TRAIN_K1_SHAPES if dtype == torch.float32 else ()):
-            E, Dh = 256, 256 // H
+        k1_shapes = tuple(shape + (256,) for shape in k1_shapes + (
+            TRAIN_K1_SHAPES if dtype == torch.float32 else ()))
+        k1_shapes += tuple((B, S, H, False, E) for B, S, H, E in K1_PADDED_SHAPES)
+        for B, S, H, masked, E in k1_shapes:
+            Dh = E // H
             q, k, v = (torch.randn(B, S, E, generator=g, device=dev) for _ in range(3))
             q = (q * Dh**-0.5).to(dtype)
             k, v = k.to(dtype), v.to(dtype)
@@ -423,7 +455,7 @@ def kernel_cases(torch, dev):
             lib = (lambda q4=q4, k4=k4, v4=v4, m4=m4:
                    F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=1.0))
             cases.append((
-                "encoder_attention", f"B={B} S={S} H={H} Dh={Dh} mask={masked}", dn,
+                "encoder_attention", f"B={B} S={S} E={E} H={H} Dh={Dh} mask={masked}", dn,
                 lambda q=q, k=k, v=v, H=H, bias=bias: ea.encoder_attention(q, k, v, H, bias),
                 lambda q=q, k=k, v=v, H=H, bias=bias: ea.encoder_attention_plain(q, k, v, H, bias),
                 lib, 4 * B * S * E * isz + (4 * B * S if masked else 0), 4 * B * S * S * E, dn,
@@ -1124,13 +1156,13 @@ def write_kmeans_centers(cfg, dataset) -> None:
 
 
 def zoo_generator(experiment: str, tmp: str, device: str, overrides=()):
-    """(config, generator) of a zoo preset at the preset's full width (random
+    """(config, generator) of a preset at the preset's full width (random
     weights from seed 0), the diffusion presets' kmeans vocabulary fitted on
     the synthetic train split."""
     from ralf_tpu_torch.config import build_config, build_datasets, build_generator, build_tokenizer
 
     cfg = build_config(experiment, ["synthetic_data=true", f"cache_dir={tmp}/cache", *overrides])
-    if cfg.tokenizer.get("geo_quantization") == "kmeans":
+    if cfg.tokenizer is not None and cfg.tokenizer.get("geo_quantization") == "kmeans":
         write_kmeans_centers(cfg, build_datasets(cfg)[0])
     return cfg, build_generator(cfg, build_tokenizer(cfg), device=device)
 
@@ -1143,13 +1175,14 @@ def zoo_batches(gen, cfg, n_requests: int, batch: int, gallery_size: int, image_
     from ralf_tpu_torch.retrieval.retriever import Retriever
     from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
 
+    hw = (cfg.dataset.image_h, cfg.dataset.image_w)
     ds = SyntheticPosterDataset(DatasetConfig(name="synthetic"), size=n_requests * batch,
-                                seed=0, image_hw=gen.image_hw)
+                                seed=0, image_hw=hw)
     loader = BatchLoader(ds, batch, shuffle=False, transforms=cfg.transforms,
                          image_dtype=image_dtype, seed=0)
     if getattr(gen, "with_retrieval", False):
         gallery = SyntheticPosterDataset(DatasetConfig(name="synthetic"), size=gallery_size,
-                                         seed=1, image_hw=gen.image_hw)
+                                         seed=1, image_hw=hw)
         loader = RetrievalAugmentedLoader(loader, Retriever.build(gallery, device=gen.device),
                                           top_k=gen.top_k)
     return list(loader)
@@ -1316,6 +1349,202 @@ def run_zoo(torch, fails: Failures, smi: list, overrides=()) -> dict:
                     f"zoo cli.evaluate on the card: launches {n} (want K1 8), keys "
                     f"{list(scores) == SCORE_KEYS}, not finite: {bad}")
     print(f"  zoo phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted.totals
+
+
+def baseline_k1(gen) -> int:
+    """K1 launches of one request: the image encoder's layers (CGL-GAN, ICVT;
+    DS-GAN's image path has no transformer) and the RA variants' 4 FIDNet
+    layers; the retriever none."""
+    from ralf_tpu_torch.models.dsgan import DSGANGenerator
+
+    if not hasattr(gen, "core") or isinstance(gen, DSGANGenerator):
+        layers = 0
+    else:
+        layers = gen.cfg.num_encoder_layers
+    return layers + (4 if getattr(gen, "with_retrieval", False) else 0)
+
+
+@contextlib.contextmanager
+def k1_head_widths():
+    """The head width of each K1 launch made inside the block (the kernel
+    launcher wrapped to record E / nhead; the launch counter is untouched)."""
+    from ralf_tpu_torch.ops import encoder_attention as ea
+
+    launch, widths = ea._launch_encoder_attention, []
+
+    def recording(q, k, v, nhead, key_bias):
+        widths.append(q.shape[-1] // nhead)
+        return launch(q, k, v, nhead, key_bias)
+
+    ea._launch_encoder_attention = recording
+    try:
+        yield widths
+    finally:
+        ea._launch_encoder_attention = launch
+
+
+def baseline_check(torch, fails: Failures, tmp: str, overrides=()) -> None:
+    """Each of the six presets in fp32, card against CPU on the same weights
+    and BASELINE_CHECK canvases (the same numpy seed; RA's neighbours
+    retrieved once, on the CPU): the GANs' logits and boxes within 1e-3 and
+    their labels at least AGREE equal; ICVT's image memory within 1e-3 and its
+    layouts' tokens under one fixed z at least AGREE equal; the retriever's
+    layouts exactly."""
+    for exp in BASELINE_SERVE:
+        built = {d: zoo_generator(exp, tmp, d, ("model.dtype=float32", *overrides))
+                 for d in ("cuda", "cpu")}
+        gens = {d: g for d, (_, g) in built.items()}
+        cfg = built["cpu"][0]
+        batch = zoo_batches(gens["cpu"], cfg, 1, BASELINE_CHECK, GALLERY, np.float32)[0]
+        if exp == "retriever":
+            lay = {d: g.sample(batch).numpy() for d, g in gens.items()}
+            same = all(np.array_equal(lay["cuda"][k], lay["cpu"][k]) for k in lay["cpu"])
+            fails.check(same, f"baselines check {exp}: top-1 layouts card vs CPU equal={same}")
+            continue
+        if exp == "icvt":
+            d_model = gens["cpu"].cfg.d_model
+            z = torch.randn((BASELINE_CHECK, 1, d_model), generator=torch.Generator().manual_seed(0))
+            with torch.inference_mode():
+                mems = {d: g.core.encode_image(torch.as_tensor(batch["image"], device=g.device))
+                        .cpu() for d, g in gens.items()}
+            lay = {d: g.sample(batch, np.random.default_rng(0), z=z.to(g.device)).numpy()
+                   for d, g in gens.items()}
+            tokens = {d: np.stack([lay[d][k] for k in ("label", "center_x", "center_y", "width",
+                                                       "height", "mask")]) for d in lay}
+            m_err = float((mems["cuda"] - mems["cpu"]).abs().max())
+            same = float((tokens["cuda"] == tokens["cpu"]).mean())
+            fails.check(m_err < 1e-3 and same >= AGREE,
+                        f"baselines check {exp}: image memory {tuple(mems['cpu'].shape)} card vs "
+                        f"CPU max_abs_err {m_err:.3e} (tol 1e-3); tokens under one z {same:.4f} "
+                        f"equal (least {AGREE})")
+            continue
+        inputs, _ = gens["cpu"].preprocess(batch, np.random.default_rng(0))
+        outs = {d: [t.float().cpu() for t in g._forward(inputs)] for d, g in gens.items()}
+        l_err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+        b_err = float((outs["cuda"][1] - outs["cpu"][1]).abs().max())
+        same = float((outs["cuda"][0].argmax(-1) == outs["cpu"][0].argmax(-1)).float().mean())
+        fails.check(l_err < 1e-3 and b_err < 1e-3 and same >= AGREE,
+                    f"baselines check {exp}: logits {tuple(outs['cpu'][0].shape)} card vs CPU "
+                    f"max_abs_err {l_err:.3e}, boxes {b_err:.3e} (tol 1e-3); labels {same:.4f} "
+                    f"equal (least {AGREE})")
+        del gens, built
+        torch.cuda.empty_cache()
+
+
+def run_baselines(torch, fails: Failures, smi: list, overrides=()) -> dict:
+    """CGL-GAN, DS-GAN (each with and without retrieval), ICVT and the
+    retriever on the card: the fp32 check against the CPU, bf16 requests of
+    BASELINE_BATCH canvases with exact K1 counts (ICVT's all at head width
+    25), one profiled request of CGL-GAN and of ICVT, then cli.inference on a
+    cglgan, an icvt and a retriever job dir (the last written by cli.train)
+    and cli.evaluate on the cglgan pickles on the card; returns the launches
+    of each kernel summed over the counted calls.  `overrides` cut the
+    models for a rehearsal without a card; the script passes none."""
+    from ralf_tpu_torch.cli import evaluate, inference
+    from ralf_tpu_torch.cli import train as cli_train
+    from ralf_tpu_torch.utils.weights import export_params, save_params_npz
+
+    t0 = time.perf_counter()
+    counted = LaunchCounter()
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+
+    def want(**launches):
+        return {**dict.fromkeys(counted.totals, 0), **launches}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        baseline_check(torch, fails, tmp, overrides)
+        print(f"  baselines check {time.perf_counter() - t0:.1f} s", flush=True)
+
+        for exp, tasks in BASELINE_SERVE.items():
+            cfg, gen = zoo_generator(exp, tmp, "cuda", ("model.dtype=bfloat16", *overrides))
+            k1 = baseline_k1(gen)
+            batches = zoo_batches(gen, cfg, BASELINE_REQUESTS, BASELINE_BATCH, GALLERY)
+
+            def request(batch, task, seed):
+                gen.task = task  # the job's auxiliary_task
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                layout = gen.sample(batch, np.random.default_rng(seed))
+                torch.cuda.synchronize()
+                return layout, time.perf_counter() - a
+
+            request(batches[0], "uncond", 99)  # warm-up, outside the counted runs
+            for i, (task, batch) in enumerate([("uncond", b) for b in batches]
+                                              + [(t, batches[0]) for t in tasks]):
+                with k1_head_widths() as widths:
+                    (layout, dt), n = counted(lambda: request(batch, task, i))
+                geo = torch.stack([layout.geo(k).float() for k in
+                                   ("center_x", "center_y", "width", "height")])
+                legal = bool(((geo >= 0) & (geo <= 1)).all()) and bool(
+                    (layout.label[layout.mask] < cfg.dataset.num_labels).all())
+                dh_ok = exp != "icvt" or widths == [25] * k1
+                fails.check(n == want(K1=k1) and legal and dh_ok
+                            and tuple(layout.mask.shape) == (BASELINE_BATCH,
+                                                             cfg.dataset.max_seq_length),
+                            f"baselines {exp} {task} request {i}: launches {n} (want K1 {k1}), "
+                            f"K1 head widths {sorted(set(widths))}, layouts legal={legal} "
+                            f"({int(layout.mask.sum())} elements)")
+                print(f"  baselines {exp} {task} request {i}: {dt * 1e3:.1f} ms, "
+                      f"{BASELINE_BATCH / dt:.1f} layouts/s ({card})", flush=True)
+            if exp in ("cglgan", "icvt"):
+                profile_request(torch, f"baselines {exp} uncond",
+                                lambda: request(batches[0], "uncond", 7))
+            del gen
+            torch.cuda.empty_cache()
+        print(f"  baselines serve {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # the entry points: cli.inference on the 64-canvas test split in one batch for
+        # CLI_SEEDS seeds; the retriever's job dir written by cli.train
+        out_dirs = {}
+        for exp in BASELINE_CLI:
+            job = os.path.join(tmp, f"job_{exp}")
+            if exp == "retriever":
+                argv = ["--experiment", "retriever", "--synthetic", "--job-dir", job,
+                        "--cache-dir", f"{tmp}/cache", *overrides]
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli_train.main(argv)
+                k1 = 0
+                fails.check(sorted(os.listdir(job)) == ["config.json"],
+                            f"baselines cli.train --experiment retriever writes {os.listdir(job)}")
+            else:
+                cfg, gen = zoo_generator(exp, tmp, "cuda", ("model.dtype=bfloat16",
+                                                                 *overrides))
+                cfg.save(job)
+                save_params_npz(os.path.join(job, "ckpt_final.npz"), *export_params(gen.core))
+                k1 = baseline_k1(gen)
+                del gen
+            out_dirs[exp] = os.path.join(job, "out")
+            argv = ["--job-dir", job, "--num-seeds", str(CLI_SEEDS), "--batch-size",
+                    str(CLI_BATCH), "--out-dir", out_dirs[exp]]
+            with k1_head_widths() as widths:
+                summary, n = counted(lambda: inference.main(argv))
+            records = []
+            for seed in range(CLI_SEEDS):
+                with open(os.path.join(out_dirs[exp], f"test_{seed}.pkl"), "rb") as f:
+                    records.append(pickle.load(f)["results"])
+            coords = [x for rec in records for r in rec for k in ("center_x", "center_y",
+                                                                  "width", "height") for x in r[k]]
+            legal = all(0.0 <= x <= 1.0 for x in coords) and len(coords) > 0
+            dh_ok = exp != "icvt" or set(widths) == {25}
+            fails.check(n == want(K1=k1 * CLI_SEEDS) and legal and dh_ok
+                        and [len(r) for r in records] == [CLI_BATCH] * CLI_SEEDS,
+                        f"baselines cli.inference {exp}: launches {n} (want K1 "
+                        f"{k1 * CLI_SEEDS}), records {[len(r) for r in records]}, coordinates "
+                        f"in [0, 1]={legal}, " + ", ".join(
+                            f"seed {s} {ms:.3f} ms per sample" for s, ms in
+                            summary["ms_per_sample"].items()) + f" ({card})")
+        argv = ["--input-dir", out_dirs["cglgan"], "--job-dir", os.path.join(tmp, "job_cglgan"),
+                "--device", "cuda", "--cache-dir", os.path.join(tmp, "eval")]
+        with contextlib.redirect_stdout(io.StringIO()):
+            scores, n = counted(lambda: evaluate.main(argv))
+        bad = [k for k in SCORE_KEYS if not math.isfinite(scores[k]["mean"])
+               and k not in NAN_ALLOWED]
+        k1 = 4 * (1 + CLI_SEEDS)  # FIDNet over the ground truth, then each seed's pickle
+        fails.check(n == want(K1=k1) and list(scores) == SCORE_KEYS and not bad,
+                    f"baselines cli.evaluate cglgan on the card: launches {n} (want K1 {k1}), "
+                    f"keys {list(scores) == SCORE_KEYS}, not finite: {bad}")
+    print(f"  baselines phase {time.perf_counter() - t0:.1f} s", flush=True)
     return counted.totals
 
 
@@ -1629,6 +1858,8 @@ def main() -> int:
     for kid, n in run_cli(torch, fails, smi).items():
         launches[kid] += n
     for kid, n in run_zoo(torch, fails, smi).items():
+        launches[kid] += n
+    for kid, n in run_baselines(torch, fails, smi).items():
         launches[kid] += n
     for kid, n in run_train(torch, tok, fails, smi).items():
         launches[kid] += n

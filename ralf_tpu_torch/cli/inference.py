@@ -1,6 +1,5 @@
 """Batch inference entry point, the counterpart of `ralf_tpu/cli/inference.py`
-for the `autoreg`, `ralf`, `maskgit`, `layoutdm`, `layoutdm_ra` and
-`vqdiffusion` presets:
+for every preset:
 
     python -m ralf_tpu_torch.cli.inference --job-dir tmp/jobs/ralf_pku \\
         --cond uncond --split test --num-seeds 3
@@ -15,7 +14,12 @@ relation table, the cached retrieval table with the dynamic top-k rule,
 the frozen-FIDNet gallery table), decodes every canvas for each seed and
 writes, per (split, seed), the same files as JAX: `{split}_{seed}.pkl`
 (the per-sample layout records), `{split}_{seed}_violation.csv`, and the
-"ms per sample" line.  An existing pickle is skipped.
+"ms per sample" line.  An existing pickle is skipped.  The generators with
+no tokenizer (`cglgan`, `cglgan_ra`, `dsgan`, `dsgan_ra`, `icvt`,
+`retriever`) take the batch and the seed's numpy rng, `gen.sample(batch,
+rng)`, and count no violations, as in JAX; the GANs' task is the job's
+`auxiliary_task` (`--cond` names the output directory), and the retriever
+has no checkpoint.
 
 It runs on the card (`--device cuda`, the default, which raises without
 CUDA) or on the CPU with `--device cpu`.  Per seed the numpy rng of the
@@ -195,11 +199,13 @@ def main(argv=None) -> dict:
 
     # the precomputed relation clauses index the elements in sorted order:
     # valid only under deterministic element order
-    if args.cond == "relation" and set(cfg.transforms) <= {"image", "sort_label",
-                                                          "sort_lexicographic"}:
+    # (the AR family's table, as in JAX: the zoo describes the batch's own layouts)
+    if (args.cond == "relation" and hasattr(gen, "relationships_table")
+            and set(cfg.transforms) <= {"image", "sort_label", "sort_lexicographic"}):
         gen.relationships_table = cache_mod.load_relationships(cfg.cache_dir, cfg.dataset.name)
 
-    load_generator_params(gen, args.job_dir, args.ckpt, args.params)
+    if cfg.experiment != "retriever":  # the retriever has no parameters and no checkpoint
+        load_generator_params(gen, args.job_dir, args.ckpt, args.params)
 
     needs_retrieval = cfg.experiment == "ralf" or cfg.generator_kwargs.get("with_retrieval")
     retriever = feats_table = None
@@ -249,16 +255,21 @@ def main(argv=None) -> dict:
         t_total, n_total = 0.0, 0
         for batch in batches:
             t0 = time.perf_counter()
-            cond, _ = gen.build_condition(batch, rng, task=args.cond)
-            generator = torch.Generator(device=dev).manual_seed(seed * 2**32 + len(results))
-            with torch.inference_mode():
-                layout, seq = gen.sample(cond, cfg.sampling, generator, return_tokens=True,
-                                         **extra)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            v = calculate_violation(cond, seq, layout, tokenizer)
-            violations["total"] += v["total"]
-            violations["viorated"] += v["viorated"]
+            if tokenizer is None:  # GANs, ICVT, the retriever: one call on the batch
+                layout = gen.sample(batch, rng)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            else:
+                cond, _ = gen.build_condition(batch, rng, task=args.cond)
+                generator = torch.Generator(device=dev).manual_seed(seed * 2**32 + len(results))
+                with torch.inference_mode():
+                    layout, seq = gen.sample(cond, cfg.sampling, generator, return_tokens=True,
+                                             **extra)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                v = calculate_violation(cond, seq, layout, tokenizer)
+                violations["total"] += v["total"]
+                violations["viorated"] += v["viorated"]
             t_total += time.perf_counter() - t0
             n_total += layout.label.shape[0]
             results.extend(layout_to_records(layout, batch.get("id")))

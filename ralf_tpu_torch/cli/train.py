@@ -13,12 +13,15 @@ for every canvas of the train split from the others (`is_train_split`),
 through the cached top-k tables where the cache dir holds them; FIDNet runs
 on the B*K retrieved layouts in each step, as in JAX.
 
+`retriever` has nothing to train: as in JAX, the job dir's `config.json`
+is the whole job (`cli.inference` builds the gallery from the train split).
+
 It runs on the card (`--device cuda`, the default, which raises without
 CUDA) or on the CPU with `--device cpu`.  These raise, naming the item of
 ROADMAP.md Queue A that ports them: MaskGIT and the diffusion presets (item
-13, the zoo's training), the GAN presets (item 14), `icvt` and
-`retriever` (item 15), and from `Trainer`, `train.gallery_shards > 1`
-(item 10) and `model.dtype=bfloat16` (item 11).
+13, the zoo's training), the GAN presets (item 14b), `icvt` (item 15b), and
+from `Trainer`, `train.gallery_shards > 1` (item 10) and
+`model.dtype=bfloat16` (item 11).
 """
 
 from __future__ import annotations
@@ -80,11 +83,10 @@ def main(argv=None) -> str:
     dev = resolve_device(args.device)
     cfg = build_config(args.experiment, args.overrides)
     generator = EXPERIMENTS[cfg.experiment]["generator"]
-    if generator not in ("autoreg", "ralf"):
-        item = UNPORTED.get(generator, 13)  # maskgit, layoutdm: the zoo's training
+    if generator in UNPORTED:
         raise NotImplementedError(
             f"experiment {cfg.experiment!r}: the port trains 'autoreg' and 'ralf'; training "
-            f"{generator!r} comes with ROADMAP.md Queue A item {item}")
+            f"{generator!r} comes with ROADMAP.md Queue A item {UNPORTED[generator]}")
     cfg.dataset = DatasetConfig(name=args.dataset, data_dir=args.data_dir)
     cfg.auxiliary_task = args.task
     cfg.debug = args.debug
@@ -104,6 +106,10 @@ def main(argv=None) -> str:
     if args.debug:
         cfg.train.epochs = 1
     cfg.save(cfg.train.job_dir)
+    if generator == "retriever":  # non-learnable: the saved config is the whole job
+        print(f"done: {cfg.train.job_dir} (retriever is non-learnable; config saved, no "
+              "checkpoint needed)")
+        return cfg.train.job_dir
 
     train_ds, val_ds, _ = build_datasets(cfg)
     tokenizer = build_tokenizer(cfg)
@@ -112,7 +118,8 @@ def main(argv=None) -> str:
     # relation task: the precomputed clause table indexes elements in the
     # canonical sorted order, so it applies to deterministic-order pipelines
     deterministic_order = set(cfg.transforms) <= {"image", "sort_label", "sort_lexicographic"}
-    if args.task in ("relation", "multitask") and deterministic_order:
+    if (args.task in ("relation", "multitask") and deterministic_order
+            and hasattr(gen, "relationships_table")):  # the AR family's, as in JAX
         gen.relationships_table = cache_mod.load_relationships(cfg.cache_dir, cfg.dataset.name)
 
     image_dtype = np.uint8 if args.uint8_images else np.float32

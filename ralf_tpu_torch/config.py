@@ -5,10 +5,9 @@ generator.
 
 A job's config serializes to `job_dir/config.json` in the JAX package's
 format, so each package loads what the other saved.  `build_generator`
-builds the `autoreg`, `ralf`, `maskgit`, `layoutdm`, `layoutdm_ra` and
-`vqdiffusion` presets (on `device`, the card by default); the GAN presets
-(ROADMAP.md Queue A item 14), `icvt` and `retriever` (item 15) raise
-NotImplementedError.
+builds every preset (on `device`, the card by default); `UNPORTED` names
+the ROADMAP.md Queue A item that ports the training of the presets
+`cli.train` does not train yet.
 """
 
 from __future__ import annotations
@@ -214,8 +213,8 @@ def build_tokenizer(cfg: FrameworkConfig) -> Optional[LayoutSequenceTokenizer]:
     return LayoutSequenceTokenizer(TokenizerConfig(**tk))
 
 
-# the presets not ported yet, by generator, and the ROADMAP.md item that ports them
-UNPORTED = {"cglgan": 14, "dsgan": 14, "icvt": 15, "retriever": 15}
+# the generators whose training is not ported yet, and the ROADMAP.md item that ports it
+UNPORTED = {"maskgit": "13", "layoutdm": "13", "cglgan": "14b", "dsgan": "14b", "icvt": "15b"}
 
 
 def build_generator(cfg: FrameworkConfig, tokenizer=None, device="cuda"):
@@ -242,9 +241,27 @@ def build_generator(cfg: FrameworkConfig, tokenizer=None, device="cuda"):
         from ralf_tpu_torch.models.diffusion import LayoutDMGenerator
 
         return LayoutDMGenerator(tokenizer, gcfg, image_hw=hw, **common, **kw)
-    raise NotImplementedError(
-        f"experiment {cfg.experiment!r} (generator {name!r}) is not ported yet: "
-        f"ROADMAP.md Queue A item {UNPORTED[name]}")
+    S = cfg.dataset.max_seq_length
+    if name == "cglgan":
+        from ralf_tpu_torch.models.cgl_gan import CGLGANGenerator
+
+        return CGLGANGenerator(cfg.dataset.num_labels, gcfg, cfg.auxiliary_task, S, hw,
+                               **common, **kw)
+    if name == "dsgan":
+        from ralf_tpu_torch.models.dsgan import DSGANGenerator
+
+        return DSGANGenerator(cfg.dataset.num_labels, gcfg, cfg.auxiliary_task, S, hw,
+                              **common, **kw)
+    if name == "icvt":
+        from ralf_tpu_torch.models.icvt import ICVTGenerator
+
+        return ICVTGenerator(cfg.dataset.num_labels, gcfg, max_seq_length=S, image_hw=hw,
+                             **common, **kw)
+    if name == "retriever":
+        from ralf_tpu_torch.models.retriever_baseline import RetrieverGenerator
+
+        return RetrieverGenerator.build(build_datasets(cfg)[0], device=device, **kw)
+    raise ValueError(f"unknown generator: {name}")
 
 
 def build_datasets(cfg: FrameworkConfig):

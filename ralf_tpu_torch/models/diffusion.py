@@ -426,7 +426,6 @@ class LayoutDMGenerator:
         self.aux_w = auxiliary_loss_weight  # the training loss's (item 13); JAX configs pass it
         self.with_retrieval = with_retrieval
         self.top_k = top_k
-        self.relationships_table: Optional[dict] = None
         self.diffusion = MaskAndReplaceDiffusion(tokenizer, num_timesteps, q_type, self.device)
         self.core = build_core(lambda: LayoutDMCore(
             tokenizer.N_total, num_timesteps, pos_emb, cfg, with_retrieval, tokenizer.N_label,
@@ -443,7 +442,7 @@ class LayoutDMGenerator:
         task = self.task if task is None else normalize_task(task)
         return get_condition(batch["layout"], batch["image"], task, self.tokenizer, rng,
                              ids=batch.get("id"), retrieved=batch.get("retrieved"),
-                             relationships=self.relationships_table)
+                             relationships=getattr(self, "relationships_table", None))
 
     def sample(self, cond: Condition, sampling: SamplingConfig,
                generator: Optional[torch.Generator] = None, return_tokens: bool = False):

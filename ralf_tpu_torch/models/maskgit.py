@@ -94,7 +94,6 @@ class MaskGITGenerator:
         self.num_timesteps = num_timesteps
         self.image_hw = image_hw
         self.task = "uncond"
-        self.relationships_table: Optional[dict] = None
         self.mask_id = tokenizer.name_to_id("mask")
         self.pad_id = tokenizer.pad_id
         self.core = build_core(lambda: MaskGITCore(tokenizer.N_total, cfg), cfg, self.device, seed)
@@ -106,7 +105,7 @@ class MaskGITGenerator:
         task = self.task if task is None else normalize_task(task)
         return get_condition(batch["layout"], batch["image"], task, self.tokenizer, rng,
                              ids=batch.get("id"), retrieved=batch.get("retrieved"),
-                             relationships=self.relationships_table)
+                             relationships=getattr(self, "relationships_table", None))
 
     @torch.inference_mode()
     def encode_memory(self, cond: Condition) -> torch.Tensor:

@@ -59,6 +59,13 @@
 //     registers cannot hold the row): pass A keeps each row's running max
 //     over kept keys and its rescaled sum, pass B recomputes the scores and
 //     forms p.
+// Other head widths up to 64 (ICVT's image encoder: E=200, H=8, Dh=25) run
+// the same kernels, bf16 and fp32, on heads padded with zero columns to the
+// next of 32 and 64 (the kPad instances): zero columns change neither q . k
+// nor p . v, so the tensor-core tiles run as at 32.  A head then starts at
+// no 16-byte boundary (col = h * Dh, 50 bytes a head in bf16), so its rows
+// are copied element by element rather than by cp.async, and only its Dh
+// real columns are stored.  The 32 and 64 instances are unchanged.
 // A row with no kept key takes s = m = 0, w = 1 for j < S and l = S: p =
 // T(1/S), the mean of V.  1 / l multiplies (within an ulp of the division
 // before rounding); expf stays (ex2.approx's few ulps flip roundings of p
@@ -198,12 +205,14 @@ __device__ __forceinline__ bool keep_weights(const float* bias, int S, float* w_
   return !__syncthreads_or(kept);
 }
 
-// Rows q0.. of one head's output: out[(row0 + q0 + r) * E + col + d].
-template <typename T, int DH>
+// Rows q0.. of one head's output: out[(row0 + q0 + r) * E + col + d]; a
+// padded head (kPad) stores its dh real columns only.
+template <typename T, int DH, bool kPad = false>
 __device__ __forceinline__ void store_rows(const float* acc, T* out, size_t row0, int q0, int S,
-                                           int E, int col) {
+                                           int E, int col, int dh = DH) {
   constexpr int kGroups = kThreads / DH;
   const int d = threadIdx.x % DH, rg = threadIdx.x / DH;
+  if (kPad && d >= dh) return;
 #pragma unroll
   for (int a = 0; a < kQT / kGroups; ++a) {
     const int r = rg + kGroups * a;
@@ -218,7 +227,9 @@ size_t k1_smem(int S) {
          static_cast<size_t>(kQT) * S * sizeof(float);
 }
 
-template <typename T, int DH>
+// kPad: a head of dh < DH columns (dh = E / nhead, nhead = gridDim.y) held
+// with zero columns dh..DH-1, which change neither q . k nor p . v.
+template <typename T, int DH, bool kPad>
 __global__ void __launch_bounds__(kThreads) encoder_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ key_bias, T* __restrict__ out, int S, int E) {
@@ -232,12 +243,14 @@ __global__ void __launch_bounds__(kThreads) encoder_attention_kernel(
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQT;
   const int tid = threadIdx.x;
   const size_t row0 = static_cast<size_t>(b) * S;
-  const int col = h * DH;
+  const int dh = kPad ? E / static_cast<int>(gridDim.y) : DH;
+  const int col = h * dh;
 
   const bool dead = keep_weights(key_bias == nullptr ? nullptr : key_bias + row0, S, w_s);
   for (int i = tid; i < kQT * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
-    q_s[r * ld + d] = q0 + r < S ? q[(row0 + q0 + r) * E + col + d] : from_f32<T>(0.f);
+    q_s[r * ld + d] = q0 + r < S && (!kPad || d < dh) ? q[(row0 + q0 + r) * E + col + d]
+                                                      : from_f32<T>(0.f);
   }
   // pass 1: the scores of every key (a dead row needs none)
   for (int j0 = 0; j0 < S && !dead; j0 += kKT) {
@@ -245,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) encoder_attention_kernel(
     __syncthreads();  // q_s is written / the previous tile is consumed
     for (int i = tid; i < n * DH; i += kThreads) {
       const int j = i / DH, d = i % DH;
-      kv_s[j * ld + d] = k[(row0 + j0 + j) * E + col + d];
+      kv_s[j * ld + d] = !kPad || d < dh ? k[(row0 + j0 + j) * E + col + d] : from_f32<T>(0.f);
     }
     __syncthreads();
     tile_scores<T, DH>(q_s, ld, kv_s, ld, n, sc + j0, S);
@@ -260,12 +273,12 @@ __global__ void __launch_bounds__(kThreads) encoder_attention_kernel(
     __syncthreads();  // the probabilities are written / the previous tile is consumed
     for (int i = tid; i < n * DH; i += kThreads) {
       const int j = i / DH, d = i % DH;
-      kv_s[j * ld + d] = v[(row0 + j0 + j) * E + col + d];
+      kv_s[j * ld + d] = !kPad || d < dh ? v[(row0 + j0 + j) * E + col + d] : from_f32<T>(0.f);
     }
     __syncthreads();
     tile_pv<T, DH>(sc + j0, S, kv_s, ld, n, acc);
   }
-  store_rows<T, DH>(acc, out, row0, q0, S, E, col);
+  store_rows<T, DH, kPad>(acc, out, row0, q0, S, E, col, dh);
 }
 
 // ---- K1 in bf16 on the tensor cores (see the top of the file) ----
@@ -322,10 +335,44 @@ __device__ __forceinline__ void load_head_rows(__nv_bfloat16* dst, const __nv_bf
   }
 }
 
-template <int DH>
-__device__ __forceinline__ void load_head_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               size_t row0, int r0, int n, int S, int E, int col) {
-  load_head_rows<DH>(dst, src, row0, r0, n, S, E, col, threadIdx.x, blockDim.x);
+// load_head_rows for K1 at any head width: with kPad a head of dh < DH
+// columns starts at no 16-byte boundary (col = h * dh), so its rows are
+// copied element by element, with zero columns dh..DH-1 (they change
+// neither q . k nor p . v), kPadBatch loads of a thread in flight before
+// their stores (plain loads block, where cp.async does not); else by
+// cp.async.
+constexpr int kPadBatch = 8;
+
+template <int DH, bool kPad>
+__device__ __forceinline__ void load_head(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          size_t row0, int r0, int n, int S, int E, int col,
+                                          int dh, int tid, int nthreads) {
+  if constexpr (kPad) {
+    const int total = n * DH;
+    for (int i0 = tid; i0 < total; i0 += nthreads * kPadBatch) {
+      __nv_bfloat16 x[kPadBatch];
+#pragma unroll
+      for (int u = 0; u < kPadBatch; ++u) {
+        const int i = i0 + u * nthreads, r = i / DH, d = i % DH;
+        x[u] = i < total && r0 + r < S && d < dh ? src[(row0 + r0 + r) * E + col + d]
+                                                 : __float2bfloat16(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kPadBatch; ++u) {
+        const int i = i0 + u * nthreads;
+        if (i < total) dst[(i / DH) * mma_ld<DH>() + i % DH] = x[u];
+      }
+    }
+  } else {
+    load_head_rows<DH>(dst, src, row0, r0, n, S, E, col, tid, nthreads);
+  }
+}
+
+template <int DH, bool kPad>
+__device__ __forceinline__ void load_head(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          size_t row0, int r0, int n, int S, int E, int col,
+                                          int dh) {
+  load_head<DH, kPad>(dst, src, row0, r0, n, S, E, col, dh, threadIdx.x, blockDim.x);
 }
 
 // The Q fragments of the 16 rows at q (stride mma_ld): matrices rows 0-7 |
@@ -375,10 +422,12 @@ __device__ __forceinline__ void chunk_pv(const float (&p0)[4], const float (&p1)
   }
 }
 
-// The rows g and g + 8 of a warp's [16, DH] output, rounded, to out.
-template <int DH>
+// The rows g and g + 8 of a warp's [16, DH] output, rounded, to out; a
+// padded head (kPad) stores its dh real columns, one element at a time.
+template <int DH, bool kPad = false>
 __device__ __forceinline__ void store_frag_rows(const float (&o)[DH / 8][4], __nv_bfloat16* out,
-                                                size_t row0, int qr0, int S, int E, int col) {
+                                                size_t row0, int qr0, int S, int E, int col,
+                                                int dh = DH) {
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -387,7 +436,14 @@ __device__ __forceinline__ void store_frag_rows(const float (&o)[DH / 8][4], __n
     __nv_bfloat16* dst = out + (row0 + qr) * E + col + 2 * c;
 #pragma unroll
     for (int n = 0; n < DH / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dst + n * 8) = pack_bf16(o[n][2 * r], o[n][2 * r + 1]);
+      if constexpr (kPad) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (n * 8 + 2 * c + e < dh) dst[n * 8 + e] = __float2bfloat16(o[n][2 * r + e]);
+        }
+      } else {
+        *reinterpret_cast<uint32_t*>(dst + n * 8) = pack_bf16(o[n][2 * r], o[n][2 * r + 1]);
+      }
     }
   }
 }
@@ -434,20 +490,21 @@ size_t k1_rows_smem(int S) {
 // flight behind the current one in its two buffers of q_s [2][2][16][ld].
 // o_x [2][4][16][ox_ld] and red_m, red_l [2][4][16] are its scratch.  The
 // output rows go to out[(row0 + r) * E + col ..] (K6 passes its own output
-// as q: a tile's rows are read before they are written).
-template <int DH>
+// as q: a tile's rows are read before they are written).  kPad: a head of
+// dh < DH columns, loaded and stored element by element (`load_head`).
+template <int DH, bool kPad = false>
 __device__ __forceinline__ void rows_attention(const __nv_bfloat16* q, __nv_bfloat16* q_s,
                                                const __nv_bfloat16* k_s, const __nv_bfloat16* v_s,
                                                const float* w_s, bool dead, float* o_x,
                                                float* red_m, float* red_l, __nv_bfloat16* out,
-                                               size_t row0, int S, int E, int col) {
+                                               size_t row0, int S, int E, int col, int dh = DH) {
   constexpr int ld = mma_ld<DH>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rg = warp / kKeySplit, ks = warp % kKeySplit;
   const int tg = threadIdx.x - rg * kGroupThreads;  // thread of its row group
   const int g = lane >> 2, c = lane & 3;
   __nv_bfloat16* q_g = q_s + rg * 2 * 16 * ld;  // the group's two Q tiles
-  load_head_rows<DH>(q_g, q, row0, rg * 16, 16, S, E, col, tg, kGroupThreads);
+  load_head<DH, kPad>(q_g, q, row0, rg * 16, 16, S, E, col, dh, tg, kGroupThreads);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();  // K, V, w and each group's first Q tile landed
@@ -462,8 +519,8 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* q, __nv_bflo
       group_sync(rg);  // this tile's Q landed; the last tile's o_x, red_* are read
     }
     if (t + kRowGroups < tiles) {
-      load_head_rows<DH>(q_g + (buf ^ 1) * 16 * ld, q, row0, q0 + kRowGroups * 16, 16, S, E, col, tg,
-                         kGroupThreads);
+      load_head<DH, kPad>(q_g + (buf ^ 1) * 16 * ld, q, row0, q0 + kRowGroups * 16, 16, S, E, col,
+                          dh, tg, kGroupThreads);
       cp_async_commit();
     }
     float s[2 * kRowsChunks][4];
@@ -571,12 +628,18 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* q, __nv_bflo
         acc.x += x.x;
         acc.y += x.y;
       }
-      *reinterpret_cast<uint32_t*>(out + (row0 + q0 + rr) * E + col + 2 * cp) = pack_bf16(acc.x, acc.y);
+      __nv_bfloat16* dst = out + (row0 + q0 + rr) * E + col + 2 * cp;
+      if constexpr (kPad) {
+        if (2 * cp < dh) dst[0] = __float2bfloat16(acc.x);
+        if (2 * cp + 1 < dh) dst[1] = __float2bfloat16(acc.y);
+      } else {
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc.x, acc.y);
+      }
     }
   }
 }
 
-template <int DH>
+template <int DH, bool kPad>
 __global__ void __launch_bounds__(kRowsThreads, 2) encoder_attention_rows_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
@@ -594,12 +657,14 @@ __global__ void __launch_bounds__(kRowsThreads, 2) encoder_attention_rows_kernel
 
   const int h = blockIdx.x, b = blockIdx.y;
   const size_t row0 = static_cast<size_t>(b) * S;
-  const int col = h * DH;
+  const int dh = kPad ? E / static_cast<int>(gridDim.x) : DH;  // gridDim.x = nhead
+  const int col = h * dh;
 
   const bool dead = mma_keep_weights(key_bias == nullptr ? nullptr : key_bias + row0, S, s16, w_s);
-  if (!dead) load_head_rows<DH>(k_s, k, row0, 0, s16, S, E, col);
-  load_head_rows<DH>(v_s, v, row0, 0, s16, S, E, col);
-  rows_attention<DH>(q, q_s, k_s, v_s, w_s, dead, o_x, red_m, red_l, out, row0, S, E, col);
+  if (!dead) load_head<DH, kPad>(k_s, k, row0, 0, s16, S, E, col, dh);
+  load_head<DH, kPad>(v_s, v, row0, 0, s16, S, E, col, dh);
+  rows_attention<DH, kPad>(q, q_s, k_s, v_s, w_s, dead, o_x, red_m, red_l, out, row0, S, E, col,
+                           dh);
 }
 
 // -- S > 384: recompute, two passes over K streamed in tiles --
@@ -623,7 +688,7 @@ size_t k1_rec_smem(int S) {
          static_cast<size_t>(tiles) * kRecK * sizeof(float);
 }
 
-template <int DH>
+template <int DH, bool kPad>
 __global__ void __launch_bounds__(kRecThreads) encoder_attention_rec_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
@@ -641,7 +706,8 @@ __global__ void __launch_bounds__(kRecThreads) encoder_attention_rec_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = lane & 3;
   const size_t row0 = static_cast<size_t>(b) * S;
-  const int col = h * DH;
+  const int dh = kPad ? E / static_cast<int>(gridDim.y) : DH;  // gridDim.y = nhead
+  const int col = h * dh;
 
   const bool dead =
       mma_keep_weights(key_bias == nullptr ? nullptr : key_bias + row0, S, tiles * kRecK, w_s);
@@ -650,10 +716,10 @@ __global__ void __launch_bounds__(kRecThreads) encoder_attention_rec_kernel(
   const int visits = 2 * tiles;
   auto issue = [&](int t) {
     const int j = t % tiles, slot = t & 1;
-    if (!dead) load_head_rows<DH>(k_s + slot * kRecK * ld, k, row0, j * kRecK, kRecK, S, E, col);
-    if (t >= tiles) load_head_rows<DH>(v_s + slot * kRecK * ld, v, row0, j * kRecK, kRecK, S, E, col);
+    if (!dead) load_head<DH, kPad>(k_s + slot * kRecK * ld, k, row0, j * kRecK, kRecK, S, E, col, dh);
+    if (t >= tiles) load_head<DH, kPad>(v_s + slot * kRecK * ld, v, row0, j * kRecK, kRecK, S, E, col, dh);
   };
-  load_head_rows<DH>(q_s, q, row0, q0, kRecQ, S, E, col);
+  load_head<DH, kPad>(q_s, q, row0, q0, kRecQ, S, E, col, dh);
   issue(0);
   cp_async_commit();
 
@@ -739,7 +805,7 @@ __global__ void __launch_bounds__(kRecThreads) encoder_attention_rec_kernel(
     __syncthreads();  // the slot is consumed before visit t + 2 refills it
   }
   cp_async_wait<0>();
-  if (active) store_frag_rows<DH>(o, out, row0, q0 + warp * 16, S, E, col);
+  if (active) store_frag_rows<DH, kPad>(o, out, row0, q0 + warp * 16, S, E, col, dh);
 }
 
 // K6 shared memory: q_s [Sq][ld] (Sq = S rounded up to kQT, zero rows past
@@ -1001,12 +1067,12 @@ __global__ void __launch_bounds__(kRowsThreads, 2) encoder_self_attention_rows_k
   rows_attention<DH>(out, q_s, k_s, v_s, w_s, dead, o_x, red_m, red_l, out, row0, S, E, col);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool kPad = false>
 int launch_k1(const void* q, const void* k, const void* v, const float* key_bias, void* out,
               int B, int S, int E, int nhead, cudaStream_t stream) {
-  auto kernel = encoder_attention_kernel<T, DH>;
+  auto kernel = encoder_attention_kernel<T, DH, kPad>;
   const size_t smem = k1_smem<T, DH>(S);
-  if (int err = allow_smem_once<encoder_attention_kernel<T, DH>>(smem)) return err;
+  if (int err = allow_smem_once<encoder_attention_kernel<T, DH, kPad>>(smem)) return err;
   const dim3 grid((S + kQT - 1) / kQT, nhead, B);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                            static_cast<const T*>(v), key_bias,
@@ -1014,7 +1080,7 @@ int launch_k1(const void* q, const void* k, const void* v, const float* key_bias
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
+template <int DH, bool kPad = false>
 int launch_k1_mma(const void* q, const void* k, const void* v, const float* key_bias, void* out,
                   int B, int S, int E, int nhead, cudaStream_t stream) {
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
@@ -1023,14 +1089,14 @@ int launch_k1_mma(const void* q, const void* k, const void* v, const float* key_
   auto* ob = static_cast<__nv_bfloat16*>(out);
   if (S <= kRowsMaxS) {
     const size_t smem = k1_rows_smem<DH>(S);
-    if (int err = allow_smem_once<encoder_attention_rows_kernel<DH>>(smem)) return err;
-    encoder_attention_rows_kernel<DH>
+    if (int err = allow_smem_once<encoder_attention_rows_kernel<DH, kPad>>(smem)) return err;
+    encoder_attention_rows_kernel<DH, kPad>
         <<<dim3(nhead, B), kRowsThreads, smem, stream>>>(qb, kb, vb, key_bias, ob, S, E);
   } else {
     const size_t smem = k1_rec_smem<DH>(S);
-    if (int err = allow_smem_once<encoder_attention_rec_kernel<DH>>(smem)) return err;
-    encoder_attention_rec_kernel<DH><<<dim3((S + kRecQ - 1) / kRecQ, nhead, B), kRecThreads, smem,
-                                       stream>>>(qb, kb, vb, key_bias, ob, S, E);
+    if (int err = allow_smem_once<encoder_attention_rec_kernel<DH, kPad>>(smem)) return err;
+    encoder_attention_rec_kernel<DH, kPad><<<dim3((S + kRecQ - 1) / kRecQ, nhead, B), kRecThreads,
+                                             smem, stream>>>(qb, kb, vb, key_bias, ob, S, E);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1070,17 +1136,23 @@ int launch_k6(const void* x, const void* wqkv, const float* key_bias, int bias_h
   return static_cast<int>(cudaGetLastError());
 }
 
-// fp32 on the CUDA cores, bf16 on the tensor cores
+// fp32 on the CUDA cores, bf16 on the tensor cores; a head width dh below
+// 64 other than 32 runs padded with zero columns to the next of 32 and 64
 template <typename T>
 int dispatch_k1(const void* q, const void* k, const void* v, const float* key_bias, void* out,
                 int B, int S, int E, int nhead, cudaStream_t st) {
+  if (nhead < 1 || E % nhead) return static_cast<int>(cudaErrorInvalidValue);
   const int dh = E / nhead;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (dh == 32) return launch_k1_mma<32>(q, k, v, key_bias, out, B, S, E, nhead, st);
     if (dh == 64) return launch_k1_mma<64>(q, k, v, key_bias, out, B, S, E, nhead, st);
+    if (dh < 32) return launch_k1_mma<32, true>(q, k, v, key_bias, out, B, S, E, nhead, st);
+    if (dh < 64) return launch_k1_mma<64, true>(q, k, v, key_bias, out, B, S, E, nhead, st);
   } else {
     if (dh == 32) return launch_k1<T, 32>(q, k, v, key_bias, out, B, S, E, nhead, st);
     if (dh == 64) return launch_k1<T, 64>(q, k, v, key_bias, out, B, S, E, nhead, st);
+    if (dh < 32) return launch_k1<T, 32, true>(q, k, v, key_bias, out, B, S, E, nhead, st);
+    if (dh < 64) return launch_k1<T, 64, true>(q, k, v, key_bias, out, B, S, E, nhead, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -110,9 +110,11 @@ def encoder_attention_plain(
     return attend_plain(q, k, v, nhead, keep_w)
 
 
-def _check_heads(what: str, B: int, S: int, E: int, nhead: int) -> None:
-    if E % nhead or E // nhead not in (32, 64):
-        raise ValueError(f"{what}: head width E/nhead must be 32 or 64, got {E}/{nhead}")
+def _check_heads(what: str, B: int, S: int, E: int, nhead: int, any_width: bool = False) -> None:
+    """K6 takes head widths 32 and 64; K1 (`any_width`) every width up to 64."""
+    if nhead < 1 or E % nhead or not (E // nhead <= 64 if any_width else E // nhead in (32, 64)):
+        need = "at most 64" if any_width else "32 or 64"
+        raise ValueError(f"{what}: head width E/nhead must be {need}, got {E}/{nhead}")
     if not 1 <= B <= 65535 or S < 1:
         raise ValueError(f"{what}: need 1 <= B <= 65535 and S >= 1, got B={B}, S={S}")
 
@@ -122,7 +124,10 @@ def encoder_attention(
     key_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K1: multi-head softmax(q k^T, keep weights exp(key_bias)) v over
-    [B, S, E] -> [B, S, E]; gradients to q, k and v."""
+    [B, S, E] -> [B, S, E], any head width E/nhead up to 64; gradients to
+    q, k and v.  Head widths 32 and 64 copy rows by 16-byte cp.async (in
+    bf16 q, k, v must start on a 16-byte boundary); the others run padded
+    with zero columns to the next of 32 and 64, copied element by element."""
     forward = encoder_attention_plain if q.device.type == "cpu" else _launch_encoder_attention
     kb = None if key_bias is None else key_bias.detach()
     return _build.RecomputedBackward.apply(
@@ -139,13 +144,13 @@ def _launch_encoder_attention(q, k, v, nhead, key_bias):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k, v must share one dtype")
     B, S, E = q.shape
-    _check_heads(what, B, S, E, nhead)
+    _check_heads(what, B, S, E, nhead, any_width=True)
     if S > K1_MAX_S:
         raise ValueError(f"{what}: S={S} above {K1_MAX_S} (the score row lives in shared memory)")
     if key_bias is not None and (key_bias.dtype != torch.float32 or key_bias.shape != (B, S)):
         raise ValueError(f"{what}: key_bias must be float32 [B, S]")
     code = _build.dtype_code(q, what)
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and E // nhead in (32, 64):  # the routes that copy by cp.async
         _build.require_aligned(what, q, k, v)
     lib = _build.library("encoder_attention", _SIGNATURES)
     out = torch.empty_like(q)

@@ -8,6 +8,14 @@ after the flax tree, so the leaf at `a/b/c/kernel` lands in submodule
 
   * nn.Linear:    kernel [in, out] -> weight [out, in]; bias -> bias
   * nn.Conv2d:    kernel HWIO -> weight OIHW; bias -> bias
+  * nn.Conv1d:    kernel [k, in, out] -> weight [out, in, k]; bias -> bias
+  * nn.LSTM:      the flax cells `l{layer}_d{d}` (d 1: the reverse direction,
+                  torch's `_reverse`) of `OptimizedLSTMCell`s, one Dense per
+                  gate: `i{g}/kernel` (no bias) -> rows g of
+                  weight_ih_l{layer}, `h{g}/kernel`, `h{g}/bias` -> rows g of
+                  weight_hh_l{layer}, bias_hh_l{layer}, for the gates g in
+                  torch's packed order i, f, g, o; bias_ih_l{layer} takes
+                  zeros (export adds it into the h biases: the two sum)
   * nn.LayerNorm: scale -> weight; bias -> bias
   * nn.Embedding: embedding -> weight
   * BatchNorm:    scale -> weight; bias -> bias; batch_stats mean/var ->
@@ -28,6 +36,8 @@ restored TrainState with numpy alone (README.md, "The port's CLIs").
 from __future__ import annotations
 
 import os
+import re
+from collections import Counter
 
 import numpy as np
 import torch
@@ -38,6 +48,7 @@ from ralf_tpu_torch.models.resnet import BatchNorm
 _RENAMES = {
     nn.Linear: {"kernel": "weight", "bias": "bias"},
     nn.Conv2d: {"kernel": "weight", "bias": "bias"},
+    nn.Conv1d: {"kernel": "weight", "bias": "bias"},
     nn.LayerNorm: {"scale": "weight", "bias": "bias"},
     nn.Embedding: {"embedding": "weight"},
     BatchNorm: {"scale": "weight", "bias": "bias", "mean": "running_mean",
@@ -62,8 +73,37 @@ def _convert(mod: nn.Module, leaf: str, value: np.ndarray) -> tuple[str, np.ndar
                 value = value.T
             elif leaf == "kernel" and isinstance(mod, nn.Conv2d):
                 value = value.transpose(3, 2, 0, 1)
+            elif leaf == "kernel" and isinstance(mod, nn.Conv1d):
+                value = value.transpose(2, 1, 0)
             return names[leaf], value
     return leaf, value
+
+
+LSTM_GATES = "ifgo"  # torch's packing order of an LSTM's gates along the rows
+
+
+def _lstm_cell(cell: str) -> tuple[int, str]:
+    """`l{layer}_d{d}` -> (layer, torch's direction suffix)."""
+    m = re.fullmatch(r"l(\d+)_d([01])", cell)
+    if m is None:
+        raise KeyError(f"{cell!r} is not an LSTM cell l<layer>_d<0|1>")
+    return int(m.group(1)), ("", "_reverse")[int(m.group(2))]
+
+
+def _lstm_writes(name: str, lstm: nn.LSTM, cell: str, gate: str, leaf: str, value: np.ndarray):
+    """The (torch name, rows, value) writes of one flax LSTM leaf."""
+    layer, sfx = _lstm_cell(cell)
+    kind, g = gate[:1], gate[1:]
+    if kind not in ("i", "h") or g not in tuple(LSTM_GATES) or (kind, leaf) not in (
+            ("i", "kernel"), ("h", "kernel"), ("h", "bias")):
+        raise KeyError(f"no port tensor for JAX LSTM leaf {cell}/{gate}/{leaf}")
+    H = lstm.hidden_size
+    rows = slice(LSTM_GATES.index(g) * H, (LSTM_GATES.index(g) + 1) * H)
+    tensor = f"{name}.{'weight' if leaf == 'kernel' else 'bias'}_{kind}h_l{layer}{sfx}"
+    writes = [(tensor, rows, value.T if leaf == "kernel" else value)]
+    if kind == "i":  # flax's input Dense has no bias
+        writes.append((f"{name}.bias_ih_l{layer}{sfx}", rows, np.zeros(H, np.float32)))
+    return writes
 
 
 def load_jax_params(module: nn.Module, params: dict, batch_stats: dict | None = None) -> None:
@@ -71,11 +111,26 @@ def load_jax_params(module: nn.Module, params: dict, batch_stats: dict | None = 
     targets = dict(module.named_parameters())
     targets.update((n, b) for n, b in module.named_buffers()
                    if n.endswith(("running_mean", "running_var")))
+    lstms = {n: m for n, m in module.named_modules() if isinstance(m, nn.LSTM)}
     filled = set()
+    gates = Counter()  # an LSTM tensor is filled when its 4 gates are
     trees = [params] + ([batch_stats] if batch_stats else [])
     for tree in trees:
         for path, value in _leaves(tree):
             *mod_path, leaf = path
+            lstm = ".".join(mod_path[:-2])
+            if len(mod_path) >= 2 and lstm in lstms:
+                for full, rows, v in _lstm_writes(lstm, lstms[lstm], *mod_path[-2:], leaf, value):
+                    with torch.no_grad():
+                        dst = targets[full][rows]
+                        if tuple(dst.shape) != v.shape:
+                            raise ValueError(
+                                f"{full}: port shape {tuple(dst.shape)} != JAX {v.shape}")
+                        dst.copy_(torch.from_numpy(np.array(v)))
+                    gates[full] += 1
+                    if gates[full] == len(LSTM_GATES):
+                        filled.add(full)
+                continue
             try:
                 mod = module.get_submodule(".".join(mod_path))
             except AttributeError as e:
@@ -110,6 +165,12 @@ def flax_names(module: nn.Module) -> dict[str, tuple[str, ...]]:
     for full in tensors:
         *mod_path, name = full.split(".")
         mod = module.get_submodule(".".join(mod_path))
+        if isinstance(mod, nn.LSTM):  # weight_ih_l0 -> (..., 'l0_d0', 'i', 'kernel'): 4 gates
+            m = re.fullmatch(r"(weight|bias)_(i|h)h_l(\d+)(_reverse)?", name)
+            cell = f"l{m.group(3)}_d{int(m.group(4) is not None)}"
+            leaf = "kernel" if m.group(1) == "weight" else "bias"
+            out[full] = (*mod_path, cell, m.group(2), leaf)
+            continue
         leaf = next((names[name] for cls, names in _INVERSE.items()
                      if isinstance(mod, cls) and name in names), name)
         out[full] = (*mod_path, leaf)
@@ -123,8 +184,11 @@ def export_params(module: nn.Module) -> tuple[dict, dict]:
     batch_stats: dict = {}
     tensors = dict(module.named_parameters())
     tensors.update(module.named_buffers())
+    lstms = {n: m for n, m in module.named_modules() if isinstance(m, nn.LSTM)}
     for full, (*mod_path, leaf) in flax_names(module).items():
-        mod = module.get_submodule(".".join(mod_path))
+        mod = module.get_submodule(full.rpartition(".")[0])
+        if isinstance(mod, nn.LSTM):
+            continue  # below, a cell at a time
         # a copy: on the CPU .numpy() shares the module's storage, which
         # training then changes in place
         value = tensors[full].detach().float().cpu().numpy().copy()
@@ -132,11 +196,38 @@ def export_params(module: nn.Module) -> tuple[dict, dict]:
             value = value.T
         elif leaf == "kernel" and isinstance(mod, nn.Conv2d):
             value = value.transpose(2, 3, 1, 0)
+        elif leaf == "kernel" and isinstance(mod, nn.Conv1d):
+            value = value.transpose(2, 1, 0)
         tree = batch_stats if leaf in ("mean", "var") and isinstance(mod, BatchNorm) else params
         for p in mod_path:
             tree = tree.setdefault(p, {})
         tree[leaf] = np.ascontiguousarray(value)
+    for name, lstm in lstms.items():
+        tree = params
+        for p in name.split("."):
+            tree = tree.setdefault(p, {})
+        _export_lstm(lstm, tree)
     return params, batch_stats
+
+
+def _export_lstm(lstm: nn.LSTM, tree: dict) -> None:
+    """The flax cells of `lstm` into `tree`: per gate g, `i{g}/kernel` and
+    `h{g}/{kernel,bias}`, the two torch biases summed into the h bias."""
+    H = lstm.hidden_size
+
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    for layer in range(lstm.num_layers):
+        for d, sfx in enumerate(("", "_reverse")[: 1 + int(lstm.bidirectional)]):
+            w_ih, w_hh = (arr(getattr(lstm, f"weight_{k}_l{layer}{sfx}")) for k in ("ih", "hh"))
+            b = sum(arr(getattr(lstm, f"bias_{k}_l{layer}{sfx}")) for k in ("ih", "hh"))
+            cell = tree.setdefault(f"l{layer}_d{d}", {})
+            for gi, g in enumerate(LSTM_GATES):
+                rows = slice(gi * H, (gi + 1) * H)
+                cell[f"i{g}"] = {"kernel": np.ascontiguousarray(w_ih[rows].T)}
+                cell[f"h{g}"] = {"kernel": np.ascontiguousarray(w_hh[rows].T),
+                                 "bias": np.ascontiguousarray(b[rows])}
 
 
 def save_params_npz(path: str, params: dict, batch_stats: dict | None = None) -> None:

@@ -165,15 +165,30 @@ def test_build_generator_ports_autoreg_and_ralf_only():
         if cls is not None:
             assert isinstance(gen, cls) and gen.top_k == 16
     # the zoo's token models build too (tests/test_torch_port_maskgit.py and
-    # test_torch_port_diffusion.py); the rest raise, naming their ROADMAP item
+    # test_torch_port_diffusion.py), and so do the GANs, ICVT and the retriever
+    # (tests/test_torch_port_gan.py, test_torch_port_icvt.py), at the presets'
+    # other fields
+    from ralf_tpu_torch.models.cgl_gan import CGLGANGenerator
+    from ralf_tpu_torch.models.dsgan import DSGANGenerator
+    from ralf_tpu_torch.models.icvt import ICVTGenerator
+    from ralf_tpu_torch.models.retriever_baseline import RetrieverGenerator
+
     zoo = {"maskgit", "layoutdm", "layoutdm_ra", "vqdiffusion"}
-    items = {"cglgan": 14, "cglgan_ra": 14, "dsgan": 14, "dsgan_ra": 14, "icvt": 15,
-             "retriever": 15}
-    assert set(tconfig.EXPERIMENTS) - {"ralf", "autoreg"} - zoo == set(items)
-    for exp, item in sorted(items.items()):
-        cfg = tconfig.build_config(exp, ["allow_linear_fallback=true"])
-        with pytest.raises(NotImplementedError, match=f"Queue A item {item}$"):
-            tconfig.build_generator(cfg, tconfig.build_tokenizer(cfg), device="cpu")
+    baselines = {"cglgan": CGLGANGenerator, "cglgan_ra": CGLGANGenerator,
+                 "dsgan": DSGANGenerator, "dsgan_ra": DSGANGenerator, "icvt": ICVTGenerator,
+                 "retriever": RetrieverGenerator}
+    assert set(tconfig.EXPERIMENTS) - {"ralf", "autoreg"} - zoo == set(baselines)
+    tiny = ["model.d_model=40", "model.nhead=4", "model.num_encoder_layers=1",
+            "model.num_decoder_layers=1", "model.backbone=resnet18", "dataset.image_h=64",
+            "dataset.image_w=48", "synthetic_data=true", "debug=true"]
+    for exp, cls in sorted(baselines.items()):
+        cfg = tconfig.build_config(exp, tiny)
+        gen = tconfig.build_generator(cfg, tconfig.build_tokenizer(cfg), device="cpu")
+        assert type(gen) is cls and gen.device == torch.device("cpu") and gen.tokenizer is None
+        if exp != "retriever":
+            assert gen.image_hw == (64, 48) and gen.cfg.d_model == 40
+            assert getattr(gen, "with_retrieval", False) == exp.endswith("_ra")
+            assert not hasattr(gen, "relationships_table")  # the AR family's only
 
 
 # ---- caches: written by one package, read by the other ------------------------

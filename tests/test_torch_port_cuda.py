@@ -762,7 +762,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         ea.encoder_attention(q.half(), q.half(), q.half(), 8)
     with pytest.raises(ValueError, match="head width"):
-        ea.encoder_attention(q, q, q, 16)
+        ea.encoder_attention(q, q, q, 2)  # Dh=128: K1 takes head widths up to 64
     mem = torch.randn(2, 10, 256, device=dev)
     with pytest.raises(TypeError):
         da.decode_shared_attention(q, mem.bfloat16())
@@ -959,6 +959,52 @@ def test_encoder_attention_at_the_zoo_shapes(dev, dtype, B, S, H, mask):
         assert bool(explained.all()), int((~explained).sum())
     else:
         _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,E,H,mask", [
+    (128, 330, 200, 8, False),  # ICVT's image encoder, a request of 128: Dh=25 padded to 32
+    (3, 330, 200, 8, True),     # the same with key padding, a fully masked row
+    (2, 400, 200, 8, False),    # bf16 past 384: the two-pass route, padded
+    (3, 97, 192, 4, True),      # Dh=48 padded to 64, ragged tiles
+    (2, 11, 40, 4, True),       # Dh=10
+    (1, 1024, 200, 8, False),   # the largest S, padded
+])
+def test_encoder_attention_at_padded_head_widths(dev, dtype, B, S, E, H, mask):
+    """K1 at head widths other than 32 and 64 (zero columns to the next of
+    them): one launch, its plain version's output within the tolerance (in
+    bf16, past it only as one flipped rounding of a p, `k1_one_flip`), on
+    inputs that start at no 16-byte boundary (the padded route copies
+    element by element)."""
+    import chip_smoke
+
+    g = torch.Generator(device=dev).manual_seed(B + S + E)
+    q, k, v = (torch.randn(B * S * E + 1, generator=g, device=dev)[1:].view(B, S, E)
+               for _ in range(3))
+    q = (q * (E // H) ** -0.5).to(dtype)
+    k, v = k.to(dtype), v.to(dtype)
+    if dtype == torch.bfloat16:  # views one element into a buffer: 2 bytes off 16
+        q, k, v = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(B, S, E) for t in (q, k, v))
+        assert all(t.data_ptr() % 16 for t in (q, k, v))
+    bias = None
+    if mask:
+        keep = torch.rand(B, S, generator=g, device=dev) > 0.3
+        keep[::3] = False
+        bias = torch.where(keep, 0.0, -1e9).float()
+    n = ea.encoder_attention.launches
+    out = ea.encoder_attention(q, k, v, H, bias)
+    assert ea.encoder_attention.launches == n + 1
+    ref = ea.encoder_attention_plain(q, k, v, H, bias)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    outside = (out.float() - ref.float()).abs() > atol + rtol * ref.float().abs()
+    if dtype == torch.bfloat16 and bool(outside.any()):
+        explained, _ = chip_smoke.k1_one_flip(torch, q, k, v, H, bias)(out, outside)
+        assert bool(explained.all()), int((~explained).sum())
+    else:
+        _close(out, ref, dtype)
+    if mask:  # row 0 keeps no key: the mean of V
+        _close(out[0], v[0].float().mean(0).expand(S, -1).to(dtype), dtype)
 
 
 @pytest.mark.parametrize("experiment", ["maskgit", "layoutdm", "vqdiffusion", "layoutdm_ra"])

@@ -658,8 +658,8 @@ def test_trainer_and_cli_refuse_what_waits_for_later_items(pairs, job_root):
     with pytest.raises(NotImplementedError, match="item 11"):
         TTrainer(type("G", (), {"cfg": bf16, "device": torch.device("cpu")})(),
                  TTrainConfig(job_dir=str(job_root)))
-    for preset, item in (("maskgit", 13), ("layoutdm", 13), ("cglgan", 14), ("icvt", 15),
-                         ("retriever", 15)):
+    for preset, item in (("maskgit", "13"), ("layoutdm", "13"), ("cglgan", "14b"),
+                         ("dsgan_ra", "14b"), ("icvt", "15b")):
         with pytest.raises(NotImplementedError, match=f"item {item}$"):
             cli_train.main(["--experiment", preset, "--device", "cpu",
                             "--job-dir", str(job_root / preset)])
