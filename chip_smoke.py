@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of RALF's sample and training paths, and of the baselines'
-sample paths, on one CUDA card.
+sample and training paths, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,8 @@ Run from the repository root.  Phases, each of which must pass:
   1. device   the card's name and power limit; TF32 off for matmuls and convolutions
   2. build    nvcc builds every kernel of ralf_tpu_torch/ops/csrc (sm_90a), in parallel
   3. kernels  each kernel (K1-K9) against its plain PyTorch version at the
-              paths' shapes (K1 also at ICVT's E=200, Dh=25), in bf16 and
+              paths' shapes (K1 also at ICVT's E=200, Dh=25: its image encoder,
+              and its GA encoder at S=10 with a key mask), in bf16 and
               fp32 (K9 on the probe's int8 slab and its views), with its
               time beside the plain version's, one
               PyTorch library call's (for K5 and K6 an unfused sequence) and
@@ -102,7 +103,20 @@ Run from the repository root.  Phases, each of which must pass:
               steps and meta, ms per step, samples/s, peak memory and one step
               under torch.profiler; then cli.train --debug in this process and
               cli.inference --cond c on its checkpoint (fp32; K1 16, K2 300)
-  11. report  one JSON line of the kernels, the nvidia-smi line, and last
+  11. zoo_train  MaskGIT, LayoutDM, VQDiffusion, RA-LayoutDM and ICVT as their
+              presets make them: one train step in fp32 (dropout 0, batch 4) on
+              the card against the CPU with the same draws (loss, each subtree's
+              update, the frozen layout_encoder of RA's FIDNet and of ICVT,
+              BatchNorm's statistics); for layoutdm_ra and icvt Trainer.fit at
+              the preset's training size (fp32, batch 32, dropout 0.1, the 512/64
+              synthetic splits) for 4 steps and 4 more resumed: exact K1
+              launches a step (4 for RA's FIDNet, 0) and a validation batch (16,
+              12), finite losses, ms per step, samples/s, peak memory, one
+              profiled step; then for all five cli.train --debug and
+              cli.inference on its checkpoint (--cond c, icvt uncond): files,
+              launches (a step 0 or 4, a validation batch 6, 12, 12, 16, 12),
+              coordinates in [0, 1], no violation
+  12. report  one JSON line of the kernels, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
 Every configuration is chosen here explicitly (q8_mxu is an argument of the
@@ -205,6 +219,22 @@ BASELINE_CLI = ("cglgan", "icvt", "retriever")  # cli.inference job dirs; cli.ev
 # batch and the fp32 check's
 K1_PADDED_SHAPES = ((BASELINE_BATCH, 330, 8, 200), (CLI_BATCH, 330, 8, 200),
                     (BASELINE_CHECK, 330, 8, 200))
+# and at ICVT's GA encoder in a validation batch of the zoo_train phase: S=10, with the
+# layout's key mask
+K1_PADDED_MASKED_SHAPES = ((TRAIN_BATCH, 10, 8, 200),)
+# the zoo_train phase, per preset: exact K1 launches of a train step (RA-LayoutDM's FIDNet,
+# 4 layers in eval mode; every other encoder takes the einsum path in train mode), of a
+# validation batch (the image encoder's 6 self-attentions, the denoising decoder's 6,
+# RA-LayoutDM's FIDNet 4, ICVT's GA encoder 6), and of cli.inference on one batch (the zoo
+# and baselines phases' counts: 50 denoising steps of 6)
+ZOO_TRAIN = {"maskgit": (0, 6, 6), "layoutdm": (0, 12, 306), "vqdiffusion": (0, 12, 306),
+             "layoutdm_ra": (4, 16, 310), "icvt": (0, 12, 6)}
+ZOO_STEP_BATCH = 4  # the one-step check's canvases
+# the presets whose Trainer.fit runs at the training size: RA-LayoutDM (the frozen FIDNet's
+# K1 in every step) and ICVT (the clip over its frozen embedding's gradient, the GA
+# encoder's K1). The other three's fits took 78 s of a 723 s run on one H100, whose
+# budget is about 600 s; their steps share the same trainer and backbone
+ZOO_TRAIN_FIT = ("layoutdm_ra", "icvt")
 
 
 class Failures(list):
@@ -431,7 +461,7 @@ def kernel_cases(torch, dev):
         # of 128 and the cli's batch of 64, RA-LayoutDM's FIDNet over B*K = 2048;
         # in fp32 also the train phase's encoders at batch 32 (constraint lengths
         # of uncond and c); last ICVT's image encoder, E=200 and Dh=25, padded
-        # to 32 in the kernel
+        # to 32 in the kernel, and its GA encoder (S=10, key mask)
         k1_shapes = ((128, 330, 8, False), (1, 330, 8, False), (128, 4, 8, True),
                      (128, 89, 8, True), (256, 11, 4, True), (1, 11, 4, True),
                      (16, 1024, 8, False), (64, 330, 8, False), (64, 23, 8, True),
@@ -440,6 +470,7 @@ def kernel_cases(torch, dev):
         k1_shapes = tuple(shape + (256,) for shape in k1_shapes + (
             TRAIN_K1_SHAPES if dtype == torch.float32 else ()))
         k1_shapes += tuple((B, S, H, False, E) for B, S, H, E in K1_PADDED_SHAPES)
+        k1_shapes += tuple((B, S, H, True, E) for B, S, H, E in K1_PADDED_MASKED_SHAPES)
         for B, S, H, masked, E in k1_shapes:
             Dh = E // H
             q, k, v = (torch.randn(B, S, E, generator=g, device=dev) for _ in range(3))
@@ -1159,12 +1190,20 @@ def zoo_generator(experiment: str, tmp: str, device: str, overrides=()):
     """(config, generator) of a preset at the preset's full width (random
     weights from seed 0), the diffusion presets' kmeans vocabulary fitted on
     the synthetic train split."""
-    from ralf_tpu_torch.config import build_config, build_datasets, build_generator, build_tokenizer
+    from ralf_tpu_torch.config import build_config, build_generator, build_tokenizer
 
     cfg = build_config(experiment, ["synthetic_data=true", f"cache_dir={tmp}/cache", *overrides])
+    write_vocabulary(cfg)
+    return cfg, build_generator(cfg, build_tokenizer(cfg), device=device)
+
+
+def write_vocabulary(cfg) -> None:
+    """The kmeans centers a diffusion preset's tokenizer reads from the cache
+    dir, fitted on the config's synthetic train split (no-op for the others)."""
+    from ralf_tpu_torch.config import build_datasets
+
     if cfg.tokenizer is not None and cfg.tokenizer.get("geo_quantization") == "kmeans":
         write_kmeans_centers(cfg, build_datasets(cfg)[0])
-    return cfg, build_generator(cfg, build_tokenizer(cfg), device=device)
 
 
 def zoo_batches(gen, cfg, n_requests: int, batch: int, gallery_size: int, image_dtype=np.uint8):
@@ -1628,31 +1667,46 @@ def train_step_check(torch, tok, fails: Failures, tmp: str, model: dict) -> None
         inputs, targets = gen.preprocess(batch, np.random.default_rng(0))
         loss = float(trainer.train_step(state, inputs, targets)["loss"])
         out[d] = (loss, before, export_params(gen.core))
+    compare_step(fails, "train step", out)
+
+
+def _flat(tree):
+    """A subtree's leaves (or a leaf such as flag_emb) as one vector, in path order."""
+    if not isinstance(tree, dict):
+        return np.ravel(tree)
+    return np.concatenate([np.ravel(a) for _, a in sorted(_leaves(tree))])
+
+
+def compare_step(fails: Failures, label: str, out: dict) -> None:
+    """One train step on the card against the CPU from the same weights and
+    batch, out = {device: (loss, params before, (params, batch_stats) after)}:
+    the loss within 1e-4 relative; each top-level subtree's update by cosine
+    > 0.99 and norm ratio 0.97-1.03; every leaf under a `layout_encoder`
+    (frozen by name: FIDNet, ICVT's GT-layout embedding) unmoved on both;
+    BatchNorm's running statistics within 1e-6 + 1e-4*|CPU|."""
     (lc, before, (pc, sc)), (lp, _, (pp, sp)) = out["cuda"], out["cpu"]
     rel = abs(lc - lp) / abs(lp)
-    fails.check(rel <= 1e-4, f"train step card vs CPU: loss {lc:.7f} vs {lp:.7f}, relative "
+    fails.check(rel <= 1e-4, f"{label} card vs CPU: loss {lc:.7f} vs {lp:.7f}, relative "
                              f"{rel:.2e} (tol 1e-4)")
-
-    def flat(tree):  # a subtree, or a leaf such as flag_emb
-        if not isinstance(tree, dict):
-            return np.ravel(tree)
-        return np.concatenate([np.ravel(a) for _, a in sorted(_leaves(tree))])
-
+    start, ends = dict(_leaves(before[0])), (dict(_leaves(pc)), dict(_leaves(pp)))
+    frozen = sorted(k for k in start if "/layout_encoder/" in f"/{k}")
+    if frozen:
+        moved = [k for k in frozen for end in ends if not np.array_equal(end[k], start[k])]
+        fails.check(not moved, f"{label}: the frozen layout_encoder ({len(frozen)} leaves) did "
+                               f"not move, card or CPU (moved: {moved[:3]})")
     for key in sorted(before[0]):
-        d_c, d_p = flat(pc[key]) - flat(before[0][key]), flat(pp[key]) - flat(before[0][key])
         if key == "layout_encoder":
-            fails.check(not d_c.any() and not d_p.any(),
-                        "train step: the frozen layout_encoder did not move, card or CPU")
             continue
+        d_c, d_p = _flat(pc[key]) - _flat(before[0][key]), _flat(pp[key]) - _flat(before[0][key])
         norm_p = float(np.linalg.norm(d_p))
         cos = float(d_c @ d_p / max(float(np.linalg.norm(d_c)) * norm_p, 1e-30))
         ratio = float(np.linalg.norm(d_c)) / max(norm_p, 1e-30)
         fails.check(cos > 0.99 and 0.97 < ratio < 1.03,
-                    f"train step card vs CPU, update of {key}: cosine {cos:.5f} (> 0.99), norm "
+                    f"{label} card vs CPU, update of {key}: cosine {cos:.5f} (> 0.99), norm "
                     f"ratio {ratio:.5f} (0.97-1.03), CPU norm {norm_p:.3e}")
-    worst = max(float((np.abs(flat(sc[k]) - flat(sp[k])) /
-                       (1e-6 + 1e-4 * np.abs(flat(sp[k])))).max()) for k in sp)
-    fails.check(worst <= 1.0, f"train step card vs CPU: BatchNorm running statistics within "
+    worst = max(float((np.abs(_flat(sc[k]) - _flat(sp[k])) /
+                       (1e-6 + 1e-4 * np.abs(_flat(sp[k])))).max()) for k in sp)
+    fails.check(worst <= 1.0, f"{label} card vs CPU: BatchNorm running statistics within "
                               f"1e-6 + 1e-4*|CPU| (worst element uses {worst:.3f} of it)")
 
 
@@ -1662,6 +1716,96 @@ def _leaves(tree: dict, prefix: str = ""):
             yield from _leaves(v, f"{prefix}{k}/")
         else:
             yield f"{prefix}{k}", v
+
+
+def run_fit(torch, fails: Failures, counted: LaunchCounter, label: str, gen, cfg, loaders,
+            val_size: int, k1_step: int, k1_eval: int, card: str):
+    """Trainer.fit of `gen` (cfg.train: one epoch, a step checkpoint every
+    TRAIN_STEPS) for TRAIN_STEPS steps over `loaders()`, then as many more
+    resumed from its step checkpoint, each train step and validation batch
+    timed and its launches read: exactly k1_step K1 launches a step and
+    k1_eval a validation batch, finite losses, the resume's steps and meta;
+    it prints ms per step, samples/s, ms between step starts, validation ms
+    a batch and peak memory, then profiles one more step.  Returns (the
+    trainer, its state)."""
+    from ralf_tpu_torch.train.trainer import Trainer
+
+    def want(**launches):
+        return {**dict.fromkeys(counted.totals, 0), **launches}
+
+    job = cfg.train.job_dir
+    trainer = Trainer(gen, cfg.train)
+    records = {"train": [], "eval": []}
+    count = counters()
+
+    def instrumented(kind, inner):
+        def step(state, inputs, targets):
+            n0 = {k: c.launches for k, c in count.items()}
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            m = inner(state, inputs, targets)
+            loss = float(m["loss"])  # waits for the step
+            b = time.perf_counter()
+            records[kind].append({"step": state.step, "loss": loss, "s": b - a, "start": a,
+                                  "n": {k: c.launches - n0[k] for k, c in count.items()}})
+            return m
+        return step
+
+    inner_train = trainer.train_step
+    trainer.train_step = instrumented("train", inner_train)
+    trainer.eval_step = instrumented("eval", trainer.eval_step)
+    torch.cuda.reset_peak_memory_stats()
+    t_fit = time.perf_counter()
+    _, n1 = counted(lambda: trainer.fit(*loaders(), num_steps_cap=TRAIN_STEPS))
+    t_fit1 = time.perf_counter() - t_fit
+    first = len(records["train"])
+    state, n2 = counted(lambda: trainer.fit(*loaders(), num_steps_cap=2 * TRAIN_STEPS,
+                                            resume=True))
+    t_fit2 = time.perf_counter() - t_fit - t_fit1
+    peak = torch.cuda.max_memory_allocated()
+    steps, evals = records["train"], records["eval"]
+    # validation batches a call: the split's, under each call's num_steps_cap
+    n_val = [min(val_size // TRAIN_BATCH, cap) for cap in (TRAIN_STEPS, 2 * TRAIN_STEPS)]
+    fails.check(all(r["n"] == want(K1=k1_step) for r in steps) and len(steps) == 2 * TRAIN_STEPS,
+                f"{label}: {len(steps)} train steps, launches per step "
+                f"{sorted({str(r['n']) for r in steps})} (want K1 {k1_step})")
+    fails.check(all(r["n"] == want(K1=k1_eval) for r in evals) and len(evals) == sum(n_val),
+                f"{label}: {len(evals)} validation batches ({n_val} in the two calls), launches "
+                f"per batch {sorted({str(r['n']) for r in evals})} (want K1 {k1_eval})")
+    fails.check([n1, n2] == [want(K1=k1_step * TRAIN_STEPS + k1_eval * v) for v in n_val],
+                f"{label}: launches a call {n1}, {n2} (want {k1_step} x {TRAIN_STEPS} steps + "
+                f"{k1_eval} x {n_val} validation batches)")
+    losses = [r["loss"] for r in steps + evals]
+    fails.check(all(math.isfinite(x) for x in losses),
+                f"{label}: every loss finite ({', '.join(f'{x:.4f}' for x in losses)})")
+    with open(os.path.join(job, "ckpt_step_meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(job, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    resumed = [r["step"] for r in steps]
+    fails.check(resumed == list(range(1, 2 * TRAIN_STEPS + 1)) and first == TRAIN_STEPS
+                and state.step == 2 * TRAIN_STEPS
+                and meta == {"epoch": 1, "step_in_epoch": 2 * TRAIN_STEPS,
+                             "global_step": 2 * TRAIN_STEPS}
+                and len(recs) == 2 and all(math.isfinite(r["val_loss"]) for r in recs),
+                f"{label} resume: the first call ends at step {steps[first - 1]['step']}, the "
+                f"resumed one takes steps {resumed[first:]} (global step {state.step}); "
+                f"ckpt_step_meta.json {meta}; metrics.jsonl {recs}")
+    timed = [r["s"] for r in steps[1:first] + steps[first + 1:]]  # steps 2-4 and 6-8
+    ms = 1e3 * statistics.median(timed)
+    loop = [b["start"] - a["start"] for a, b in zip(steps, steps[1:]) if b["step"] != first + 1]
+    loop_ms = 1e3 * statistics.median(loop[1:])
+    print(f"  {label}: {ms:.2f} ms per train step (median of steps 2-4 and 6-8: "
+          f"{', '.join(f'{1e3 * x:.2f}' for x in timed)}), {TRAIN_BATCH / ms * 1e3:.1f} "
+          f"samples/s; {loop_ms:.2f} ms between step starts (loader, retrieval gather and "
+          f"preprocess included), {TRAIN_BATCH / loop_ms * 1e3:.1f} samples/s; "
+          f"validation {1e3 * statistics.median(r['s'] for r in evals):.2f} ms a batch; "
+          f"peak memory {peak / 2**30:.2f} GiB; calls {t_fit1:.1f} s and {t_fit2:.1f} s; "
+          f"fp32, batch {TRAIN_BATCH}, {card}", flush=True)
+    batch = next(iter(loaders()[0]))
+    inputs, targets = gen.preprocess(batch, np.random.default_rng(0))
+    profile_request(torch, f"{label} train step", lambda: inner_train(state, inputs, targets))
+    return trainer, state
 
 
 def run_train(torch, tok, fails: Failures, smi: list, overrides=()) -> dict:
@@ -1676,7 +1820,6 @@ def run_train(torch, tok, fails: Failures, smi: list, overrides=()) -> dict:
     from ralf_tpu_torch.data.dataset import BatchLoader
     from ralf_tpu_torch.retrieval.retriever import Retriever
     from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
-    from ralf_tpu_torch.train.trainer import Trainer
 
     t0 = time.perf_counter()
     counted = LaunchCounter()
@@ -1710,82 +1853,13 @@ def run_train(torch, tok, fails: Failures, smi: list, overrides=()) -> dict:
             return (RetrievalAugmentedLoader(tl, retriever, top_k, table=tables["train"]),
                     RetrievalAugmentedLoader(vl, retriever, top_k, table=tables["val"]))
 
-        trainer = Trainer(gen, cfg.train)
-        records = {"train": [], "eval": []}
-        count = counters()
-
-        def instrumented(kind, inner):
-            def step(state, inputs, targets):
-                n0 = {k: c.launches for k, c in count.items()}
-                torch.cuda.synchronize()
-                a = time.perf_counter()
-                m = inner(state, inputs, targets)
-                loss = float(m["loss"])  # waits for the step
-                b = time.perf_counter()
-                records[kind].append({"step": state.step, "loss": loss, "s": b - a, "start": a,
-                                      "n": {k: c.launches - n0[k] for k, c in count.items()}})
-                return m
-            return step
-
-        inner_train = trainer.train_step
-        trainer.train_step = instrumented("train", inner_train)
-        trainer.eval_step = instrumented("eval", trainer.eval_step)
         print(f"  fit set-up (config, model, splits {len(train_ds)}/{len(val_ds)}, retrieval "
               f"tables) {time.perf_counter() - t0:.1f} s", flush=True)
-        torch.cuda.reset_peak_memory_stats()
-        t_fit = time.perf_counter()
-        _, n1 = counted(lambda: trainer.fit(*loaders(), num_steps_cap=TRAIN_STEPS))
-        t_fit1 = time.perf_counter() - t_fit
-        first = len(records["train"])
-        state, n2 = counted(lambda: trainer.fit(*loaders(), num_steps_cap=2 * TRAIN_STEPS,
-                                                resume=True))
-        t_fit2 = time.perf_counter() - t_fit - t_fit1
-        peak = torch.cuda.max_memory_allocated()
-        steps, evals = records["train"], records["eval"]
-        # validation batches a call: the split's, under each call's num_steps_cap
-        n_val = [min(len(val_ds) // TRAIN_BATCH, cap) for cap in (TRAIN_STEPS, 2 * TRAIN_STEPS)]
-        k1_step = want(K1=4)  # FIDNet's 4 layers over the B*K = 512 retrieved layouts
-        k1_eval = want(K1=4 + 6 + 6)  # and, in eval mode, the 6 + 6 encoder self-attentions
-        fails.check(all(r["n"] == k1_step for r in steps) and len(steps) == 2 * TRAIN_STEPS,
-                    f"fit: {len(steps)} train steps, launches per step "
-                    f"{sorted({str(r['n']) for r in steps})} (want {k1_step})")
-        fails.check(all(r["n"] == k1_eval for r in evals) and len(evals) == sum(n_val),
-                    f"fit: {len(evals)} validation batches ({n_val} in the two calls), launches "
-                    f"per batch {sorted({str(r['n']) for r in evals})} (want {k1_eval})")
-        fails.check([n1, n2] == [want(K1=4 * TRAIN_STEPS + 16 * v) for v in n_val],
-                    f"fit: launches a call {n1}, {n2} (want 4 x {TRAIN_STEPS} steps + 16 x "
-                    f"{n_val} validation batches)")
-        losses = [r["loss"] for r in steps + evals]
-        fails.check(all(math.isfinite(x) for x in losses),
-                    f"fit: every loss finite ({', '.join(f'{x:.4f}' for x in losses)})")
-        with open(os.path.join(job, "ckpt_step_meta.json")) as f:
-            meta = json.load(f)
-        with open(os.path.join(job, "metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-        resumed = [r["step"] for r in steps]
-        fails.check(resumed == list(range(1, 2 * TRAIN_STEPS + 1)) and first == TRAIN_STEPS
-                    and state.step == 2 * TRAIN_STEPS
-                    and meta == {"epoch": 1, "step_in_epoch": 2 * TRAIN_STEPS,
-                                 "global_step": 2 * TRAIN_STEPS}
-                    and len(recs) == 2 and all(math.isfinite(r["val_loss"]) for r in recs),
-                    f"fit resume: the first call ends at step {steps[first - 1]['step']}, the "
-                    f"resumed one takes steps {resumed[first:]} (global step {state.step}); "
-                    f"ckpt_step_meta.json {meta}; metrics.jsonl {recs}")
-        timed = [r["s"] for r in steps[1:first] + steps[first + 1:]]  # steps 2-4 and 6-8
-        ms = 1e3 * statistics.median(timed)
-        loop = [b["start"] - a["start"] for a, b in zip(steps, steps[1:]) if b["step"] != first + 1]
-        loop_ms = 1e3 * statistics.median(loop[1:])
-        print(f"  fit: {ms:.2f} ms per train step (median of steps 2-4 and 6-8: "
-              f"{', '.join(f'{1e3 * x:.2f}' for x in timed)}), {TRAIN_BATCH / ms * 1e3:.1f} "
-              f"samples/s; {loop_ms:.2f} ms between step starts (loader, retrieval gather and "
-              f"preprocess included), {TRAIN_BATCH / loop_ms * 1e3:.1f} samples/s; "
-              f"validation {1e3 * statistics.median(r['s'] for r in evals):.2f} ms a batch; "
-              f"peak memory {peak / 2**30:.2f} GiB; calls {t_fit1:.1f} s and {t_fit2:.1f} s; "
-              f"fp32, batch {TRAIN_BATCH}, {card}", flush=True)
-        batch = next(iter(loaders()[0]))
-        inputs, targets = gen.preprocess(batch, np.random.default_rng(0))
-        profile_request(torch, "fit train step", lambda: inner_train(state, inputs, targets))
-        del trainer, state, gen, inputs, targets
+        # K1: FIDNet's 4 layers over the B*K = 512 retrieved layouts a step, and in
+        # eval mode the 6 + 6 encoder self-attentions too
+        trainer, state = run_fit(torch, fails, counted, "fit", gen, cfg, loaders, len(val_ds),
+                                 4, 4 + 6 + 6, card)
+        del trainer, state, gen
         torch.cuda.empty_cache()
 
         # the entry points: cli.train --debug at full width on the card, then
@@ -1820,6 +1894,159 @@ def run_train(torch, tok, fails: Failures, smi: list, overrides=()) -> dict:
                     f"(want {expect}), {len(records_c)} records, violations {violated}/{total}, "
                     f"{summary['ms_per_sample'][0]:.3f} ms per sample")
     print(f"  train phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted.totals
+
+
+@contextlib.contextmanager
+def cpu_draws():
+    """The zoo's training draws (MaskGIT's mask, the diffusion's Gumbel
+    uniforms, ICVT's eps) made by a CPU generator whatever the model's
+    device, then moved there: a CUDA generator draws other numbers from one
+    seed, and the one-step check gives the card and the CPU the same draws."""
+    from ralf_tpu_torch.models import diffusion, icvt, maskgit
+
+    saved = maskgit.draw_loss_mask, diffusion.gumbel_uniforms, icvt.seeded_normal
+    maskgit.draw_loss_mask = lambda ratio, T, seed: saved[0](ratio.cpu(), T, seed).to(ratio.device)
+    diffusion.gumbel_uniforms = lambda shape, seed, device: saved[1](shape, seed, "cpu").to(device)
+    icvt.seeded_normal = lambda shape, seed, device: saved[2](shape, seed, "cpu").to(device)
+    try:
+        yield
+    finally:
+        maskgit.draw_loss_mask, diffusion.gumbel_uniforms, icvt.seeded_normal = saved
+
+
+def zoo_step_check(torch, fails: Failures, tmp: str, preset: str, overrides=()) -> None:
+    """One train step of a zoo preset at full width in fp32 (dropout 0,
+    ZOO_STEP_BATCH canvases) on the card and on the CPU, from the same seeded
+    weights, the same host batch and the same draws (`cpu_draws`)."""
+    from ralf_tpu_torch.train.trainer import TrainConfig, Trainer
+    from ralf_tpu_torch.utils.weights import export_params
+
+    over = ("model.dtype=float32", "model.dropout=0.0", *overrides)
+    built = {d: zoo_generator(preset, tmp, d, over) for d in ("cuda", "cpu")}
+    cfg, cpu_gen = built["cpu"]
+    batch = zoo_batches(cpu_gen, cfg, 1, ZOO_STEP_BATCH, GALLERY, np.float32)[0]
+    out = {}
+    with cpu_draws():
+        for d, (_, gen) in built.items():
+            before = export_params(gen.core)
+            trainer = Trainer(gen, TrainConfig(job_dir=os.path.join(tmp, f"step_{preset}_{d}")))
+            state = trainer.init_state()
+            inputs, targets = gen.preprocess(batch, np.random.default_rng(0))
+            loss = float(trainer.train_step(state, inputs, targets)["loss"])
+            out[d] = (loss, before, export_params(gen.core))
+    compare_step(fails, f"zoo_train {preset} step", out)
+
+
+def run_zoo_train(torch, fails: Failures, smi: list, overrides=()) -> dict:
+    """Training MaskGIT, LayoutDM, VQDiffusion, RA-LayoutDM and ICVT on the
+    card: per preset the one-step check against the CPU, Trainer.fit at the
+    preset's training size and its resume (ZOO_TRAIN_FIT's presets), then
+    cli.train --debug -> cli.inference; returns the launches of each kernel
+    summed over the counted calls.  `overrides` cut the models for a rehearsal without a
+    card; the script passes none."""
+    from ralf_tpu_torch.cli import inference
+    from ralf_tpu_torch.cli import train as cli_train
+    from ralf_tpu_torch.config import build_config, build_datasets
+    from ralf_tpu_torch.data.dataset import BatchLoader
+    from ralf_tpu_torch.retrieval.retriever import Retriever
+    from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
+
+    t0 = time.perf_counter()
+    counted = LaunchCounter()
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+
+    def want(**launches):
+        return {**dict.fromkeys(counted.totals, 0), **launches}
+
+    for preset, (k1_step, k1_eval, k1_infer) in ZOO_TRAIN.items():
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            zoo_step_check(torch, fails, tmp, preset, overrides)
+            torch.cuda.empty_cache()
+            t_step = time.perf_counter() - t
+
+            if preset in ZOO_TRAIN_FIT:
+                # Trainer.fit at the preset's training size: full width, fp32, batch
+                # 32, dropout 0.1, the non-debug synthetic splits (RA-LayoutDM's
+                # neighbours from the train split)
+                job = os.path.join(tmp, "fit")
+                cfg, gen = zoo_generator(preset, tmp, "cuda", (
+                    f"train.job_dir={job}", "train.epochs=1",
+                    f"train.save_every_steps={TRAIN_STEPS}", *overrides))
+                train_ds, val_ds, _ = build_datasets(cfg)
+                tables, retriever = {}, None
+                if getattr(gen, "with_retrieval", False):
+                    retriever = Retriever.build(train_ds, device="cuda")
+                    tables = {
+                        "train": retriever.precompute_table(train_ds, gen.top_k,
+                                                            is_train_split=True),
+                        "val": retriever.precompute_table(val_ds, gen.top_k,
+                                                          is_train_split=False)}
+
+                def loaders():
+                    kw = dict(transforms=cfg.transforms, seed=cfg.train.seed)
+                    tl = BatchLoader(train_ds, TRAIN_BATCH, **kw)
+                    vl = BatchLoader(val_ds, TRAIN_BATCH, shuffle=False, **kw)
+                    if retriever is None:
+                        return tl, vl
+                    return (RetrievalAugmentedLoader(tl, retriever, gen.top_k,
+                                                     table=tables["train"]),
+                            RetrievalAugmentedLoader(vl, retriever, gen.top_k,
+                                                     table=tables["val"]))
+
+                trainer, state = run_fit(torch, fails, counted, f"zoo_train {preset} fit", gen,
+                                         cfg, loaders, len(val_ds), k1_step, k1_eval, card)
+                del trainer, state, gen
+                torch.cuda.empty_cache()
+            t_fit = time.perf_counter() - t - t_step
+
+            # the entry points: cli.train --debug on the card, then cli.inference on
+            # its ckpt_final.npz (--cond c; icvt serves uncond only), one batch of 16
+            cache = os.path.join(tmp, "cli_cache")
+            write_vocabulary(build_config(preset, ["synthetic_data=true", "debug=true",
+                                                   f"cache_dir={cache}", *overrides]))
+            job = os.path.join(tmp, "cli")
+            argv = ["--experiment", preset, "--synthetic", "--debug", "--batch-size",
+                    str(TRAIN_CLI_BATCH), "--job-dir", job, "--cache-dir", cache, *overrides]
+            _, n = counted(lambda: cli_train.main(argv))
+            files = [f for f in ("config.json", "metrics.jsonl", "ckpt_final.npz",
+                                 "ckpt_final_opt.pt", "ckpt_best.npz")
+                     if os.path.exists(os.path.join(job, f))]
+            expect = want(K1=2 * k1_step + 2 * k1_eval)  # 2 steps, 2 validation batches of 8
+            fails.check(n == expect and len(files) == 5,
+                        f"zoo_train {preset} cli.train --debug: launches {n} (want {expect}); "
+                        f"wrote {files}")
+            cond = "uncond" if preset == "icvt" else "c"
+            out_dir = os.path.join(job, f"out_{cond}")
+            argv = ["--job-dir", job, "--cond", cond, "--num-seeds", "1", "--batch-size", "16",
+                    "--out-dir", out_dir]
+            summary, n = counted(lambda: inference.main(argv))
+            with open(os.path.join(out_dir, "test_0.pkl"), "rb") as f:
+                records = pickle.load(f)["results"]
+            coords = [v for r in records for k in ("center_x", "center_y", "width", "height")
+                      for v in r[k]]
+            violations = "not checked (uncond)"
+            clean = True
+            if cond == "c":
+                with open(os.path.join(out_dir, "test_0_violation.csv")) as f:
+                    total, violated, rate = list(csv.reader(f))[1]
+                clean = float(rate) == 0.0 and int(total) > 0
+                violations = f"{violated}/{total}"
+            # VQDiffusion replaces over the whole vocabulary: two steps' weights may
+            # leave no whole element (the zoo phase's note), so it may decode none
+            decoded = bool(coords) or preset == "vqdiffusion"
+            fails.check(n == want(K1=k1_infer) and len(records) == 16 and clean and decoded
+                        and all(0 <= v <= 1 for v in coords),
+                        f"zoo_train {preset} cli.inference on the trained checkpoint (fp32, "
+                        f"--cond {cond}): launches {n} (want K1 {k1_infer}), {len(records)} "
+                        f"records, {len(coords) // 4} elements with coordinates in [0, 1], "
+                        f"violations {violations}, {summary['ms_per_sample'][0]:.3f} ms per "
+                        f"sample")
+        torch.cuda.empty_cache()
+        print(f"  zoo_train {preset} {time.perf_counter() - t:.1f} s (step check {t_step:.1f} s, "
+              f"fit {t_fit:.1f} s)", flush=True)
+    print(f"  zoo_train phase {time.perf_counter() - t0:.1f} s", flush=True)
     return counted.totals
 
 
@@ -1862,6 +2089,8 @@ def main() -> int:
     for kid, n in run_baselines(torch, fails, smi).items():
         launches[kid] += n
     for kid, n in run_train(torch, tok, fails, smi).items():
+        launches[kid] += n
+    for kid, n in run_zoo_train(torch, fails, smi).items():
         launches[kid] += n
 
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,

@@ -1,5 +1,5 @@
-"""Training entry point, the counterpart of `ralf_tpu/cli/train.py` for the
-`autoreg` and `ralf` presets:
+"""Training entry point, the counterpart of `ralf_tpu/cli/train.py` for every
+preset that JAX trains with its `Trainer` (all but the GANs):
 
     python -m ralf_tpu_torch.cli.train --experiment ralf --dataset pku10 \\
         --job-dir tmp/jobs/ralf_pku --epochs 2 --synthetic \\
@@ -8,20 +8,21 @@
 Dotted key=value overrides as in JAX.  It writes the job dir's
 `config.json` (JAX's format), trains with `train.trainer.Trainer` and writes
 `metrics.jsonl` and the checkpoints `ckpt_<tag>.npz` (the flat flax tree,
-which `cli.inference` reads) beside `ckpt_<tag>_opt.pt`.  `ralf` retrieves
-for every canvas of the train split from the others (`is_train_split`),
-through the cached top-k tables where the cache dir holds them; FIDNet runs
-on the B*K retrieved layouts in each step, as in JAX.
+which `cli.inference` reads) beside `ckpt_<tag>_opt.pt`.  `ralf` and
+`layoutdm_ra` retrieve for every canvas of the train split from the others
+(`is_train_split`), through the cached top-k tables where the cache dir
+holds them; FIDNet runs on the B*K retrieved layouts in each step, as in
+JAX.  The kmeans vocabulary of `layoutdm` and `layoutdm_ra` comes from the
+cache dir, as in serving.
 
 `retriever` has nothing to train: as in JAX, the job dir's `config.json`
 is the whole job (`cli.inference` builds the gallery from the train split).
 
 It runs on the card (`--device cuda`, the default, which raises without
 CUDA) or on the CPU with `--device cpu`.  These raise, naming the item of
-ROADMAP.md Queue A that ports them: MaskGIT and the diffusion presets (item
-13, the zoo's training), the GAN presets (item 14b), `icvt` (item 15b), and
-from `Trainer`, `train.gallery_shards > 1` (item 10) and
-`model.dtype=bfloat16` (item 11).
+ROADMAP.md Queue A that ports them: the GAN presets (`cglgan`, `cglgan_ra`,
+`dsgan`, `dsgan_ra`; item 14b, their own trainer), and from `Trainer`,
+`train.gallery_shards > 1` (item 10) and `model.dtype=bfloat16` (item 11).
 """
 
 from __future__ import annotations
@@ -85,8 +86,9 @@ def main(argv=None) -> str:
     generator = EXPERIMENTS[cfg.experiment]["generator"]
     if generator in UNPORTED:
         raise NotImplementedError(
-            f"experiment {cfg.experiment!r}: the port trains 'autoreg' and 'ralf'; training "
-            f"{generator!r} comes with ROADMAP.md Queue A item {UNPORTED[generator]}")
+            f"experiment {cfg.experiment!r}: the port trains every generator but "
+            f"{sorted(UNPORTED)}; training {generator!r} comes with ROADMAP.md Queue A item "
+            f"{UNPORTED[generator]}")
     cfg.dataset = DatasetConfig(name=args.dataset, data_dir=args.data_dir)
     cfg.auxiliary_task = args.task
     cfg.debug = args.debug

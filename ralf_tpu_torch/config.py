@@ -214,7 +214,7 @@ def build_tokenizer(cfg: FrameworkConfig) -> Optional[LayoutSequenceTokenizer]:
 
 
 # the generators whose training is not ported yet, and the ROADMAP.md item that ports it
-UNPORTED = {"maskgit": "13", "layoutdm": "13", "cglgan": "14b", "dsgan": "14b", "icvt": "15b"}
+UNPORTED = {"cglgan": "14b", "dsgan": "14b"}
 
 
 def build_generator(cfg: FrameworkConfig, tokenizer=None, device="cuda"):

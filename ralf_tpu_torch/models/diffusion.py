@@ -23,9 +23,19 @@ image encoder's takes K1 too.
 
 `q_pred`'s t - 1 = -1 reads row T of the cumulative tables, the identity:
 JAX wraps the index with `(t + T + 1) % (T + 1)` and so does the port,
-rather than rely on torch's negative indexing.  Training (`loss`,
-`q_sample`, the timesteps' importance sampling) is not ported yet
-(ROADMAP.md Queue A item 13).
+rather than rely on torch's negative indexing.
+
+Training (`preprocess`, `loss`) draws a timestep t per canvas from the
+numpy rng (uniform; `sample_time` switches to importance sampling once
+`update_importance` has seen every t often enough, which no trainer calls,
+as in JAX), noises the tokens to x_t by a Gumbel-max draw from q(x_t | x_0)
+and takes `MaskAndReplaceDiffusion.loss`: the KL of the model's posterior
+against the true one (the decoder NLL at t = 0), and the auxiliary x_0 KL,
+both over p(t).  The Gumbel noise's uniforms come from `gumbel_uniforms`,
+a torch generator on the device seeded with the rng's next integer (JAX
+seeds `jax.random` with it, which torch cannot reproduce: parity passes
+JAX's uniforms in).  In train mode every attention takes the einsum path;
+RA-LayoutDM's frozen FIDNet stays in eval mode and takes K1.
 """
 
 from __future__ import annotations
@@ -175,6 +185,21 @@ def log_onehot_to_index(log_x: torch.Tensor) -> torch.Tensor:
     return torch.argmax(log_x, dim=-1)
 
 
+def gumbel_uniforms(shape: tuple, seed: int, device) -> torch.Tensor:
+    """The uniforms [0, 1) of `q_sample`'s Gumbel noise, from a generator on
+    `device` seeded by `seed`."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=g, device=device)
+
+
+def aux_weight(t: torch.Tensor, T: int) -> torch.Tensor:
+    """The auxiliary loss's weight (1 - t / T) + 1, fp32, as JAX's jitted step
+    computes it: XLA turns t / T into t times the fp32 reciprocal of T and
+    folds the two additions into one rounding of 2 - t * (1 / T), which is
+    exact in fp64 before it."""
+    return (2.0 - t.double() * float(np.float32(1.0) / np.float32(T))).float()
+
+
 class MaskAndReplaceDiffusion:
     """q and p over [B, L, V] log tensors."""
 
@@ -238,6 +263,17 @@ class MaskAndReplaceDiffusion:
         out = self.q_pred(q, t - 1) + log_qt1 + q_norm
         return torch.clamp(out, -70.0, 0.0)
 
+    def log_sample_categorical(self, u: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+        """The Gumbel-max draw of each position's token given the uniforms u,
+        as a log one-hot [B, L, V]."""
+        gumbel = -torch.log(-torch.log(u + 1e-30) + 1e-30)
+        return index_to_log_onehot(torch.argmax(gumbel + logits, dim=-1), self.V)
+
+    def q_sample(self, u: torch.Tensor, log_x_start: torch.Tensor,
+                 t: torch.Tensor) -> torch.Tensor:
+        """x_t ~ q(x_t | x_0) as a log one-hot, given the uniforms u [B, L, V]."""
+        return self.log_sample_categorical(u, self.q_pred(log_x_start, t))
+
     def predict_start(self, logits: torch.Tensor) -> torch.Tensor:
         """Decoder logits [B, L, V] -> log p(x0 | x_t), MASK excluded and (for
         "constrained") each position's sub-vocabulary applied."""
@@ -246,6 +282,34 @@ class MaskAndReplaceDiffusion:
             lp = lp + self.tables.log_ind[None, :, :-1]
         lp = torch.cat([lp, torch.full_like(lp[..., :1], -70.0)], dim=-1)
         return torch.clamp(lp, -70.0, 0.0)
+
+    def loss(self, u: torch.Tensor, logits_fn, x_start: torch.Tensor, t: torch.Tensor,
+             pt: torch.Tensor, auxiliary_loss_weight: float = 0.1) -> tuple[torch.Tensor, dict]:
+        """x_start [B, L] tokens, t [B] timesteps, pt [B] their probabilities,
+        u [B, L, V] the noise's uniforms; logits_fn(x_t, t) -> [B, L, V].
+        (loss, {'kl_loss', 'kl_per_sample' [B], 'aux_loss'}): the KL of the
+        model's posterior against the true one over p(t) (the decoder NLL at
+        t = 0), plus the auxiliary x_0 KL weighted by 2 - t/T."""
+        log_x_start = index_to_log_onehot(x_start, self.V)
+        log_x_t = self.q_sample(u, log_x_start, t)
+        log_x0_recon = self.predict_start(logits_fn(log_onehot_to_index(log_x_t), t))
+        log_model_prob = self.q_posterior(log_x0_recon, log_x_t, t)
+        log_true_prob = self.q_posterior(log_x_start, log_x_t, t)
+
+        kl = (torch.exp(log_true_prob) * (log_true_prob - log_model_prob)).sum(-1).mean(-1)
+        decoder_nll = -(torch.exp(log_x_start) * log_model_prob).sum(-1).mean(-1)
+        at0 = (t == 0).float()
+        kl_loss = at0 * decoder_nll + (1 - at0) * kl
+        loss = (kl_loss / pt).mean()
+        losses = {"kl_loss": loss, "kl_per_sample": kl_loss}
+        if auxiliary_loss_weight > 0:
+            x0 = log_x_start[..., :-1]
+            kl_aux = (torch.exp(x0) * (x0 - log_x0_recon[..., :-1])).sum(-1).mean(-1)
+            kl_aux_loss = at0 * decoder_nll + (1 - at0) * kl_aux
+            w = aux_weight(t, self.T)
+            losses["aux_loss"] = (w * auxiliary_loss_weight * kl_aux_loss / pt).mean()
+            loss = loss + losses["aux_loss"]
+        return loss, losses
 
     def sample_single_step(
         self, log_z: torch.Tensor, logits_fn, t: int, sampling: SamplingConfig,
@@ -423,7 +487,7 @@ class LayoutDMGenerator:
         self.task = "uncond"
         self.image_hw = image_hw
         self.num_timesteps = num_timesteps
-        self.aux_w = auxiliary_loss_weight  # the training loss's (item 13); JAX configs pass it
+        self.aux_w = auxiliary_loss_weight
         self.with_retrieval = with_retrieval
         self.top_k = top_k
         self.diffusion = MaskAndReplaceDiffusion(tokenizer, num_timesteps, q_type, self.device)
@@ -434,6 +498,58 @@ class LayoutDMGenerator:
         # positions past a drawn count to PAD through the strong constraint
         self.use_seq_dist = use_seq_dist
         self.seq_dist = SeqLengthDistribution(tokenizer.max_seq_length)
+        # the timesteps' importance statistics: a 0.9-EMA of each t's squared
+        # KL and its count (`update_importance`)
+        self.Lt_history = np.zeros((num_timesteps,))
+        self.Lt_count = np.zeros((num_timesteps,))
+
+    # ---- training ------------------------------------------------------------------
+
+    def sample_time(self, B: int, rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+        """(t [B], p(t) [B]): uniform until every t has been seen more than 10
+        times, then in proportion to sqrt(E[KL^2]) (t = 0 weighted as t = 1)."""
+        T = self.num_timesteps
+        if not (self.Lt_count > 10).all():
+            return rng.integers(0, T, size=B), np.full((B,), 1.0 / T)
+        w = np.sqrt(self.Lt_history + 1e-10) + 1e-4
+        w[0] = w[1]
+        p = w / w.sum()
+        t = rng.choice(T, size=B, p=p)
+        return t, p[t]
+
+    def update_importance(self, t: np.ndarray, kl: np.ndarray) -> None:
+        """Fold a batch's per-sample KL (`kl_per_sample`) into the statistics."""
+        for ti, ki in zip(t, kl):
+            self.Lt_history[ti] = 0.9 * self.Lt_history[ti] + 0.1 * ki**2
+            self.Lt_count[ti] += 1
+
+    def preprocess(self, batch: dict, rng: np.random.Generator) -> tuple[dict, dict]:
+        """({'image', 't', 'pt', 'noise_seed'[, 'retrieved']}, {'seq'}) on the
+        device, drawing from `rng` as JAX does (the timesteps, then the
+        noise's seed)."""
+        layout, dev = batch["layout"], self.device
+        self.seq_dist.update(layout.mask.cpu().numpy())
+        seq = self.tokenizer.encode(layout)["seq"].to(dev)
+        t, pt = self.sample_time(seq.shape[0], rng)
+        inputs = {"image": device_image(batch["image"], dev),
+                  "t": torch.as_tensor(t.astype(np.int32), device=dev).long(),
+                  "pt": torch.as_tensor(pt.astype(np.float32), device=dev),
+                  "noise_seed": int(rng.integers(2**31))}
+        if self.with_retrieval:
+            inputs["retrieved"] = retrieved_tensors(
+                {k: batch["retrieved"][k] for k in RETRIEVED_KEYS}, dev)
+        return inputs, {"seq": seq}
+
+    def loss(self, inputs: dict, targets: dict) -> tuple[torch.Tensor, dict]:
+        """The diffusion loss of the core in its current mode (see the module
+        docstring); the aux holds kl_loss, aux_loss and kl_per_sample [B]."""
+        memory = self.core.encode_memory(inputs["image"], inputs.get("retrieved"))
+        seq = targets["seq"]
+        u = gumbel_uniforms((*seq.shape, self.diffusion.V), inputs["noise_seed"], seq.device)
+        return self.diffusion.loss(u, lambda x_t, t: self.core.decoder(x_t, memory, t), seq,
+                                   inputs["t"], inputs["pt"], self.aux_w)
+
+    # ---- sampling ------------------------------------------------------------------
 
     def build_condition(self, batch: dict, rng: np.random.Generator,
                         task: Optional[str] = None):

@@ -28,11 +28,21 @@ The latent: JAX draws a key from the caller's numpy rng,
 `int(rng.integers(2**31))`; the port draws the same integer (the numpy
 stream stays in step for later batches) and seeds a `torch.Generator` on
 the device with it, so z is not JAX's (torch cannot reproduce
-`jax.random`): parity passes JAX's z in.  The training side (posterior
-encoder, teacher-forced forward, loss, KL schedule) is ROADMAP.md Queue A
-item 15b; `sample(..., ref_duplicated_prefix=True)`, the reference's
-quadratic prefix loop that only JAX's torch-reference test calls, is not
-ported.
+`jax.random`): parity passes JAX's z in.
+
+Training is the cVAE's (`preprocess`, `loss`): the GA encoder
+(`vae_encoder`, K1 for its self-attention in eval mode, over the GT
+layout's embedding with its key mask) pooled by the learnable token gives
+(mu, logvar), z = mu + eps exp(logvar / 2), and the decoder, teacher-forced
+on [z, e_0, ..., e_{S-2}] with the PE'd target as its GA query, is scored by
+each attribute's cross-entropy plus kl_mult * kl_beta * KL.  eps comes from
+`seeded_normal`, a generator seeded with the numpy rng's next integer (JAX
+seeds `jax.random` with it: parity passes JAX's eps in).  kl_beta stays at
+1e-3 under the trainer, which calls no `update_per_epoch`, as in JAX.  The
+GT-layout embedding is named `layout_encoder`, which JAX's optimizer freezes
+by name (`train.optim`): the port follows.  `sample(...,
+ref_duplicated_prefix=True)`, the reference's quadratic prefix loop that
+only JAX's torch-reference test calls, is not ported.
 """
 
 from __future__ import annotations
@@ -59,6 +69,13 @@ from ralf_tpu_torch.models.resnet import ImageEncoder
 from ralf_tpu_torch.utils.device import resolve_device
 
 ATTRS = ("label", *GEO_KEYS)
+
+
+def seeded_normal(shape: tuple, seed: int, device) -> torch.Tensor:
+    """N(0, I) draws (the latent z of sampling, the posterior's eps in
+    training) from a generator on `device` seeded by `seed`."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device)
 
 
 class ICVTTokenizer:
@@ -262,6 +279,29 @@ class ICVTCore(nn.Module):
     def encode_image(self, image: torch.Tensor) -> torch.Tensor:
         return self.encoder(image)
 
+    def encode_posterior(self, ids: dict, img_memory: torch.Tensor, ga_k: torch.Tensor,
+                         eps: torch.Tensor) -> tuple:
+        """(z, mu, logvar [B, 1, d], the GT layout's embedding [B, S, d]): the GA
+        encoder over the embedding (its own GA query, the key mask of the
+        layout's elements), pooled by attention from the learnable token."""
+        layout_feature = self.layout_encoder(ids)
+        h = self.vae_encoder(layout_feature, img_memory, layout_feature, ga_k,
+                             tgt_keep=ids["mask"])
+        tok = self.learnable_token.expand(h.shape[0], -1, -1).to(h.dtype)
+        pooled = self.aap(tok, h, keep_to_bias(ids["mask"])[:, None, None, :])
+        mu, logvar = self.fc_mu(pooled), self.fc_var(pooled)
+        return eps * torch.exp(0.5 * logvar) + mu, mu, logvar, layout_feature
+
+    def forward(self, ids: dict, image: torch.Tensor, eps: torch.Tensor) -> tuple:
+        """The teacher-forced pass: ({attribute: logits [B, S, .]}, mu, logvar).
+        The GA query is the PE'd shifted target [z, e_0, ..., e_{S-2}]."""
+        img_memory = self.encoder(image)
+        ga_k = self.ga_key_grid(image.shape[0])
+        z, mu, logvar, layout_feature = self.encode_posterior(ids, img_memory, ga_k, eps)
+        shifted = self.pos_emb_1d(torch.cat([z, layout_feature[:, :-1]], dim=1))
+        h = self.vae_decoder(shifted, img_memory, shifted, ga_k, causal=True)
+        return self.layout_decoder(h), mu, logvar
+
     def embed_layout(self, ids: dict) -> torch.Tensor:
         return self.layout_encoder(ids)
 
@@ -288,7 +328,8 @@ class ICVTGenerator:
         self.cfg = cfg
         self.S = max_seq_length
         self.image_hw = image_hw
-        self.kl_mult = kl_mult  # the training loss's (item 15b); JAX configs pass it
+        self.kl_mult = kl_mult
+        self.kl_beta = 1e-3
         self.task = "uncond"
         self.icvt_tokenizer = ICVTTokenizer(num_labels)
         self.tokenizer = None
@@ -296,10 +337,47 @@ class ICVTGenerator:
                                                 image_hw=image_hw, cfg=cfg),
                                cfg, self.device, seed)
 
+    def update_per_epoch(self, epoch: int, warmup: int, max_epoch: int) -> None:
+        """The cyclical KL beta, 2 cycles: 1e-3 for the first half of a cycle,
+        then linear up to 0.3 at three quarters, then 0.3."""
+        period = max(max_epoch // 2, 1)
+        t = (epoch % period) / period
+        if t < 0.5:
+            beta = 0.001
+        elif t < 0.75:
+            beta = 0.001 + (0.3 - 0.001) * (t - 0.5) / 0.25
+        else:
+            beta = 0.3
+        self.kl_beta = beta
+
+    def preprocess(self, batch: dict, rng: np.random.Generator) -> tuple[dict, dict]:
+        """({'image', the ids of ATTRS, 'mask', 'vae_seed'}, {the ids of ATTRS})
+        on the device, the seed drawn from `rng` as JAX does."""
+        ids = {k: v.to(self.device) for k, v in
+               self.icvt_tokenizer.encode(batch["layout"]).items()}
+        inputs = {"image": device_image(batch["image"], self.device), **ids,
+                  "vae_seed": int(rng.integers(2**31))}
+        return inputs, {k: ids[k] for k in ATTRS}
+
+    def loss(self, inputs: dict, targets: dict) -> tuple[torch.Tensor, dict]:
+        """The sum of each attribute's cross-entropy (every position, BG
+        included) and kl_mult * kl_beta * KL(q(z | layout) || N(0, I))."""
+        image = inputs["image"]
+        eps = seeded_normal((image.shape[0], 1, self.cfg.d_model), inputs["vae_seed"],
+                            image.device)
+        out, mu, logvar = self.core({k: inputs[k] for k in (*ATTRS, "mask")}, image, eps)
+        losses = {}
+        for k in ATTRS:
+            lp = torch.log_softmax(out[k].float(), dim=-1)
+            losses[f"loss_recon_{k}"] = -lp.gather(-1, targets[k][..., None]).mean()
+        losses["loss_kl"] = -0.5 * torch.mean(1 + logvar - mu**2 - torch.exp(logvar))
+        total = sum(losses[f"loss_recon_{k}"] for k in ATTRS)
+        total = total + self.kl_mult * self.kl_beta * losses["loss_kl"]
+        return total, {**losses, "nll_loss": total}
+
     def draw_latent(self, B: int, seed: int) -> torch.Tensor:
         """z ~ N(0, I) [B, 1, d] from a generator on the device seeded by `seed`."""
-        g = torch.Generator(device=self.device).manual_seed(seed)
-        return torch.randn((B, 1, self.cfg.d_model), generator=g, device=self.device)
+        return seeded_normal((B, 1, self.cfg.d_model), seed, self.device)
 
     @torch.inference_mode()
     def sample(self, batch: dict, rng: np.random.Generator,

@@ -16,10 +16,17 @@ JAX only where the noise vanishes (`sampling.temperature=0` with
 deterministic sampling).  Step 0 re-masks everything: no position starts
 as [MASK], and `core.mask.batch_topk_mask` keeps JAX's -inf >= -inf quirk.
 
-The image encoder's self-attention takes K1; the decoder's does not (its
-bias is a [1, 1, S, S] zero matrix, as in JAX).  The tokenizer has the
-special tokens (pad, mask) and no BOS/EOS.  Training (`preprocess`, `loss`)
-is not ported yet (ROADMAP.md Queue A item 13).
+The image encoder's self-attention takes K1 in eval mode; the decoder's
+does not (its bias is a [1, 1, S, S] zero matrix, as in JAX).  The
+tokenizer has the special tokens (pad, mask) and no BOS/EOS.
+
+Training masks a random share of each sequence and predicts it back
+(`preprocess`, `loss`): the share is the schedule's rate at a uniform
+draw of the numpy rng, and the positions come from `draw_loss_mask`, a
+torch generator on the device seeded with the rng's next integer (JAX
+seeds `jax.random` with it, which torch cannot reproduce: parity passes
+JAX's mask in).  The loss is cross-entropy with smoothing 0.1 over the
+masked positions.
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ import torch
 from torch import nn
 
 from ralf_tpu_torch.core.conditioning import Condition, get_condition, normalize_task
-from ralf_tpu_torch.core.mask import batch_topk_mask, mask_schedule
+from ralf_tpu_torch.core.mask import batch_topk_mask, mask_schedule, sample_mask
 from ralf_tpu_torch.core.sampling import NEG_INF, SamplingConfig, sample
+from ralf_tpu_torch.core.seq_length import SeqLengthDistribution
 from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer
 from ralf_tpu_torch.models.base import (
     GeneratorConfig,
@@ -55,6 +63,14 @@ def remask_rate(t: int, T: int, schedule: str = "linear") -> np.float32:
     if schedule == "linear":
         return np.clip(np.float32(1.0 - float_t), np.float32(1e-6), np.float32(1.0))
     return mask_schedule(torch.tensor(np.float32(float_t)), schedule).numpy()
+
+
+def draw_loss_mask(ratio: torch.Tensor, T: int, seed: int) -> torch.Tensor:
+    """The training mask [B, T] bool: max(int(ratio * T), 1) positions of each
+    row, uniformly at random, from a generator on ratio's device seeded by `seed`."""
+    g = torch.Generator(device=ratio.device).manual_seed(seed)
+    every = torch.ones((ratio.shape[0], T), dtype=torch.bool, device=ratio.device)
+    return sample_mask(every, ratio, g)
 
 
 class MaskGITCore(nn.Module):
@@ -98,6 +114,35 @@ class MaskGITGenerator:
         self.pad_id = tokenizer.pad_id
         self.core = build_core(lambda: MaskGITCore(tokenizer.N_total, cfg), cfg, self.device, seed)
         self.token_mask = torch.as_tensor(tokenizer.token_mask, device=self.device)
+        self.seq_dist = SeqLengthDistribution(tokenizer.max_seq_length)  # the element-count EMA
+
+    def preprocess(self, batch: dict, rng: np.random.Generator) -> tuple[dict, dict]:
+        """Random masking: ({'seq': masked tokens, 'image'}, {'seq': tokens,
+        'loss_mask'}) on the device, drawing from `rng` as JAX does (the
+        rates, then the mask's seed)."""
+        layout = batch["layout"]
+        self.seq_dist.update(layout.mask.cpu().numpy())
+        seq = self.tokenizer.encode(layout)["seq"].to(self.device)
+        B, T = seq.shape
+        # rng's float64 draws rounded to fp32, as jnp.asarray rounds them
+        u = torch.from_numpy(rng.uniform(size=(B,)).astype(np.float32))
+        ratio = mask_schedule(u, self.schedule).to(self.device)
+        loss_mask = draw_loss_mask(ratio, T, int(rng.integers(2**31)))
+        inputs = {"seq": torch.where(loss_mask, self.mask_id, seq),
+                  "image": device_image(batch["image"], self.device)}
+        return inputs, {"seq": seq, "loss_mask": loss_mask}
+
+    def loss(self, inputs: dict, targets: dict) -> tuple[torch.Tensor, dict]:
+        """Cross-entropy with smoothing 0.1 (0.9 on the target, 0.1 / V on every
+        token) over the masked positions, divided by their count (at least 1)."""
+        logits = self.core(inputs["seq"], inputs["image"])
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        V = logp.shape[-1]
+        tgt_logp = logp.gather(-1, targets["seq"][..., None])[..., 0]
+        per_tok = -(0.9 * tgt_logp + (0.1 / V) * logp.sum(-1))
+        keep = targets["loss_mask"].float()
+        nll = (per_tok * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+        return nll, {"nll_loss": nll}
 
     def build_condition(self, batch: dict, rng: np.random.Generator,
                         task: Optional[str] = None):

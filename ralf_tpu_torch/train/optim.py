@@ -7,11 +7,18 @@
     `weight` too, so the mask is read from the flax path of each parameter
     (`utils.weights.flax_names`), the map the weights bridge goes by;
   * the image backbone's trunk (`/trunk/` in the path) at 0.1x the base LR;
-  * the frozen FIDNet tower (`/layout_encoder/`) outside the optimizer: no
-    update and no decay, as optax's `set_to_zero` gives it;
-  * optax's `clip_by_global_norm` before the groups, over every gradient:
-    g * max_norm / ||g|| when ||g|| > max_norm (torch's clip_grad_norm_
-    divides by ||g|| + 1e-6 instead);
+  * every leaf whose path holds `/layout_encoder/` outside the optimizer:
+    no update and no decay, as optax's `set_to_zero` gives it.  The rule was
+    meant for the FIDNet tower of RALF and RA-LayoutDM, but it reads the name
+    alone, so ICVT's GT-layout embedding (also `layout_encoder`) stays frozen
+    too, as in JAX;
+  * optax's `clip_by_global_norm` before the groups, over every gradient,
+    the frozen leaves' included: g * max_norm / ||g|| when ||g|| > max_norm
+    (torch's clip_grad_norm_ divides by ||g|| + 1e-6 instead).  A frozen
+    leaf keeps requires_grad, so that a gradient JAX computes for it (ICVT's
+    `layout_encoder` feeds the posterior and the shifted target) counts in
+    the norm; one that runs under no_grad (the FIDNet towers, JAX's
+    stop_gradient) gets none and counts as zero;
   * `set_learning_rate` rewrites the groups' LRs between epochs, the role
     of optax's inject_hyperparams.
 
@@ -29,7 +36,7 @@ from torch import nn
 from ralf_tpu_torch.utils.weights import flax_names
 
 TRUNK_KEY = "trunk"  # a segment of the image backbone's param path
-FROZEN_KEY = "layout_encoder"  # the frozen FIDNet tower of RALF
+FROZEN_KEY = "layout_encoder"  # frozen by name: the FIDNet towers, ICVT's embedding
 TRUNK_LR_SCALE = 0.1  # the trunk's LR against the base LR
 BETAS = (0.9, 0.999)  # optax's adamw defaults
 
@@ -45,7 +52,7 @@ def decay_mask(module: nn.Module) -> dict[str, bool]:
 
 
 def lr_group_labels(module: nn.Module) -> dict[str, str]:
-    """'frozen' for the FIDNet tower, 'trunk' for the image backbone body
+    """'frozen' for any `/layout_encoder/` path, 'trunk' for the image backbone body
     (0.1x LR), 'rest' elsewhere, by torch name."""
     labels = {}
     for name, path in _param_paths(module).items():
@@ -55,18 +62,29 @@ def lr_group_labels(module: nn.Module) -> dict[str, str]:
     return labels
 
 
+def global_norm(tensors: list) -> torch.Tensor:
+    """sqrt(sum of every element's square) as an fp32 0-dim tensor, summed in
+    fp64: torch's fp32 norm of a large CPU tensor drifts by up to 1e-5 from
+    optax's `global_norm` (measured on ICVT's gradients), which moves every
+    clipped gradient by as much."""
+    norms = torch._foreach_norm(tensors, 2, dtype=torch.float64)
+    return torch.linalg.vector_norm(torch.stack(norms)).float()
+
+
 class Optimizer:
-    """Clip, then AdamW over the trainable groups of `module` (see the
-    module docstring).  The caller sets requires_grad False on the frozen
-    parameters (`train.trainer.Trainer` does)."""
+    """Clip over every gradient, then AdamW over the trainable groups of
+    `module` (see the module docstring)."""
 
     def __init__(self, module: nn.Module, base_lr: float = 1e-4, weight_decay: float = 0.01,
                  clip_max_norm: float = 1.0) -> None:
         self.clip_max_norm = clip_max_norm
         labels, decay = lr_group_labels(module), decay_mask(module)
         groups: dict[tuple[str, bool], list] = {}
+        self.frozen = []
         for name, p in module.named_parameters():
-            if labels[name] != "frozen":
+            if labels[name] == "frozen":
+                self.frozen.append(p)
+            else:
                 groups.setdefault((labels[name], decay[name]), []).append(p)
         self.params = [p for ps in groups.values() for p in ps]
         self.opt = torch.optim.AdamW(
@@ -81,6 +99,8 @@ class Optimizer:
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
+        for p in self.frozen:
+            p.grad = None
 
     def step(self) -> None:
         for p in self.params:
@@ -88,7 +108,8 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         if self.clip_max_norm and self.clip_max_norm > 0:
             grads = [p.grad for p in self.params]
-            norm = torch.nn.utils.get_total_norm(grads)
+            frozen = [p.grad for p in self.frozen if p.grad is not None]
+            norm = global_norm(grads + frozen)
             # stays on the device: no read-back in the step
             torch._foreach_mul_(grads, torch.clamp(norm.new_tensor(self.clip_max_norm) / norm,
                                                    max=1.0))

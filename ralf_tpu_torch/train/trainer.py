@@ -41,7 +41,7 @@ from torch import nn
 
 from ralf_tpu_torch.core.layout import FIELDS, Layout
 from ralf_tpu_torch.models.dropout import set_dropout_generator
-from ralf_tpu_torch.train.optim import Optimizer, lr_group_labels
+from ralf_tpu_torch.train.optim import Optimizer
 from ralf_tpu_torch.train.schedulers import build_scheduler
 from ralf_tpu_torch.utils.weights import (
     export_params,
@@ -119,12 +119,12 @@ class Trainer:
     # ---- state -------------------------------------------------------------
 
     def init_state(self) -> TrainState:
-        """The generator's core as it stands, its trainable parameters
-        (all but the frozen tower's) requiring grad, and a fresh optimizer."""
+        """The generator's core as it stands, every parameter requiring grad
+        (as jax.grad differentiates the whole tree: a frozen leaf's gradient
+        counts in the clip's norm, `train.optim`), and a fresh optimizer."""
         core = self.gen.core
-        labels = lr_group_labels(core)
-        for name, p in core.named_parameters():
-            p.requires_grad_(labels[name] != "frozen")
+        for p in core.parameters():
+            p.requires_grad_(True)
         set_dropout_generator(core, self._dropout)
         opt = Optimizer(core, base_lr=self.cfg.lr, weight_decay=self.cfg.weight_decay,
                         clip_max_norm=self.cfg.clip_max_norm)

@@ -438,8 +438,9 @@ def test_fidnet_takes_k1_inside_the_ralf_train_step(pairs, wrapper_calls, job_ro
     tr.train_step(state, inputs, targets)
     assert tg.core.training and not tg.core.layout_encoder.training
     assert wrapper_calls == {"K1": 4, "K5": 0, "K6": 0}
-    assert all(p.grad is None and not p.requires_grad
-               for p in tg.core.layout_encoder.parameters())
+    # the tower requires grad, as every leaf does, but runs under no_grad
+    # (JAX's stop_gradient): no gradient reaches it
+    assert all(p.grad is None and p.requires_grad for p in tg.core.layout_encoder.parameters())
     tr.eval_step(state, inputs, targets)
     assert wrapper_calls == {"K1": 4 + 4 + 2, "K5": 0, "K6": 0}
 
@@ -658,8 +659,7 @@ def test_trainer_and_cli_refuse_what_waits_for_later_items(pairs, job_root):
     with pytest.raises(NotImplementedError, match="item 11"):
         TTrainer(type("G", (), {"cfg": bf16, "device": torch.device("cpu")})(),
                  TTrainConfig(job_dir=str(job_root)))
-    for preset, item in (("maskgit", "13"), ("layoutdm", "13"), ("cglgan", "14b"),
-                         ("dsgan_ra", "14b"), ("icvt", "15b")):
+    for preset, item in (("cglgan", "14b"), ("dsgan_ra", "14b")):
         with pytest.raises(NotImplementedError, match=f"item {item}$"):
             cli_train.main(["--experiment", preset, "--device", "cpu",
                             "--job-dir", str(job_root / preset)])
