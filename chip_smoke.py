@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of RALF's sample and training paths, and of the baselines'
-sample and training paths, on one CUDA card.
+sample and training paths (the GANs' adversarial training among them), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,10 @@ Run from the repository root.  Phases, each of which must pass:
               6 distinct cache sets in turn (past the L2); then K1, K5 and K6's
               gradients through their autograd.Functions at the main shapes
               against torch.autograd.grad of the reference their backward
-              recomputes, in bf16 and fp32
+              recomputes, in bf16 and fp32; and batched_lsa, the exact assignment
+              of the GANs' matching (no Pallas counterpart: JAX's is XLA
+              while-loops), equal to its plain version at B=32 and 128, n=10,
+              on random and tie-heavy costs
   4. check    the full-width RALF in fp32 on the card against the same weights on
               the CPU (plain versions): gallery features, encode_memory, greedy
               tokens of every decode configuration (shared memory through K2, K3
@@ -116,7 +119,21 @@ Run from the repository root.  Phases, each of which must pass:
               cli.inference on its checkpoint (--cond c, icvt uncond): files,
               launches (a step 0 or 4, a validation batch 6, 12, 12, 16, 12),
               coordinates in [0, 1], no violation
-  12. report  one JSON line of the kernels, the nvidia-smi line, and last
+  12. gan_train  CGL-GAN, DS-GAN and their RA variants as their presets make
+              them: one GAN step (generator step, then discriminator step) in
+              fp32 (dropout 0, adv_weight 1, batch 4) on the card against the
+              CPU (both losses, each subtree's update of both nets, the frozen
+              layout_encoders, BatchNorm's statistics, the assignment by the
+              targets it gives); for cglgan_ra and dsgan GANTrainer.fit_gan at
+              the training size (fp32, batch 32, dropout 0.1, adv_weight 1) for 4
+              GAN steps: exact K1 launches a generator step (8, 0) and a
+              discriminator step (10, 0), one batched_lsa a generator step,
+              finite losses, ms per GAN step and per step apart, samples/s, peak
+              memory, one profiled GAN step; then for all four cli.train --debug
+              (K1 20, 36, 0, 16; batched_lsa 2) and cli.inference on its
+              checkpoint (K1 6, 10, 0, 4): files, coordinates in [0, 1], no
+              violation
+  13. report  one JSON line of the kernels, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
 Every configuration is chosen here explicitly (q8_mxu is an argument of the
@@ -171,6 +188,9 @@ KERNELS = {  # name: (id, the TPU kernel it replaces, source), in the order of t
     "decode_attention_q8": ("K8", "ralf_tpu/ops/pallas/decode_attention.py:382",
                             "ralf_tpu_torch/ops/csrc/decode_attention.cu"),
     "stream_sum": ("K9", "scripts/probe_dma_rate.py:46", "ralf_tpu_torch/ops/csrc/stream_sum.cu"),
+    # replaces no Pallas kernel: JAX's exact assignment is XLA while-loops
+    "batched_lsa": ("LSA", "ralf_tpu/ops/assignment.py:99",
+                    "ralf_tpu_torch/ops/csrc/assignment.cu"),
 }
 LIBRARY = {  # what library_ms times: one PyTorch call, or for K5 and K6 an unfused sequence
     "encoder_attention": "F.scaled_dot_product_attention",
@@ -179,8 +199,10 @@ LIBRARY = {  # what library_ms times: one PyTorch call, or for K5 and K6 an unfu
     "encoder_self_attention": "sequence: F.linear to qkv -> F.scaled_dot_product_attention",
     "decode_attention": "F.scaled_dot_product_attention on k_t.transpose(-1, -2)",
     "stream_sum": "torch.sum(x, dims, dtype=torch.float32)",
+    "batched_lsa": "none (scipy's linear_sum_assignment runs on the host)",
 }
-MAIN_DTYPE = {"stream_sum": "int8"}  # the main path's case of each kernel; else bfloat16
+# the main path's case of each kernel; else bfloat16
+MAIN_DTYPE = {"stream_sum": "int8", "batched_lsa": "int32"}
 TASKS = ("uncond", "c", "cwh", "partial", "refinement", "relation", "gt")
 N_REQUESTS, BATCH, GALLERY, RETRIES = 3, 128, 256, 8
 CLI_BATCH, CLI_SEEDS = 64, 2  # the cli phase: the non-debug synthetic test split, one batch
@@ -235,6 +257,23 @@ ZOO_STEP_BATCH = 4  # the one-step check's canvases
 # encoder's K1). The other three's fits took 78 s of a 723 s run on one H100, whose
 # budget is about 600 s; their steps share the same trainer and backbone
 ZOO_TRAIN_FIT = ("layoutdm_ra", "icvt")
+# the gan_train phase, per preset: exact K1 launches of a generator step (the
+# discriminator's 4 encoder layers in eval mode; RA's FIDNet 4 more), of a discriminator
+# step (the generator's 6 encoder layers in eval mode, DS-GAN's none; RA's FIDNet 4), and
+# of cli.inference on one batch (the baselines phase's counts); one batched_lsa launch a
+# generator step
+GAN_TRAIN = {"cglgan": (4, 6, 6), "cglgan_ra": (8, 10, 10), "dsgan": (0, 0, 0),
+             "dsgan_ra": (4, 4, 4)}
+GAN_STEP_BATCH = 4  # the one-step check's canvases
+# the presets whose fit_gan runs at the training size: both discriminators, both
+# generator trunks, retrieval and the LSTM
+GAN_TRAIN_FIT = ("cglgan_ra", "dsgan")
+# batched_lsa in the kernels phase: (B, n) of a generator step at the training batch and
+# at a request's batch, the max_seq_length of the presets
+LSA_SHAPES = ((TRAIN_BATCH, 10), (BASELINE_BATCH, 10))
+# the fp32 operations of a Dijkstra step on one column: cur's 2 subtractions, the compare
+# with minv, the masked min, and the potentials' and minv's updates
+LSA_OPS_PER_COLUMN = 6
 
 
 class Failures(list):
@@ -269,12 +308,13 @@ def bound(nbytes: float, ops: float, op_type: str) -> tuple[float, str]:
 
 def counters():
     """The launch counter of every kernel wrapper, by kernel id."""
+    from ralf_tpu_torch.ops import assignment as asg
     from ralf_tpu_torch.ops import decode_attention as da
     from ralf_tpu_torch.ops import encoder_attention as ea
     from ralf_tpu_torch.ops import encoder_ffn as ef
     from ralf_tpu_torch.ops import stream_sum as ss
 
-    return {kid: next(getattr(m, n) for m in (ea, ef, da, ss) if hasattr(m, n))
+    return {kid: next(getattr(m, n) for m in (ea, ef, da, ss, asg) if hasattr(m, n))
             for n, (kid, _, _) in KERNELS.items()}
 
 
@@ -442,6 +482,7 @@ def kernel_cases(torch, dev):
     the test that explains each element outside the tolerance)."""
     import torch.nn.functional as F
 
+    from ralf_tpu_torch.ops import assignment as asg
     from ralf_tpu_torch.ops import decode_attention as da
     from ralf_tpu_torch.ops import encoder_attention as ea
     from ralf_tpu_torch.ops import encoder_ffn as ef
@@ -621,6 +662,21 @@ def kernel_cases(torch, dev):
                 2 * B * S * E * 3 * E + 4 * B * S * S * E, dn,
                 2**-8 * v_max if dtype == torch.bfloat16 else 0.0,
             ))
+    # the exact assignment: random costs first (the main row), then ties in every
+    # row (small integers) with one row of all equal costs, exactly equal to the plain
+    # version; the bound counts the Dijkstra steps these costs take
+    for (B, n), kind in [(shape, kind) for shape in LSA_SHAPES for kind in ("random", "ties")]:
+        if kind == "random":
+            cost = torch.randn(B, n, n, generator=g, device=dev)
+        else:
+            cost = torch.randint(0, 3, (B, n, n), generator=g, device=dev).float()
+            cost[0] = 1.0
+        steps = asg.batched_lsa_plain(cost.cpu(), return_steps=True)[1]
+        cases.append((
+            "batched_lsa", f"B={B} n={n} {kind}", "int32",
+            lambda c=cost: asg.batched_lsa(c), lambda c=cost: asg.batched_lsa_plain(c), None,
+            4 * B * n * n + 4 * B * n, LSA_OPS_PER_COLUMN * (n + 1) * steps, "float32", 0.0,
+        ))
     # K9 on one slab of the stream probe and its views (int8 first: the main row)
     B = STREAM_SHAPE[0]
     slab = torch.randint(-127, 128, STREAM_SHAPE, generator=g, device=dev, dtype=torch.int8)
@@ -2050,6 +2106,206 @@ def run_zoo_train(torch, fails: Failures, smi: list, overrides=()) -> dict:
     return counted.totals
 
 
+def gan_step_check(torch, fails: Failures, tmp: str, preset: str, overrides=()) -> None:
+    """One GAN step (the generator step, then the discriminator step) of a
+    GAN preset at full width in fp32 (dropout 0, adv_weight 1,
+    GAN_STEP_BATCH canvases) on the card and on the CPU, from the same seeded
+    weights of both nets and the same host batch: both losses, each
+    subtree's update of both nets, the frozen layout_encoder leaves,
+    BatchNorm's statistics (the discriminator's of its real pass), and the
+    assignment by the target it gives each query, exactly (the padded
+    no-object slots are equal targets whose tied columns costs an ulp apart
+    may order otherwise)."""
+    from ralf_tpu_torch.train.gan_trainer import GANTrainer
+    from ralf_tpu_torch.train.trainer import TrainConfig
+    from ralf_tpu_torch.utils.weights import export_params
+
+    over = ("model.dtype=float32", "model.dropout=0.0", *overrides)
+    built = {d: zoo_generator(preset, tmp, d, over) for d in ("cuda", "cpu")}
+    cfg, cpu_gen = built["cpu"]
+    batch = zoo_batches(cpu_gen, cfg, 1, GAN_STEP_BATCH, GALLERY, np.float32)[0]
+    out = {}
+    for d, (_, gen) in built.items():
+        gen.init_disc()
+        before = export_params(gen.core), export_params(gen.disc)
+        trainer = GANTrainer(gen, TrainConfig(job_dir=os.path.join(tmp, f"gan_step_{preset}_{d}")))
+        state, dis = trainer.init_states()
+        gen.adv_weight = 1.0
+        inputs, targets = gen.device_batch(*gen.preprocess(batch, np.random.default_rng(0)))
+        gm = trainer.gen_step(state, dis, inputs, targets)
+        dm = trainer.dis_step(dis, state, inputs, targets)
+        packed = targets["packed"].cpu()
+        rows = torch.arange(packed.shape[0])[:, None]
+        out[d] = {"g": float(gm["loss"]), "d": float(dm["loss_d"]), "before": before,
+                  "match": gm["match"].cpu(), "matched": packed[rows, gm["match"].cpu().long()],
+                  "after": (export_params(gen.core), export_params(gen.disc))}
+        del trainer, state, dis, gen
+    compare_step(fails, f"gan_train {preset} generator step",
+                 {d: (o["g"], o["before"][0], o["after"][0]) for d, o in out.items()})
+    compare_step(fails, f"gan_train {preset} discriminator step",
+                 {d: (o["d"], o["before"][1], o["after"][1]) for d, o in out.items()})
+    same = torch.equal(out["cuda"]["matched"], out["cpu"]["matched"])
+    same_idx = torch.equal(out["cuda"]["match"], out["cpu"]["match"])
+    fails.check(same, f"gan_train {preset} assignment card vs CPU: the matched targets equal="
+                      f"{same} (indices equal={same_idx})")
+    del built
+    torch.cuda.empty_cache()
+
+
+def run_gan_fit(torch, fails: Failures, counted: LaunchCounter, preset: str, tmp: str,
+                k1_gen: int, k1_dis: int, card: str, overrides=()) -> None:
+    """GANTrainer.fit_gan of a preset at its training size (full width, fp32,
+    TRAIN_BATCH, dropout 0.1, the non-debug synthetic train split, the RA
+    variants' neighbours from it) for TRAIN_STEPS GAN steps with adv_weight
+    forced to 1 (the first epoch's ramp gives 0), each generator and
+    discriminator step timed and its launches read: exactly k1_gen K1
+    launches and one batched_lsa a generator step, k1_dis K1 a
+    discriminator step, finite losses; it prints ms per GAN step (and each
+    step apart), samples/s, peak memory, then profiles one more GAN step."""
+    from ralf_tpu_torch.config import build_datasets
+    from ralf_tpu_torch.data.dataset import BatchLoader
+    from ralf_tpu_torch.retrieval.retriever import Retriever
+    from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
+    from ralf_tpu_torch.train.gan_trainer import GANTrainer
+
+    def want(**launches):
+        return {**dict.fromkeys(counted.totals, 0), **launches}
+
+    label = f"gan_train {preset} fit"
+    cfg, gen = zoo_generator(preset, tmp, "cuda", (f"train.job_dir={tmp}/fit_{preset}",
+                                                    "train.epochs=1", *overrides))
+    train_ds = build_datasets(cfg)[0]
+    loader = BatchLoader(train_ds, TRAIN_BATCH, transforms=cfg.transforms, seed=cfg.train.seed)
+    if gen.with_retrieval:
+        retriever = Retriever.build(train_ds, device="cuda")
+        table = retriever.precompute_table(train_ds, gen.top_k, is_train_split=True)
+        loader = RetrievalAugmentedLoader(loader, retriever, gen.top_k, table=table)
+    gen.update_per_epoch = lambda *_: setattr(gen, "adv_weight", 1.0)
+    trainer = GANTrainer(gen, cfg.train)
+    records = {"gen": [], "dis": []}
+    count = counters()
+
+    def instrumented(kind, inner, key):
+        def step(*args):
+            n0 = {k: c.launches for k, c in count.items()}
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            loss = float(inner(*args)[key])  # waits for the step
+            b = time.perf_counter()
+            records[kind].append({"loss": loss, "s": b - a,
+                                  "n": {k: c.launches - n0[k] for k, c in count.items()}})
+            return {key: torch.tensor(loss)}
+        return step
+
+    inner_gen, inner_dis = trainer.gen_step, trainer.dis_step
+    trainer.gen_step = instrumented("gen", inner_gen, "loss")
+    trainer.dis_step = instrumented("dis", inner_dis, "loss_d")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    (state, dis), n = counted(lambda: trainer.fit_gan(loader, num_steps_cap=TRAIN_STEPS))
+    t = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    gens, diss = records["gen"], records["dis"]
+    fails.check(len(gens) == len(diss) == TRAIN_STEPS
+                and all(r["n"] == want(K1=k1_gen, LSA=1) for r in gens)
+                and all(r["n"] == want(K1=k1_dis) for r in diss)
+                and n == want(K1=(k1_gen + k1_dis) * TRAIN_STEPS, LSA=TRAIN_STEPS),
+                f"{label}: {len(gens)} GAN steps, launches per generator step "
+                f"{sorted({str(r['n']) for r in gens})} (want K1 {k1_gen}, LSA 1), per "
+                f"discriminator step {sorted({str(r['n']) for r in diss})} (want K1 {k1_dis}); "
+                f"a call {n}")
+    losses = [r["loss"] for r in gens + diss]
+    with open(os.path.join(cfg.train.job_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    fails.check(all(math.isfinite(x) for x in losses) and len(recs) == 1
+                and gen.adv_weight == 1.0,
+                f"{label}: every loss finite ({', '.join(f'{x:.4f}' for x in losses)}); "
+                f"metrics.jsonl {recs}")
+    g_ms = [1e3 * r["s"] for r in gens[1:]]  # steps 2-4
+    d_ms = [1e3 * r["s"] for r in diss[1:]]
+    ms = statistics.median(a + b for a, b in zip(g_ms, d_ms))
+    print(f"  {label}: {ms:.2f} ms per GAN step (median of steps 2-4), generator step "
+          f"{statistics.median(g_ms):.2f} ms ({', '.join(f'{x:.2f}' for x in g_ms)}), "
+          f"discriminator step {statistics.median(d_ms):.2f} ms "
+          f"({', '.join(f'{x:.2f}' for x in d_ms)}), {TRAIN_BATCH / ms * 1e3:.1f} samples/s; "
+          f"peak memory {peak / 2**30:.2f} GiB; fit_gan call {t:.1f} s; fp32, batch "
+          f"{TRAIN_BATCH}, {card}", flush=True)
+    batch = next(iter(loader))
+    inputs, targets = gen.device_batch(*gen.preprocess(batch, np.random.default_rng(0)))
+
+    def gan_step():
+        inner_gen(state, dis, inputs, targets)
+        inner_dis(dis, state, inputs, targets)
+
+    profile_request(torch, f"{label} GAN step", gan_step)
+    del trainer, state, dis, gen
+
+
+def run_gan_train(torch, fails: Failures, smi: list, overrides=()) -> dict:
+    """Training CGL-GAN, DS-GAN and their RA variants on the card: per preset
+    the one-step check against the CPU, GANTrainer.fit_gan at the training
+    size (GAN_TRAIN_FIT's presets), then cli.train --debug ->
+    cli.inference; returns the launches of each kernel summed over the
+    counted calls.  `overrides` cut the models for a rehearsal without a
+    card; the script passes none."""
+    from ralf_tpu_torch.cli import inference
+    from ralf_tpu_torch.cli import train as cli_train
+
+    t0 = time.perf_counter()
+    counted = LaunchCounter()
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+
+    def want(**launches):
+        return {**dict.fromkeys(counted.totals, 0), **launches}
+
+    for preset, (k1_gen, k1_dis, k1_infer) in GAN_TRAIN.items():
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            gan_step_check(torch, fails, tmp, preset, overrides)
+            t_step = time.perf_counter() - t
+            if preset in GAN_TRAIN_FIT:
+                run_gan_fit(torch, fails, counted, preset, tmp, k1_gen, k1_dis, card, overrides)
+                torch.cuda.empty_cache()
+            t_fit = time.perf_counter() - t - t_step
+
+            # the entry points: cli.train --debug on the card (2 GAN steps of
+            # TRAIN_CLI_BATCH canvases, no validation), then cli.inference on its
+            # ckpt_final.npz, one batch of 16
+            job = os.path.join(tmp, "cli")
+            argv = ["--experiment", preset, "--synthetic", "--debug", "--batch-size",
+                    str(TRAIN_CLI_BATCH), "--job-dir", job, "--cache-dir",
+                    os.path.join(tmp, "cli_cache"), *overrides]
+            _, n = counted(lambda: cli_train.main(argv))
+            files = sorted(os.listdir(job))
+            expect = want(K1=2 * (k1_gen + k1_dis), LSA=2)
+            fails.check(n == expect and files == [
+                "ckpt_final.npz", "ckpt_final_dis.npz", "ckpt_final_dis_opt.pt",
+                "ckpt_final_opt.pt", "config.json", "metrics.jsonl"],
+                f"gan_train {preset} cli.train --debug: launches {n} (want {expect}); wrote "
+                f"{files}")
+            out_dir = os.path.join(job, "out_c")
+            argv = ["--job-dir", job, "--cond", "c", "--num-seeds", "1", "--batch-size", "16",
+                    "--out-dir", out_dir]
+            summary, n = counted(lambda: inference.main(argv))
+            with open(os.path.join(out_dir, "test_0.pkl"), "rb") as f:
+                records = pickle.load(f)["results"]
+            with open(os.path.join(out_dir, "test_0_violation.csv")) as f:
+                total, violated, rate = list(csv.reader(f))[1]
+            coords = [v for r in records for k in ("center_x", "center_y", "width", "height")
+                      for v in r[k]]
+            fails.check(n == want(K1=k1_infer) and len(records) == 16 and float(rate) == 0.0
+                        and all(0 <= v <= 1 for v in coords),
+                        f"gan_train {preset} cli.inference on the trained checkpoint (fp32, "
+                        f"--cond c): launches {n} (want K1 {k1_infer}), {len(records)} records, "
+                        f"{len(coords) // 4} elements with coordinates in [0, 1], violations "
+                        f"{violated}/{total}, {summary['ms_per_sample'][0]:.3f} ms per sample")
+        torch.cuda.empty_cache()
+        print(f"  gan_train {preset} {time.perf_counter() - t:.1f} s (step check {t_step:.1f} s, "
+              f"fit {t_fit:.1f} s)", flush=True)
+    print(f"  gan_train phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted.totals
+
+
 def main() -> int:
     import torch
 
@@ -2091,6 +2347,8 @@ def main() -> int:
     for kid, n in run_train(torch, tok, fails, smi).items():
         launches[kid] += n
     for kid, n in run_zoo_train(torch, fails, smi).items():
+        launches[kid] += n
+    for kid, n in run_gan_train(torch, fails, smi).items():
         launches[kid] += n
 
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,

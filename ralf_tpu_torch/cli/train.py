@@ -1,5 +1,5 @@
 """Training entry point, the counterpart of `ralf_tpu/cli/train.py` for every
-preset that JAX trains with its `Trainer` (all but the GANs):
+preset that JAX trains:
 
     python -m ralf_tpu_torch.cli.train --experiment ralf --dataset pku10 \\
         --job-dir tmp/jobs/ralf_pku --epochs 2 --synthetic \\
@@ -8,7 +8,12 @@ preset that JAX trains with its `Trainer` (all but the GANs):
 Dotted key=value overrides as in JAX.  It writes the job dir's
 `config.json` (JAX's format), trains with `train.trainer.Trainer` and writes
 `metrics.jsonl` and the checkpoints `ckpt_<tag>.npz` (the flat flax tree,
-which `cli.inference` reads) beside `ckpt_<tag>_opt.pt`.  `ralf` and
+which `cli.inference` reads) beside `ckpt_<tag>_opt.pt`.  The GAN presets
+(`cglgan`, `cglgan_ra`, `dsgan`, `dsgan_ra`) train with
+`train.gan_trainer.GANTrainer.fit_gan` on the train split alone, as in
+JAX: no validation, no `best` or step checkpoints, no `--resume`; they
+write `ckpt_final` (the generator) and `ckpt_final_dis` (the
+discriminator).  `ralf` and
 `layoutdm_ra` retrieve for every canvas of the train split from the others
 (`is_train_split`), through the cached top-k tables where the cache dir
 holds them; FIDNet runs on the B*K retrieved layouts in each step, as in
@@ -19,9 +24,8 @@ cache dir, as in serving.
 is the whole job (`cli.inference` builds the gallery from the train split).
 
 It runs on the card (`--device cuda`, the default, which raises without
-CUDA) or on the CPU with `--device cpu`.  These raise, naming the item of
-ROADMAP.md Queue A that ports them: the GAN presets (`cglgan`, `cglgan_ra`,
-`dsgan`, `dsgan_ra`; item 14b, their own trainer), and from `Trainer`,
+CUDA) or on the CPU with `--device cpu`.  These raise from `Trainer`,
+naming the item of ROADMAP.md Queue A that ports them:
 `train.gallery_shards > 1` (item 10) and `model.dtype=bfloat16` (item 11).
 """
 
@@ -71,7 +75,6 @@ def main(argv=None) -> str:
     from ralf_tpu_torch import cache as cache_mod
     from ralf_tpu_torch.config import (
         EXPERIMENTS,
-        UNPORTED,
         build_config,
         build_datasets,
         build_generator,
@@ -84,11 +87,6 @@ def main(argv=None) -> str:
     dev = resolve_device(args.device)
     cfg = build_config(args.experiment, args.overrides)
     generator = EXPERIMENTS[cfg.experiment]["generator"]
-    if generator in UNPORTED:
-        raise NotImplementedError(
-            f"experiment {cfg.experiment!r}: the port trains every generator but "
-            f"{sorted(UNPORTED)}; training {generator!r} comes with ROADMAP.md Queue A item "
-            f"{UNPORTED[generator]}")
     cfg.dataset = DatasetConfig(name=args.dataset, data_dir=args.data_dir)
     cfg.auxiliary_task = args.task
     cfg.debug = args.debug
@@ -148,9 +146,14 @@ def main(argv=None) -> str:
                                                 is_train_split=True, table=tables["train"])
         val_loader = RetrievalAugmentedLoader(val_loader, retriever, top_k, table=tables["val"])
 
-    trainer = Trainer(gen, cfg.train)
-    trainer.fit(train_loader, val_loader, num_steps_cap=2 if cfg.debug else None,
-                resume=args.resume)
+    cap = 2 if cfg.debug else None
+    if generator in ("cglgan", "dsgan"):
+        from ralf_tpu_torch.train.gan_trainer import GANTrainer
+
+        GANTrainer(gen, cfg.train).fit_gan(train_loader, num_steps_cap=cap)
+    else:
+        Trainer(gen, cfg.train).fit(train_loader, val_loader, num_steps_cap=cap,
+                                    resume=args.resume)
     print(f"done: {cfg.train.job_dir}")
     return cfg.train.job_dir
 

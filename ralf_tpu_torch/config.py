@@ -5,9 +5,7 @@ generator.
 
 A job's config serializes to `job_dir/config.json` in the JAX package's
 format, so each package loads what the other saved.  `build_generator`
-builds every preset (on `device`, the card by default); `UNPORTED` names
-the ROADMAP.md Queue A item that ports the training of the presets
-`cli.train` does not train yet.
+builds every preset (on `device`, the card by default).
 """
 
 from __future__ import annotations
@@ -211,10 +209,6 @@ def build_tokenizer(cfg: FrameworkConfig) -> Optional[LayoutSequenceTokenizer]:
             )
     tk["special_tokens"] = tuple(tk.get("special_tokens", ("pad", "bos", "eos")))
     return LayoutSequenceTokenizer(TokenizerConfig(**tk))
-
-
-# the generators whose training is not ported yet, and the ROADMAP.md item that ports it
-UNPORTED = {"cglgan": "14b", "dsgan": "14b"}
 
 
 def build_generator(cfg: FrameworkConfig, tokenizer=None, device="cuda"):

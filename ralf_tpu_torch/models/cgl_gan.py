@@ -1,6 +1,5 @@
 """CGL-GAN, the non-autoregressive transformer GAN baseline (and its
-retrieval-augmented variant): the counterpart of `ralf_tpu/models/cgl_gan.py`
-for sampling.
+retrieval-augmented variant): the counterpart of `ralf_tpu/models/cgl_gan.py`.
 
     memory = ImageEncoder(image + saliency, cgl FPN)               [B, M, D]
              (+ RetrievalAugmentation over the top-k neighbours)   [B, 2M+K, D]
@@ -17,8 +16,25 @@ the preset's 6 layers), the RA variant's FIDNet 4 more; the decoder's
 self-attention has a [1, 1, S, S] zero bias and its cross-attention
 unequal lengths, so both take the einsum path, as in JAX.
 
-The discriminator and the losses are not ported yet (ROADMAP.md Queue A
-item 14b).
+Training (`train.gan_trainer.GANTrainer`) adds the discriminator, built by
+`init_disc` when training asks for it (serving builds none):
+
+    packed = straight-through argmax(packed layout)   (the class row one-hot)
+    memory = ImageEncoder(image, resnet18, 4 layers, FFN 2048, cgl FPN)
+    h      = TransformerDecoder(PE1d(Conv1d(packed)) | memory), 4 layers
+    logit  = tanh(head(head_norm(h flattened to [B, S * D])))   (head: no bias)
+
+The generator's loss is the Hungarian-matched 2 CE + 5 L1 + 2 gIoU, plus
+`adv_weight` times the hinge of the discriminator (in eval mode, its
+parameters not differentiated) on the packed prediction; the
+discriminator's is `adv_weight` times the hinges of its fake pass (the
+generator's prediction in eval mode, under no_grad) and its real pass
+(the packed ground truth), both in train mode.  The BatchNorm statistics
+it keeps are the real pass's update of those before the step, and both
+passes draw the same dropout masks, as JAX's `disc_loss` gives them.  In
+the generator step the discriminator's image encoder takes K1 (4
+launches); in the discriminator step the generator's does (6) and the RA
+variant's FIDNet (4).
 """
 
 from __future__ import annotations
@@ -35,12 +51,15 @@ from ralf_tpu_torch.core.layout import Layout
 from ralf_tpu_torch.core.seq_length import SeqLengthDistribution
 from ralf_tpu_torch.models.base import GeneratorConfig, build_core, device_image
 from ralf_tpu_torch.models.gan_common import (
+    hinge_embedding_loss,
     pack_layout,
     random_init_layout,
     reorder,
+    set_criterion,
+    straight_through_argmax,
     unpack_outputs,
 )
-from ralf_tpu_torch.models.nn import TransformerDecoder
+from ralf_tpu_torch.models.nn import TransformerDecoder, layer_norm
 from ralf_tpu_torch.models.positional import PositionalEncoding1D
 from ralf_tpu_torch.models.ralf import RETRIEVED_KEYS, retrieved_tensors
 from ralf_tpu_torch.models.resnet import ImageEncoder
@@ -92,11 +111,61 @@ class CGLGeneratorCore(nn.Module):
         return self.fc_cls(h), torch.sigmoid(self.fc_box(h))
 
 
+class CGLDiscriminatorCore(nn.Module):
+    """The scalar critic in (-1, 1) of a packed layout on its canvas."""
+
+    def __init__(self, num_classes_total: int, cfg: GeneratorConfig = GeneratorConfig(),
+                 max_seq_length: int = 10) -> None:
+        super().__init__()
+        self.encoder = ImageEncoder("resnet18", cfg.d_model, cfg.nhead, 4, 2048, cfg.dropout,
+                                    fpn_style="cgl")
+        self.layout_encoder = Conv1dLayoutEncoder(2 * num_classes_total, cfg.d_model)
+        self.pos_emb_1d = PositionalEncoding1D(cfg.d_model, cfg.dropout)
+        self.decoder = TransformerDecoder(cfg.d_model, 8, 4, 2048, cfg.dropout)
+        self.head_norm = layer_norm(max_seq_length * cfg.d_model)
+        self.head = nn.Linear(max_seq_length * cfg.d_model, 1, bias=False)
+
+    def forward(self, image: torch.Tensor, packed_layout: torch.Tensor) -> torch.Tensor:
+        """[B] critic values."""
+        packed_layout = straight_through_argmax(packed_layout)
+        memory = self.encoder(image)
+        h = self.pos_emb_1d(self.layout_encoder(packed_layout))
+        h = self.decoder(h, memory, causal=False)
+        return torch.tanh(self.head(self.head_norm(h.reshape(h.shape[0], -1))))[:, 0]
+
+
+def pack_prediction(logits: torch.Tensor, boxes: torch.Tensor, K: int) -> torch.Tensor:
+    """The heads' outputs as a packed layout [B, S, 2, K]: the class row,
+    then the boxes zero-padded to K."""
+    return torch.stack([logits, F.pad(boxes, (0, K - 4))], dim=2)
+
+
+def _snapshot(module: nn.Module):
+    """A function that puts back `module`'s BatchNorm statistics and the
+    states of its dropout generators as they are now."""
+    buffers = {n: b for n, b in module.named_buffers()
+               if n.endswith(("running_mean", "running_var"))}
+    stats = {n: b.clone() for n, b in buffers.items()}
+    gens = {id(m.generator): m.generator for m in module.modules()
+            if getattr(m, "generator", None) is not None}
+    states = {k: g.get_state() for k, g in gens.items()}
+
+    def restore() -> None:
+        with torch.no_grad():
+            for n, b in stats.items():
+                buffers[n].copy_(b)
+        for k, g in gens.items():
+            g.set_state(states[k])
+    return restore
+
+
 class CGLGANGenerator:
     """The host-side conditioning and the one-pass sampler around
-    `CGLGeneratorCore`.  Weights are random from `seed` until
-    `utils.weights.load_jax_params` fills `self.core`; `device` defaults to
-    the card and raises when there is none."""
+    `CGLGeneratorCore`, and the losses of both nets.  Weights are random
+    from `seed` until `utils.weights.load_jax_params` fills `self.core`;
+    `device` defaults to the card and raises when there is none."""
+
+    LR_MULT_DIS = 10.0  # the discriminator's base LR against the generator's
 
     def __init__(self, num_labels: int, cfg: GeneratorConfig = GeneratorConfig(),
                  auxiliary_task: Optional[str] = "uncond", max_seq_length: int = 10,
@@ -119,11 +188,33 @@ class CGLGANGenerator:
         self.use_seq_dist = use_seq_dist
         self.seq_dist = SeqLengthDistribution(max_seq_length)
         self.coef = tuple([1.0] * self.K)
+        self.adv_weight = 1.0
+        self.seed = seed
         self.core = build_core(self._make_core, cfg, self.device, seed)
+        self.disc: Optional[nn.Module] = None  # built by init_disc
 
     def _make_core(self) -> nn.Module:
         return CGLGeneratorCore(self.K, self.cfg, self.with_retrieval, self.num_labels, self.S,
                                 self.top_k)
+
+    def _make_disc(self) -> nn.Module:
+        return CGLDiscriminatorCore(self.K, self.cfg, self.S)
+
+    def init_disc(self) -> nn.Module:
+        """Build the discriminator (random weights from the generator's seed
+        + 1) as `self.disc`, in eval mode."""
+        self.disc = build_core(self._make_disc, self.cfg, self.device, self.seed + 1)
+        return self.disc
+
+    def update_per_epoch(self, epoch: int, warmup: int, max_epoch: int) -> None:
+        """The adversarial weight of an epoch: 0 before `warmup`, then a
+        linear ramp to 1 at `max_epoch`."""
+        if epoch < warmup:
+            self.adv_weight = 0.0
+        elif epoch <= max_epoch:
+            self.adv_weight = (epoch - warmup) / max(max_epoch - warmup, 1)
+        else:
+            self.adv_weight = 1.0
 
     def preprocess(self, batch: dict, rng: np.random.Generator) -> tuple[dict, dict]:
         """(inputs, targets) of a batch, numpy: the random initial layout
@@ -189,15 +280,67 @@ class CGLGANGenerator:
                 init[b] = init[b, rng.permutation(self.S)]
         return init.astype(np.float32)
 
+    def device_batch(self, inputs: dict, targets: dict) -> tuple[dict, dict]:
+        """`preprocess`'s numpy (inputs, targets) as tensors on the device
+        (the targets given)."""
+        out = {"image": device_image(inputs["image"], self.device),
+               "layout": torch.as_tensor(inputs["layout"], device=self.device)}
+        if self.with_retrieval:
+            out["retrieved"] = retrieved_tensors(inputs["retrieved"], self.device)
+        dtypes = {"packed": torch.float32, "labels": torch.int64, "boxes": torch.float32}
+        return out, {k: torch.as_tensor(targets[k], device=self.device).to(dt)
+                     for k, dt in dtypes.items() if k in targets}
+
+    def _core(self, inputs: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.core(inputs["image"], inputs["layout"], inputs.get("retrieved"))
+
     @torch.inference_mode()
     def _forward(self, inputs: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """The core on `preprocess`'s inputs: (class logits, boxes)."""
-        image = device_image(inputs["image"], self.device)
-        packed = torch.as_tensor(inputs["layout"], device=self.device)
-        retrieved = None
-        if self.with_retrieval:
-            retrieved = retrieved_tensors(inputs["retrieved"], self.device)
-        return self.core(image, packed, retrieved)
+        return self._core(self.device_batch(inputs, {})[0])
+
+    # ---- losses (`device_batch`'s tensors) ----------------------------------------
+
+    def criterion(self, logits: torch.Tensor, boxes: torch.Tensor, targets: dict):
+        """(the reconstruction loss, its terms and the assignment)."""
+        empty_w = torch.tensor(self.coef, dtype=torch.float32, device=logits.device)
+        terms = set_criterion(logits, boxes, targets["labels"], targets["boxes"], empty_w, self.K)
+        weights = {"loss_ce": 2.0, "loss_bbox": 5.0, "loss_giou": 2.0}
+        return sum(terms[k] * w for k, w in weights.items()), terms
+
+    def loss(self, inputs: dict, targets: dict,
+             disc: Optional[nn.Module] = None) -> tuple[torch.Tensor, dict]:
+        """The generator's loss (the core in its caller's mode) and its
+        terms; with `disc` (in eval mode, its parameters not requiring
+        grad) also adv_weight times the hinge of its critic of the packed
+        prediction against the real label."""
+        logits, boxes = self._core(inputs)
+        total, aux = self.criterion(logits, boxes, targets)
+        if disc is not None:
+            fake = disc(inputs["image"], pack_prediction(logits, boxes, self.K))
+            adv = hinge_embedding_loss(fake, torch.ones_like(fake))
+            total = total + adv * self.adv_weight
+            aux["adv_fake"] = adv
+        aux["nll_loss"] = total
+        return total, aux
+
+    def disc_loss(self, inputs: dict, targets: dict) -> tuple[torch.Tensor, dict]:
+        """The discriminator's loss, `self.disc` in train mode: adv_weight
+        times (the hinge of its fake pass against -1 + that of its real pass
+        against +1).  The generator's prediction (the core in its caller's
+        mode, eval in the trainer) runs under no_grad.  The statistics kept
+        are the real pass's update of those before the call, and both passes
+        draw the same dropout masks."""
+        with torch.no_grad():
+            packed_pred = pack_prediction(*self._core(inputs), self.K)
+        restore = _snapshot(self.disc)
+        fake = self.disc(inputs["image"], packed_pred)
+        restore()
+        real = self.disc(inputs["image"], targets["packed"])
+        loss_fake = hinge_embedding_loss(fake, -torch.ones_like(fake))
+        loss_real = hinge_embedding_loss(real, torch.ones_like(real))
+        total = (loss_fake + loss_real) * self.adv_weight
+        return total, {"adv_fake": loss_fake, "adv_real": loss_real}
 
     def sample(self, batch: dict, rng: np.random.Generator) -> Layout:
         """Layouts for a batch (its image, ground-truth layout and, with

@@ -1,6 +1,5 @@
 """DS-GAN, the CNN-LSTM GAN baseline from PosterLayout (and its
-retrieval-augmented variant): the counterpart of `ralf_tpu/models/dsgan.py`
-for sampling.
+retrieval-augmented variant): the counterpart of `ralf_tpu/models/dsgan.py`.
 
     c0     = Dense_hw->2L(ResNetFPN(image, ralf FPN) as [B, D, h*w]) [B, 2L, D]
              (+ RetrievalAugmentation, its first 2L rows)
@@ -18,9 +17,23 @@ order before the Dense over its h*w positions (330 at 350x240).
 
 DS-GAN reorders its ground truth by the IoU-grouping order by default
 (`use_reorder=True`) and draws its random classes from `DS_COEF`.  Its
-image path takes no K1; the RA variant's FIDNet takes 4 launches.  The
-discriminator and the losses are not ported yet (ROADMAP.md Queue A item
-14b).
+image path takes no K1; the RA variant's FIDNet takes 4 launches.
+
+The discriminator (`init_disc`, for training) is
+
+    c0    = ImageToLSTMState(image, resnet18, 2 layers)             [B, 4, D]
+    out   = CNNLSTM(straight-through argmax(packed); c0), 2 layers  [B, S, 2D]
+    logit = tanh(fc_tf(out[:, -1]))                                 [B]
+
+Its LSTM stays in train mode whatever the discriminator's mode: the
+generator step backpropagates through the discriminator in eval mode, and
+cuDNN's RNN backward runs in training mode only.  The LSTM has no dropout,
+so the mode changes nothing of its numbers; its BatchNorms follow the
+discriminator's mode.  The generator's loss is the unweighted CE + L1 +
+gIoU plus `adv_weight` times the adversarial hinge (`apply_weight` False),
+and the adversarial weight ramps as (epoch - 1) / warmup, 1 after it.  The
+class head's softmax probabilities go into the criterion as its logits
+(it takes their softmax and log-softmax once more), as in JAX.
 """
 
 from __future__ import annotations
@@ -33,7 +46,7 @@ from torch import nn
 
 from ralf_tpu_torch.models.base import GeneratorConfig
 from ralf_tpu_torch.models.cgl_gan import CGLGANGenerator
-from ralf_tpu_torch.models.gan_common import DS_COEF
+from ralf_tpu_torch.models.gan_common import DS_COEF, straight_through_argmax
 from ralf_tpu_torch.models.resnet import ResNetFPNEncoder
 from ralf_tpu_torch.models.retrieval_augment import RetrievalAugmentation
 
@@ -109,9 +122,32 @@ class DSGeneratorCore(nn.Module):
         return torch.softmax(self.fc_cls(out), dim=-1), torch.sigmoid(self.fc_box(out))
 
 
+class DSDiscriminatorCore(nn.Module):
+    """The scalar critic in (-1, 1) of a packed layout on its canvas."""
+
+    def __init__(self, num_classes_total: int, cfg: GeneratorConfig = GeneratorConfig(),
+                 image_hw: tuple[int, int] = (350, 240)) -> None:
+        super().__init__()
+        self.encoder = ImageToLSTMState("resnet18", cfg.d_model, 2, image_hw)
+        self.cnnlstm = CNNLSTM(2 * num_classes_total, 32, cfg.d_model, 2)
+        self.fc_tf = nn.Linear(2 * cfg.d_model, 1)
+
+    def train(self, mode: bool = True) -> "DSDiscriminatorCore":
+        super().train(mode)
+        self.cnnlstm.BiLSTM_0.train()  # cuDNN's RNN backward needs it; no LSTM dropout
+        return self
+
+    def forward(self, image: torch.Tensor, packed_layout: torch.Tensor) -> torch.Tensor:
+        """[B] critic values."""
+        packed_layout = straight_through_argmax(packed_layout)
+        out = self.cnnlstm(packed_layout, self.encoder(image))[:, -1]
+        return torch.tanh(self.fc_tf(out))[:, 0]
+
+
 class DSGANGenerator(CGLGANGenerator):
-    """DS-GAN behind CGL-GAN's wrapper (the same conditioning and sampler):
-    its own core, class coefs, and the reorder on by default."""
+    """DS-GAN behind CGL-GAN's wrapper (the same conditioning, sampler and
+    discriminator step): its own cores, class coefs, adversarial ramp and
+    unweighted criterion, and the reorder on by default."""
 
     def __init__(self, num_labels: int, cfg: GeneratorConfig = GeneratorConfig(),
                  auxiliary_task: Optional[str] = "uncond", max_seq_length: int = 10,
@@ -125,3 +161,13 @@ class DSGANGenerator(CGLGANGenerator):
     def _make_core(self) -> nn.Module:
         return DSGeneratorCore(self.K, self.cfg, self.with_retrieval, self.num_labels, self.S,
                                self.top_k, self.image_hw)
+
+    def _make_disc(self) -> nn.Module:
+        return DSDiscriminatorCore(self.K, self.cfg, self.image_hw)
+
+    def update_per_epoch(self, epoch: int, warmup: int, max_epoch: int) -> None:
+        self.adv_weight = 1.0 if epoch > warmup else (epoch - 1) / max(warmup, 1)
+
+    def criterion(self, logits: torch.Tensor, boxes: torch.Tensor, targets: dict):
+        _, terms = super().criterion(logits, boxes, targets)
+        return terms["loss_ce"] + terms["loss_bbox"] + terms["loss_giou"], terms

@@ -12,6 +12,11 @@
     meant for the FIDNet tower of RALF and RA-LayoutDM, but it reads the name
     alone, so ICVT's GT-layout embedding (also `layout_encoder`) stays frozen
     too, as in JAX;
+  * an LSTM's input bias (`bias_ih_l*`) outside the optimizer and outside
+    the clip's norm: flax's cells have one bias a gate, which the weights
+    bridge writes into the hidden bias (`bias_hh_l*`) and holds the input
+    bias at zero; both get the same gradient, so training both would step
+    the sum twice and count its gradient twice in the norm;
   * optax's `clip_by_global_norm` before the groups, over every gradient,
     the frozen leaves' included: g * max_norm / ||g|| when ||g|| > max_norm
     (torch's clip_grad_norm_ divides by ||g|| + 1e-6 instead).  A frozen
@@ -29,6 +34,8 @@ parameter that got no gradient steps with a zero one, as optax's would.
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 from torch import nn
@@ -52,12 +59,14 @@ def decay_mask(module: nn.Module) -> dict[str, bool]:
 
 
 def lr_group_labels(module: nn.Module) -> dict[str, str]:
-    """'frozen' for any `/layout_encoder/` path, 'trunk' for the image backbone body
-    (0.1x LR), 'rest' elsewhere, by torch name."""
+    """'frozen' for any `/layout_encoder/` path, 'tied' for an LSTM's input
+    bias (no flax leaf), 'trunk' for the image backbone body (0.1x LR),
+    'rest' elsewhere, by torch name."""
     labels = {}
     for name, path in _param_paths(module).items():
         s = "/" + "/".join(path) + "/"
-        labels[name] = ("frozen" if f"/{FROZEN_KEY}/" in s
+        tied = re.fullmatch(r"bias_ih_l\d+(_reverse)?", name.rsplit(".", 1)[-1])
+        labels[name] = ("frozen" if f"/{FROZEN_KEY}/" in s else "tied" if tied
                         else "trunk" if f"/{TRUNK_KEY}/" in s else "rest")
     return labels
 
@@ -80,10 +89,12 @@ class Optimizer:
         self.clip_max_norm = clip_max_norm
         labels, decay = lr_group_labels(module), decay_mask(module)
         groups: dict[tuple[str, bool], list] = {}
-        self.frozen = []
+        self.frozen, self.tied = [], []
         for name, p in module.named_parameters():
             if labels[name] == "frozen":
                 self.frozen.append(p)
+            elif labels[name] == "tied":
+                self.tied.append(p)
             else:
                 groups.setdefault((labels[name], decay[name]), []).append(p)
         self.params = [p for ps in groups.values() for p in ps]
@@ -99,7 +110,7 @@ class Optimizer:
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
-        for p in self.frozen:
+        for p in self.frozen + self.tied:
             p.grad = None
 
     def step(self) -> None:

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels K1-K9 against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels K1-K9 and the exact assignment against their
+plain PyTorch versions, on the card.
 
 The kernels have no CPU mode, so every test here needs a CUDA card and skips
 without one.  On a machine with a card (which need not have JAX):
@@ -18,7 +19,9 @@ tail, and then the sum.  K6 in bf16 adds 2^-8 * max_j |v_j|: its q, k, v
 are rounded after fp32 sums in another order than the plain version's.
 K8 is held to the fp32 or bf16 tolerance of its output dtype: it keeps p in
 fp32, and only the order of its sums differs (an online softmax over 4
-warps' slices against the plain version's one softmax).
+warps' slices against the plain version's one softmax).  The assignment
+kernel equals its plain version exactly: the same fp32 operations in the
+same order, and the same first-index tie rule.
 """
 
 import itertools
@@ -28,6 +31,7 @@ import torch
 
 from ralf_tpu_torch.models import nn as tnn
 from ralf_tpu_torch.ops import _build
+from ralf_tpu_torch.ops import assignment as asg
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
 from ralf_tpu_torch.ops import encoder_ffn as ef
@@ -46,7 +50,8 @@ def dev():
     # session: on the card, a library loaded after it showed no kernels to
     # the sessions that followed
     da._lib()
-    for mod, name in ((ea, "encoder_attention"), (ef, "encoder_ffn"), (ss, "stream_sum")):
+    for mod, name in ((ea, "encoder_attention"), (ef, "encoder_ffn"), (ss, "stream_sum"),
+                      (asg, "assignment")):
         _build.library(name, mod._SIGNATURES)
     return torch.device("cuda")
 
@@ -1054,3 +1059,36 @@ def test_zoo_generator_on_the_card_equals_the_cpu(dev, experiment):
     assert float((mems["cuda"] - mems["cpu"]).abs().max()) < 1e-3
     assert float((toks["cuda"] == toks["cpu"]).float().mean()) >= 0.99
     assert launches == 1 + (0 if experiment == "maskgit" else 50) + (4 if with_retrieval else 0)
+
+
+def _lsa_costs(kind: str, B: int, n: int, g: torch.Generator, dev) -> torch.Tensor:
+    if kind == "random":
+        return torch.randn(B, n, n, generator=g, device=dev)
+    if kind == "ties":  # small integers: ties in every row
+        return torch.randint(0, 3, (B, n, n), generator=g, device=dev).float()
+    if kind == "equal":
+        return torch.full((B, n, n), 0.5, device=dev)
+    # the matching's clamp: some costs at 1e5
+    c = torch.randn(B, n, n, generator=g, device=dev)
+    return torch.where(torch.rand(B, n, n, generator=g, device=dev) < 0.3, 1e5, c)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "equal", "clamped"])
+@pytest.mark.parametrize("B,n", [(32, 10), (128, 10), (5, 1), (7, 32), (9, 17)])
+def test_batched_lsa_kernel_equals_plain(dev, kind, B, n):
+    g = torch.Generator(device=dev).manual_seed(B * n)
+    cost = _lsa_costs(kind, B, n, g, dev)
+    n0 = asg.batched_lsa.launches
+    out = asg.batched_lsa(cost)
+    torch.cuda.synchronize()
+    assert asg.batched_lsa.launches == n0 + 1 and out.dtype == torch.int32
+    assert torch.equal(out.cpu(), asg.batched_lsa_plain(cost.cpu()))
+    assert torch.equal(out, asg.batched_lsa_plain(cost))
+    assert bool((out.sort(dim=1).values == torch.arange(n, device=dev)).all())
+
+
+def test_batched_lsa_kernel_refuses_more_than_32_columns(dev):
+    with pytest.raises(ValueError, match="n <= 32"):
+        asg.batched_lsa(torch.zeros(2, 33, 33, device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        asg.batched_lsa(torch.zeros(2, 3, 3, device=dev, dtype=torch.float64))
