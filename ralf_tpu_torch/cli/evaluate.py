@@ -36,7 +36,6 @@ import torch
 from ralf_tpu_torch.core.layout import GEO_KEYS, Layout
 
 UNTRAINED_TAG = "untrained_torch"
-FIDNET_HEADS = ("fc_out_disc", "dec_fc_in", "dec_transformer", "fc_out_cls", "fc_out_bbox")
 
 
 def records_to_layout(records: list[dict], S: int, device="cpu") -> Layout:
@@ -69,28 +68,21 @@ def _take(layout: Layout, idx: np.ndarray) -> Layout:
 
 
 def build_fidnet(num_labels: int, S: int, fidnet_dir, device):
-    """(FIDNetV3 without its auxiliary heads on `device`, the GT-feature cache tag)."""
+    """(FIDNetV3 on `device` in eval mode, the GT-feature cache tag): the
+    trained one through `FIDNetTrainer.load`, as JAX's CLI loads it, else a
+    seeded one without its auxiliary heads."""
+    if fidnet_dir:
+        from ralf_tpu_torch.train.fid_trainer import FIDNetTrainer
+
+        trainer = FIDNetTrainer(num_labels, S, job_dir=fidnet_dir, device=device)
+        return trainer.load(), "trained"
     from ralf_tpu_torch.models.fidnet import FIDNetV3
-    from ralf_tpu_torch.utils.weights import load_jax_params, load_params_npz
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         fidnet = FIDNetV3(num_labels, max_bbox=S, aux_heads=False)
-    if fidnet_dir:
-        path = os.path.join(fidnet_dir, "fidnet_ckpt.npz")
-        if not os.path.exists(path):
-            orbax_dir = os.path.join(fidnet_dir, "fidnet_ckpt")
-            hint = (f"{orbax_dir} is an orbax checkpoint, which the port does not read; "
-                    if os.path.isdir(orbax_dir) else "")
-            raise FileNotFoundError(f"{hint}the port reads FIDNet's parameters from {path}, "
-                                    "a flat .npz of the flax tree (README.md)")
-        params, _ = load_params_npz(path)
-        load_jax_params(fidnet, {k: v for k, v in params.items() if k not in FIDNET_HEADS})
-        tag = "trained"
-    else:
-        tag = UNTRAINED_TAG
-        logging.warning("no --fidnet-dir: FID uses an UNTRAINED extractor (seeded torch init)")
-    return fidnet.to(device).eval(), tag
+    logging.warning("no --fidnet-dir: FID uses an UNTRAINED extractor (seeded torch init)")
+    return fidnet.to(device).eval(), UNTRAINED_TAG
 
 
 @torch.inference_mode()

@@ -23,10 +23,14 @@ cache dir, as in serving.
 `retriever` has nothing to train: as in JAX, the job dir's `config.json`
 is the whole job (`cli.inference` builds the gallery from the train split).
 
+With `model.dtype=bfloat16` every preset trains in bf16 with fp32
+parameters, as JAX's does: the trainer keeps the core fp32 and the steps
+run under autocast (`train.trainer`), and the checkpoints hold fp32, which
+both packages' `cli.inference` serve in either dtype.
+
 It runs on the card (`--device cuda`, the default, which raises without
-CUDA) or on the CPU with `--device cpu`.  These raise from `Trainer`,
-naming the item of ROADMAP.md Queue A that ports them:
-`train.gallery_shards > 1` (item 10) and `model.dtype=bfloat16` (item 11).
+CUDA) or on the CPU with `--device cpu`.  `train.gallery_shards > 1`
+raises from `Trainer`, naming ROADMAP.md Queue A item 10, which ports it.
 """
 
 from __future__ import annotations

@@ -3,6 +3,14 @@ and what every generator of the port does alike: building its core from
 a seed on its device (`build_core`), bringing a condition's canvases
 there (`device_image`), and the zoo's FFN width (`zoo_feedforward`).
 
+The config's dtype is the compute dtype, and `build_core` casts the core
+to it whole, which is how a core serves.  A core that trains keeps fp32
+parameters and BatchNorm statistics, as flax keeps `param_dtype` float32:
+the trainer casts it back to fp32 (`train.trainer.Trainer`) and its steps
+compute in the config's dtype under `torch.autocast` (`autocast`);
+`compute_dtype` gives the modules that dtype.  The kernels' wrappers run
+with autocast off (`ops._build.RecomputedBackward`).
+
 It holds every field of JAX's `GeneratorConfig`, with the same defaults, so
 that a job dir's `config.json` written by either package loads in the
 other.  `dropout` and `label_smoothing` are training fields; the sample
@@ -13,6 +21,7 @@ text JAX's `json.dump(..., default=str)` writes for one ("bfloat16",
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from typing import Any, Callable, Optional
@@ -69,6 +78,24 @@ def build_core(make: Callable[[], nn.Module], cfg: GeneratorConfig, device: torc
     core = core.to(device=device, dtype=cfg.dtype or torch.float32).eval()
     core.requires_grad_(False)
     return core
+
+
+def autocast(cfg: GeneratorConfig, device: torch.device):
+    """The context a train or eval step of an fp32 core runs in: autocast to
+    the config's dtype, or nothing for fp32."""
+    if cfg.dtype in (None, torch.float32):
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, dtype=cfg.dtype)
+
+
+def compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype a module computes in on `t`'s device: autocast's inside a
+    bf16 train step, else `t`'s own (a parameter's, where the core was
+    cast whole)."""
+    dev = t.device.type
+    if dev in ("cpu", "cuda") and torch.is_autocast_enabled(dev):
+        return torch.get_autocast_dtype(dev)
+    return t.dtype
 
 
 def device_image(image: Any, device: torch.device) -> torch.Tensor:

@@ -49,7 +49,7 @@ from torch import nn
 from ralf_tpu_torch.core.conditioning import normalize_task
 from ralf_tpu_torch.core.layout import Layout
 from ralf_tpu_torch.core.seq_length import SeqLengthDistribution
-from ralf_tpu_torch.models.base import GeneratorConfig, build_core, device_image
+from ralf_tpu_torch.models.base import GeneratorConfig, build_core, compute_dtype, device_image
 from ralf_tpu_torch.models.gan_common import (
     hinge_embedding_loss,
     pack_layout,
@@ -77,7 +77,7 @@ class Conv1dLayoutEncoder(nn.Module):
 
     def forward(self, packed: torch.Tensor) -> torch.Tensor:
         B, S = packed.shape[:2]
-        x = packed.reshape(B, S, -1).to(self.Conv_0.weight.dtype).transpose(1, 2)
+        x = packed.reshape(B, S, -1).to(compute_dtype(self.Conv_0.weight)).transpose(1, 2)
         x = F.max_pool1d(F.relu(self.Conv_0(x)), 3, stride=1, padding=1)
         return x.transpose(1, 2)
 
@@ -166,6 +166,7 @@ class CGLGANGenerator:
     `device` defaults to the card and raises when there is none."""
 
     LR_MULT_DIS = 10.0  # the discriminator's base LR against the generator's
+    FP32_TRAINING_ONLY = False  # GANTrainer refuses another model.dtype if set (DS-GAN)
 
     def __init__(self, num_labels: int, cfg: GeneratorConfig = GeneratorConfig(),
                  auxiliary_task: Optional[str] = "uncond", max_seq_length: int = 10,

@@ -57,6 +57,7 @@ from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer
 from ralf_tpu_torch.models.base import (
     GeneratorConfig,
     build_core,
+    compute_dtype,
     device_image,
     zoo_feedforward,
 )
@@ -374,9 +375,9 @@ class AdaLayerNorm(nn.Module):
     def forward(self, x: torch.Tensor, timestep: torch.Tensor) -> torch.Tensor:
         emb = (timestep.float() * self.t_scale)[:, None] * self.freqs.float()[None, :]
         emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
-        emb = self.Dense_0(F.silu(emb.to(x.dtype)))[:, None, :]
+        emb = self.Dense_0(F.silu(emb.to(compute_dtype(x))))[:, None, :]
         scale, shift = emb.chunk(2, dim=-1)
-        h = F.layer_norm(x, (self.d_model,), eps=LN_EPS)
+        h = F.layer_norm(x, (self.d_model,), eps=LN_EPS).to(compute_dtype(x))
         return h * (1 + scale) + shift
 
 

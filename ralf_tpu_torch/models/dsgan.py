@@ -15,6 +15,11 @@ whatever the model's dtype: flax's cells carry no dtype, so they compute in
 the fp32 of their parameters.  The FPN map flattens in (h, w) row-major
 order before the Dense over its h*w positions (330 at 350x240).
 
+DS-GAN trains in fp32 only: JAX's cannot be built at model.dtype=bfloat16
+(the initial carry comes from a bf16 Dense, the fp32 cells return an fp32
+one, and flax's scan refuses the change), so `GANTrainer` refuses another
+dtype (`FP32_TRAINING_ONLY`), as JAX's `init` raises.
+
 DS-GAN reorders its ground truth by the IoU-grouping order by default
 (`use_reorder=True`) and draws its random classes from `DS_COEF`.  Its
 image path takes no K1; the RA variant's FIDNet takes 4 launches.
@@ -148,6 +153,8 @@ class DSGANGenerator(CGLGANGenerator):
     """DS-GAN behind CGL-GAN's wrapper (the same conditioning, sampler and
     discriminator step): its own cores, class coefs, adversarial ramp and
     unweighted criterion, and the reorder on by default."""
+
+    FP32_TRAINING_ONLY = True  # JAX's cannot be built at a low dtype (module docstring)
 
     def __init__(self, num_labels: int, cfg: GeneratorConfig = GeneratorConfig(),
                  auxiliary_task: Optional[str] = "uncond", max_seq_length: int = 10,

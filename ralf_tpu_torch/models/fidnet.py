@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ralf_tpu_torch.core.layout import Layout
+from ralf_tpu_torch.models.base import compute_dtype
 from ralf_tpu_torch.models.nn import TransformerEncoder
 
 BBOX_KEYS = ("center_x", "center_y", "width", "height")
@@ -47,7 +48,7 @@ class FIDNetV3(nn.Module):
 
     def extract_features(self, layout: Layout) -> torch.Tensor:
         """Layout [B, S] -> CLS feature [B, d_model]."""
-        dtype = self.fc_bbox.weight.dtype
+        dtype = compute_dtype(self.fc_bbox.weight)
         bbox = torch.stack([layout.geo(k) for k in BBOX_KEYS], dim=-1).to(dtype)
         h = torch.cat([self.fc_bbox(bbox), self.emb_label(layout.label)], dim=-1)
         h = F.relu(self.enc_fc_in(h))  # [B, S, D]

@@ -34,6 +34,13 @@ dropout 0.  `use_qkv_folded` and `use_pallas` are the JAX modules' fields
 of the same names and, as there, off by default: set them on a built
 model's modules to run its encoders through K6 and K5.  Decode steps
 (S = 1) never take them.
+
+Inside a bf16 train step (fp32 parameters under autocast, `models.base`)
+the modules compute as flax's do at dtype bfloat16: K1 gets q, k, v in the
+compute dtype, the attention softmax runs in fp32 and is cast back, and
+LayerNorm takes its statistics in fp32 and returns the compute dtype.  No
+preset trains with the fused encoder's flags, and K5 and K6 take their
+inputs as the module holds them.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ralf_tpu_torch.models.base import compute_dtype
 from ralf_tpu_torch.models.dropout import Dropout
 from ralf_tpu_torch.models.positional import PositionalEncoding1D, sincos_1d
 from ralf_tpu_torch.ops.decode_attention import (
@@ -62,8 +70,19 @@ NEG_INF = -1e9
 LN_EPS = 1e-6  # flax LayerNorm's default epsilon (torch's is 1e-5)
 
 
+class LayerNorm(nn.LayerNorm):
+    """torch's LayerNorm at flax's epsilon, in the compute dtype.  Under
+    autocast (a bf16 train step, fp32 parameters) it is flax's
+    `LayerNorm(dtype=bfloat16)`: torch takes the statistics and the affine
+    in fp32 (flax's `_compute_stats` reduces in float32) and the result is
+    bf16 on either device (CUDA's autocast alone would return fp32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x).to(compute_dtype(x))
+
+
 def layer_norm(d: int) -> nn.LayerNorm:
-    return nn.LayerNorm(d, eps=LN_EPS)
+    return LayerNorm(d, eps=LN_EPS)
 
 
 def keep_to_bias(keep: torch.Tensor) -> torch.Tensor:
@@ -126,13 +145,15 @@ class MultiHeadAttention(nn.Module):
         key_only = bias is not None and bias.dim() == 4 and bias.shape[1:3] == (1, 1)
         if not self.training and S == M and (bias is None or key_only):
             key_bias = None if bias is None else bias[:, 0, 0, :].float().expand(B, M)
+            dt = compute_dtype(q_in)
             out = encoder_attention(
-                self.q_proj(q_in) * self.head_dim**-0.5,
-                k.reshape(B, M, self.d_model), v.reshape(B, M, self.d_model),
+                (self.q_proj(q_in) * self.head_dim**-0.5).to(dt),
+                k.reshape(B, M, self.d_model).to(dt), v.reshape(B, M, self.d_model).to(dt),
                 self.nhead, None if key_bias is None else key_bias.contiguous(),
             )
             return self.out_proj(out)
-        q = self._split(self.q_proj(q_in)) * torch.tensor(self.head_dim, dtype=q_in.dtype) ** -0.5
+        q = self._split(self.q_proj(q_in))
+        q = q * torch.tensor(self.head_dim, dtype=q.dtype) ** -0.5
         logits = torch.einsum("bshd,bmhd->bhsm", q, k).float()
         if bias is not None:
             logits = logits + bias.float()

@@ -31,7 +31,7 @@ from ralf_tpu_torch.core.conditioning import Condition
 from ralf_tpu_torch.core.layout import Layout
 from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer
 from ralf_tpu_torch.models.autoreg import AutoregGenerator, ConstraintEncoder
-from ralf_tpu_torch.models.base import GeneratorConfig
+from ralf_tpu_torch.models.base import GeneratorConfig, compute_dtype
 from ralf_tpu_torch.models.fidnet import FIDNetV3
 from ralf_tpu_torch.models.nn import TokenDecoder, layer_norm
 from ralf_tpu_torch.models.positional import PositionalEncoding1D
@@ -122,7 +122,7 @@ class RALFCore(nn.Module):
         """{'feats': [B, K, 256]} (or the layouts {'label': [B, K, S], ...})
         -> ref sequence [B, K, D]."""
         if retrieved.get("feats") is not None:
-            feats = retrieved["feats"].to(self.flag_emb.dtype)
+            feats = retrieved["feats"].to(compute_dtype(self.flag_emb))
             B, K = feats.shape[:2]
         else:
             B, K, S = retrieved["label"].shape

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ralf_tpu_torch.models.base import compute_dtype
 from ralf_tpu_torch.models.nn import TransformerEncoder
 from ralf_tpu_torch.models.positional import PositionEmbeddingSine2D
 
@@ -181,10 +182,10 @@ class ResNetFPNEncoder(nn.Module):
             self.proj = conv(512, d_model, 1, bias=True)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
-        dtype = self.trunk.conv1.weight.dtype
         if img.is_floating_point():
-            img = img.to(dtype)
-        else:  # uint8 ingress: normalized on the device
+            img = img.to(self.trunk.conv1.weight.dtype)
+        else:  # uint8 ingress: normalized on the device, in the compute dtype
+            dtype = compute_dtype(self.trunk.conv1.weight)
             img = img.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype)
         if self.normalize_rgb:
             mean = torch.tensor(IMAGENET_MEAN + (0.0,), dtype=img.dtype, device=img.device)

@@ -13,6 +13,7 @@ and this machine may have no nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -149,20 +150,30 @@ class RecomputedBackward(torch.autograd.Function):
     detached copies under enable_grad and returns torch.autograd.grad of
     it, as JAX's VJPs recompute their XLA references (there is no backward
     kernel).  Nothing outside `inputs` gets a gradient: K1's and K6's
-    key_bias, bound into `forward` and `reference`, get none, as in JAX."""
+    key_bias, bound into `forward` and `reference`, get none, as in JAX.
+    Both run with autocast off: inside a bf16 train step the inputs come
+    in the compute dtype, and the plain version and the reference compute
+    in theirs as the kernel does."""
 
     @staticmethod
     def forward(ctx, forward, reference, *inputs):
         ctx.reference = reference
         ctx.save_for_backward(*inputs)
-        return forward(*inputs)
+        with _no_autocast(inputs[0]):
+            return forward(*inputs)
 
     @staticmethod
     def backward(ctx, grad):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        with torch.enable_grad(), _no_autocast(grad):
             out = ctx.reference(*inputs)
         return (None, None, *torch.autograd.grad(out, inputs, grad))
+
+
+def _no_autocast(t: torch.Tensor):
+    """Autocast off on `t`'s device."""
+    return torch.autocast(t.device.type, enabled=False) if t.device.type in ("cpu", "cuda") \
+        else contextlib.nullcontext()
 
 
 def require_aligned(what: str, *tensors: torch.Tensor) -> None:

@@ -27,7 +27,9 @@ d_loss, sec}.  It saves `epoch{N}` (the generator) when
 `ckpt_final_dis.npz`, `ckpt_final_dis_opt.pt`.  As in JAX it runs no
 validation, writes no `best` or step checkpoint and does not resume.
 
-Dropout draws from two generators, the generator's and the
+Both steps compute in the config's dtype, with both nets cast to fp32 as
+`Trainer` casts its core (`models.base.autocast`); DS-GAN trains in fp32
+only, as in JAX.  Dropout draws from two generators, the generator's and the
 discriminator's, seeded before each step from (seed, step) as `Trainer`
 seeds its one; the discriminator's two passes draw the same masks.
 """
@@ -42,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ralf_tpu_torch.models.base import autocast
 from ralf_tpu_torch.models.dropout import set_dropout_generator
 from ralf_tpu_torch.train.optim import Optimizer
 from ralf_tpu_torch.train.schedulers import build_scheduler
@@ -52,6 +55,11 @@ logger = logging.getLogger(__name__)
 
 class GANTrainer(Trainer):
     def __init__(self, generator, cfg: TrainConfig, warmup_dis_epoch: int = 10) -> None:
+        if generator.FP32_TRAINING_ONLY and generator.cfg.dtype not in (None, torch.float32):
+            raise ValueError(
+                f"model.dtype={generator.cfg.dtype}: {type(generator).__name__} trains in "
+                "float32 only, as in JAX, whose DS-GAN cannot be built at a low dtype (flax's "
+                "LSTM scan refuses the bf16 initial carry its fp32 cells return in fp32)")
         super().__init__(generator, cfg)
         self.warmup_dis_epoch = warmup_dis_epoch
         self.scheduler_dis = build_scheduler(
@@ -67,7 +75,7 @@ class GANTrainer(Trainer):
         generator's `disc` if it has one, else a new one (`init_disc`), and
         its own optimizer."""
         state = self.init_state()
-        disc = self.gen.disc if self.gen.disc is not None else self.gen.init_disc()
+        disc = (self.gen.disc if self.gen.disc is not None else self.gen.init_disc()).float()
         for p in disc.parameters():
             p.requires_grad_(True)
         set_dropout_generator(disc, self._dropout_dis)
@@ -85,7 +93,8 @@ class GANTrainer(Trainer):
         dis_state.module.eval().requires_grad_(False)
         self._dropout.manual_seed(step_seed(self.cfg.seed, state.step))
         try:
-            loss, aux = self.gen.loss(inputs, targets, disc=dis_state.module)
+            with autocast(self.gen.cfg, self.gen.device):
+                loss, aux = self.gen.loss(inputs, targets, disc=dis_state.module)
             state.optimizer.zero_grad()
             loss.backward()
         finally:
@@ -100,7 +109,8 @@ class GANTrainer(Trainer):
         state.module.eval()
         dis_state.module.train()
         self._dropout_dis.manual_seed(step_seed(self.cfg.seed + 1, dis_state.step))
-        loss, aux = self.gen.disc_loss(inputs, targets)
+        with autocast(self.gen.cfg, self.gen.device):
+            loss, aux = self.gen.disc_loss(inputs, targets)
         dis_state.optimizer.zero_grad()
         loss.backward()
         dis_state.optimizer.step()

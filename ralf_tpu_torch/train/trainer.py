@@ -22,8 +22,14 @@ Tags: `best` (lowest val loss), `epoch{N}`, `final`, and the rolling `step`
 with `ckpt_step_meta.json` (epoch, step_in_epoch, global_step), written
 after the checkpoint through a `.tmp` file and os.replace.
 
-Training runs in fp32: bf16 training (fp32 master weights) waits for
-ROADMAP.md Queue A item 11, and `Trainer` raises for a bf16 generator.
+With `model.dtype=bfloat16` the steps compute in bf16 as JAX's do: `Trainer`
+casts the core it trains to fp32 (fp32 parameters and BatchNorm statistics,
+flax's param_dtype) and the forward and loss of each train and eval step run
+under `torch.autocast` (`models.base.autocast`); the gradients, the clip's
+norm, AdamW's moments and the checkpoints stay fp32.  A generator built at
+bf16 was cast whole (`models.base.build_core`), so its random weights come
+back rounded to bf16; weights loaded after the Trainer is built (a resume,
+`utils.weights.load_jax_params`) keep their fp32 values.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 from torch import nn
 
 from ralf_tpu_torch.core.layout import FIELDS, Layout
+from ralf_tpu_torch.models.base import autocast
 from ralf_tpu_torch.models.dropout import set_dropout_generator
 from ralf_tpu_torch.train.optim import Optimizer
 from ralf_tpu_torch.train.schedulers import build_scheduler
@@ -97,10 +104,7 @@ class Trainer:
             raise NotImplementedError(
                 f"train.gallery_shards={cfg.gallery_shards}: the row-sharded retrieval "
                 "gallery is multi-GPU work, not ported yet (ROADMAP.md Queue A item 10)")
-        if generator.cfg.dtype not in (None, torch.float32):
-            raise NotImplementedError(
-                f"model.dtype={generator.cfg.dtype}: bf16 training (fp32 master weights) is "
-                "not ported yet (ROADMAP.md Queue A item 11); train in float32")
+        generator.core.float()  # fp32 parameters and statistics; the steps cast at the ops
         self.gen = generator
         self.cfg = cfg
         self.scheduler = build_scheduler(cfg.scheduler, cfg.epochs, **cfg.scheduler_kwargs)
@@ -136,7 +140,8 @@ class Trainer:
         """Forward, loss, backward, clip and update; the metrics stay on the device."""
         state.module.train()
         self._dropout.manual_seed(step_seed(self.cfg.seed, state.step))
-        loss, aux = self.gen.loss(inputs, targets)
+        with autocast(self.gen.cfg, self.gen.device):
+            loss, aux = self.gen.loss(inputs, targets)
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()
@@ -145,7 +150,7 @@ class Trainer:
 
     def eval_step(self, state: TrainState, inputs: dict, targets: dict) -> dict:
         state.module.eval()
-        with torch.no_grad():
+        with torch.no_grad(), autocast(self.gen.cfg, self.gen.device):
             loss, _ = self.gen.loss(inputs, targets)
         return {"loss": loss}
 

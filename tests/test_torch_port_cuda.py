@@ -1092,3 +1092,78 @@ def test_batched_lsa_kernel_refuses_more_than_32_columns(dev):
         asg.batched_lsa(torch.zeros(2, 33, 33, device=dev))
     with pytest.raises(TypeError, match="float32"):
         asg.batched_lsa(torch.zeros(2, 3, 3, device=dev, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [11, 10])  # FIDNet's encoder (CLS + 10 elements), its decoder
+def test_encoder_attention_at_fidnet_training_shapes(dev, dtype, S):
+    """K1 as every FIDNet train step takes it: B=64, E=256, H=4 (Dh=64),
+    the layouts' key mask (column 0 kept: the CLS token, or a layout's first
+    element).  One launch; the forward against the plain version (bf16: an
+    element outside the tolerance must be one flipped rounding of a p,
+    chip_smoke.py's `k1_one_flip`); the gradients of q, k, v through the
+    autograd.Function against autograd of the plain version within
+    chip_smoke.py's `plain_gradients` allowance."""
+    import chip_smoke
+
+    g = torch.Generator(device=dev).manual_seed(S)
+    B, E, H = 64, 256, 4
+    q, k, v = (torch.randn(B, S, E, generator=g, device=dev) for _ in range(3))
+    q, k, v = (q * (E // H) ** -0.5).to(dtype), k.to(dtype), v.to(dtype)
+    keep = torch.rand(B, S, generator=g, device=dev) > 0.3
+    keep[:, 0] = True
+    bias = torch.where(keep, 0.0, -1e9)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = ea.encoder_attention.launches
+    out = ea.encoder_attention(*ins, H, bias)
+    assert ea.encoder_attention.launches == n + 1 and out.grad_fn is not None
+    ref = ea.encoder_attention_plain(q, k, v, H, bias)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    outside = (out.detach().float() - ref.float()).abs() > atol + rtol * ref.float().abs()
+    if dtype == torch.bfloat16 and bool(outside.any()):
+        explained, _ = chip_smoke.k1_one_flip(torch, q, k, v, H, bias)(out.detach(), outside)
+        assert bool(explained.all())
+    else:
+        assert not bool(outside.any())
+    gout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+    got = torch.autograd.grad(out, ins, gout)
+    want, allow = chip_smoke.plain_gradients(torch, "encoder_attention", ins, gout, H, bias)
+    for a, b, tol in zip(got, want, allow):
+        assert a.dtype == dtype and bool(((a.float() - b.float()).abs() <= tol).all())
+
+
+def test_fidnet_train_step_on_the_card_equals_the_cpu(dev):
+    """One FIDNetTrainer step at batch 64 (fp32, full width) on the card and
+    on the CPU from the same weights and draws: chip_smoke.py's
+    `fid_step_check` (the loss and its terms within 1e-4, each subtree's
+    update by cosine > 0.99 and norm ratio 0.97-1.03, 8 K1 launches)."""
+    import chip_smoke
+
+    from ralf_tpu_torch.data.dataset import BatchLoader, DatasetConfig, SyntheticPosterDataset
+
+    ds = SyntheticPosterDataset(DatasetConfig(name="synthetic"), size=64, seed=0)
+    batch = next(iter(BatchLoader(ds, 64, with_images=False, use_native=False, prefetch=0)))
+    fails = chip_smoke.Failures()
+    chip_smoke.fid_step_check(torch, fails, batch, 3, 10)
+    assert not fails
+
+
+def test_bf16_ralf_train_step_on_the_card_equals_the_cpu(dev, tmp_path):
+    """One RALF train step at model.dtype=bfloat16 (fp32 parameters,
+    autocast on both devices) at the kernels' width (d_model 256, 8 heads;
+    1+1 layers, resnet18, batch 4): chip_smoke.py's `train_step_check` at
+    bf16's tolerance (the loss within 1e-3, each subtree's update -- a
+    subtree of fewer than 64 elements: its gradient -- by cosine >= 0.95 and
+    norm ratio 0.9-1.1, BatchNorm's statistics' change), with every Linear's
+    and Conv2d's output bf16 on both devices."""
+    import chip_smoke
+
+    from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer, TokenizerConfig
+
+    tok = LayoutSequenceTokenizer(TokenizerConfig(num_labels=3, max_seq_length=10, num_bin=128))
+    model = dict(d_model=256, nhead=8, num_encoder_layers=1, num_decoder_layers=1,
+                 dim_feedforward=1024, backbone="resnet18")
+    fails = chip_smoke.Failures()
+    chip_smoke.train_step_check(torch, tok, fails, str(tmp_path), model, "bfloat16")
+    assert not fails

@@ -343,12 +343,12 @@ def test_dsgan_discriminator_keeps_its_lstm_in_train_mode(gans):
 _STEPS: dict = {}  # per preset: JAX's two step bodies, jitted with the adversarial weight
 
 
-def jax_steps(exp, entry, job_dir):
+def jax_steps(exp, entry, job_dir, mesh=None):
     """(trainer, gen_step(w, state, dis_state, inputs, targets, key),
     dis_step(w, dis_state, state, inputs, targets, key)) of JAX's
-    GANTrainer, compiled once per preset."""
+    GANTrainer on `mesh` (default: every device), compiled once per `exp`."""
     jg, v, dv, _, _ = entry
-    tr = JGANTrainer(jg, JTrainConfig(job_dir=str(job_dir), batch_size=BATCH))
+    tr = JGANTrainer(jg, JTrainConfig(job_dir=str(job_dir), batch_size=BATCH), mesh)
     if exp not in _STEPS:
         tr.tx = joptim.build_optimizer(v["params"], base_lr=tr.cfg.lr,
                                        weight_decay=tr.cfg.weight_decay,

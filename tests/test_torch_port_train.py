@@ -650,20 +650,19 @@ def test_resume_with_dropout_replays_the_run_bit_for_bit(pairs, job_root):
 
 
 def test_trainer_and_cli_refuse_what_waits_for_later_items(pairs, job_root):
-    from ralf_tpu_torch.cli import train as cli_train
-
+    """The row-sharded gallery waits for item 10.  bf16 training is ported
+    (item 11): the trainer takes a core cast whole to bf16, as serving
+    builds it, and trains it with fp32 master weights."""
     _, _, tg = pairs["autoreg"]
     with pytest.raises(NotImplementedError, match="item 10"):
         TTrainer(tg, TTrainConfig(job_dir=str(job_root), gallery_shards=2))
     bf16 = dataclasses.replace(tg.cfg, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TTrainer(type("G", (), {"cfg": bf16, "device": torch.device("cpu")})(),
-                 TTrainConfig(job_dir=str(job_root)))
-    # the GAN presets train through GANTrainer, which keeps Trainer's refusals
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli_train.main(["--experiment", "cglgan", "--synthetic", "--debug", "--device", "cpu",
-                        "--job-dir", str(job_root / "cglgan"), *CLI_TINY,
-                        "model.dtype=bfloat16"])
+    served = TAutoreg(tg.tokenizer, bf16, "uncond", image_hw=HW, device="cpu")
+    assert {t.dtype for t in served.core.state_dict().values() if t.is_floating_point()} == {
+        torch.bfloat16}
+    TTrainer(served, TTrainConfig(job_dir=str(job_root)))
+    assert {t.dtype for t in served.core.state_dict().values() if t.is_floating_point()} == {
+        torch.float32}
 
 
 CLI_TINY = ["model.d_model=32", "model.nhead=4", "model.num_encoder_layers=1",

@@ -208,8 +208,8 @@ def run_port(tg, v, job_dir, train_val, cap, on_step=None, **cfg):
     metrics)` sees each train step's output."""
     from ralf_tpu_torch.train.trainer import TrainConfig as TTrainConfig
 
-    load_jax_params(tg.core, v["params"], v.get("batch_stats"))
     tr = TTrainer(tg, TTrainConfig(job_dir=str(job_dir), batch_size=BATCH, **cfg))
+    load_jax_params(tg.core, v["params"], v.get("batch_stats"))  # into the trained (fp32) core
     losses, first = [], []
     step = tr.train_step
 
