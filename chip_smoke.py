@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of RALF's sample and training paths, and of the baselines'
-sample and training paths (the GANs' adversarial training among them), on one CUDA card.
+"""Drive the PyTorch port of RALF's sample and training paths (every fusion mode), of the
+baselines' sample and training paths (the GANs' adversarial training among them), of the
+feature towers and of the offline builders and image metrics, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -157,7 +158,32 @@ Run from the repository root.  Phases, each of which must pass:
               step) and DS-GAN refused (fp32 only, as in JAX); then cli.train
               --debug model.dtype=bfloat16 -> cli.inference for ralf and cglgan:
               exact launches, fp32 checkpoints
-  15. report  one JSON line of the kernels, the nvidia-smi line, and last
+  15. fusion  (after the slice phase) RALF's six other fusion modes at full width
+              (flag_concat_crossattn, crossattn, concat, adapter, pre_encoder,
+              post_encoder; random weights from seed 0): per mode one bf16 request
+              of 128 canvases in the CLI default, exactly K1 12 (18 for
+              post_encoder's modality encoder; pre_encoder's image encoder at
+              S=676) and K2 300, forced and legal tokens, finite layouts, ms per
+              request; then in fp32 encode_memory and greedy tokens of 2 canvases
+              on the card against the same weights on the CPU
+  16. towers  (after the stream phase) each feature tower at full size in fp32
+              (VGG16 at 224, InceptionV3 at 299, CLIP's ViT-B/16 and DreamSim at
+              224, AlexNet's LPIPS taps at 224; seeded random weights, no
+              checkpoint): card against CPU within 1e-4 of the largest magnitude on
+              2 canvases, and ms per batch of 64 350x240 canvases, resize included
+  17. builders (after the fid_train phase) cli.build_caches on the synthetic
+              debug splits (64/16/16): --what retrieval --backbone dreamsim, then
+              with --rerank mmr and --rerank lpips (tables' shapes, neighbours in
+              the gallery and never the canvas itself, the lpips tables a reorder
+              of the dreamsim ones and equal to the CPU's lpips_rerank of the same
+              candidates, gallery features that tell the canvases apart), --what
+              clusters and --what relationships (the pickles); s per call (toy
+              size, host-bound); then cli.evaluate --image-metrics on the cli
+              phase's c pickles beside the same call without it and the same call
+              with --device cpu: JAX's keys, positive image_fid and R_shm equal to
+              the CPU's (IMAGE_TOL), the other scores unchanged, K1 12 each on the
+              card
+  18. report  one JSON line of the kernels, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
 Every configuration is chosen here explicitly (q8_mxu is an argument of the
@@ -314,6 +340,28 @@ LSA_SHAPES = ((TRAIN_BATCH, 10), (BASELINE_BATCH, 10))
 # the fp32 operations of a Dijkstra step on one column: cur's 2 subtractions, the compare
 # with minv, the masked min, and the potentials' and minv's updates
 LSA_OPS_PER_COLUMN = 6
+# the fusion phase: RALF's six fusion ablations (the final architecture is the slice's);
+# per mode the exact K1 launches of a CLI-default request of 128 canvases (the image
+# encoder's 6 layers, at S = 2M+K = 676 in pre_encoder, and the constraint encoder's 6;
+# post_encoder's modality encoder 6 more at S = M+K = 346) and K2's 300 (6 layers x 50
+# steps over the shared bf16 memory of 2M+K+Lc, 2M+Lc or M+K+Lc tokens)
+FUSION = {"flag_concat_crossattn": 12, "crossattn": 12, "concat": 12, "adapter": 12,
+          "pre_encoder": 12, "post_encoder": 18}
+FUSION_CHECK = 2  # canvases of the fp32 card-vs-CPU check
+# the towers phase: each feature tower's kind (its input size in models/towers.py) and
+# the canvases of its card-vs-CPU check and of its timed batch; limit: JAX's tower tests'
+TOWERS = ("vgg", "inception", "clip", "dreamsim", "lpips_alex")
+TOWER_CHECK, TOWER_BATCH, TOWER_TOL = 2, 64, 1e-4
+# the builders phase: cli.build_caches on the synthetic debug splits (64/16/16 canvases),
+# top-16 tables; the LPIPS rerank of each split's top-4 (every candidate canvas is made
+# on the host again: 16 ms each)
+BUILD_TOP_K, LPIPS_TOP_K = 16, 4
+IMAGE_KEYS = ["image_precision", "image_recall", "image_density", "image_coverage",
+              "image_fid", "R_shm"]  # cli.evaluate --image-metrics, after SCORE_KEYS
+# card against CPU, relative: the towers agree within about 1e-6 of their largest
+# feature (the towers phase); FID's matrix square root may amplify that, R_shm is a
+# mean of distances; prdc counts neighbours and is exact unless two distances tie
+IMAGE_TOL = {"image_fid": 1e-3, "R_shm": 1e-4}
 
 
 class Failures(list):
@@ -583,7 +631,8 @@ def kernel_cases(torch, dev):
         # (FIDNet at the train step's B*K = 512 is among them); then the zoo's:
         # the diffusion decoders' self-attention (S = L = 50, no mask) at a request
         # of 128 and the cli's batch of 64, RA-LayoutDM's FIDNet over B*K = 2048;
-        # then the train and bf16_train phases' encoders at batch 32 (constraint
+        # the fusion phase's pre_encoder (S = 2M+K = 676) and post_encoder modality
+        # encoder (S = M+K = 346) at a request of 128; then the train and bf16_train phases' encoders at batch 32 (constraint
         # lengths of uncond and c; CGL-GAN-RA's image encoders); in fp32 also FIDNet's
         # decoder in a fid_train step (its encoder's (64, 11) is the cli's batch
         # above); last ICVT's image encoder, E=200 and Dh=25, padded to 32 in the
@@ -592,7 +641,8 @@ def kernel_cases(torch, dev):
                      (128, 89, 8, True), (256, 11, 4, True), (1, 11, 4, True),
                      (16, 1024, 8, False), (64, 330, 8, False), (64, 23, 8, True),
                      (64, 4, 8, True), (1, 4, 8, True), (512, 11, 4, True), (64, 11, 4, True),
-                     (128, 50, 8, False), (64, 50, 8, False), (2048, 11, 4, True))
+                     (128, 50, 8, False), (64, 50, 8, False), (2048, 11, 4, True),
+                     (128, 676, 8, False), (128, 346, 8, False))
         k1_shapes = tuple(shape + (256,) for shape in k1_shapes + TRAIN_K1_SHAPES + (
             FID_K1_SHAPES if dtype == torch.float32 else ()))
         k1_shapes += tuple((B, S, H, False, E) for B, S, H, E in K1_PADDED_SHAPES)
@@ -1156,6 +1206,26 @@ def tensor_core_gemm(name: str) -> bool:
         m in n for m in ("gemm", "conv", "fprop", "dgrad", "wgrad", "tensorop")))
 
 
+def device_events(torch, prof) -> tuple[dict, dict]:
+    """The CUDA records of a finished `torch.profiler.profile`, summed by
+    name as `key_averages()` sums them (its filters and its demangled
+    names): ({kernel: (device us, count)}, {record_function span: (us,
+    count)}).  The spans cover kernels on the device timeline."""
+    from torch.autograd import DeviceType
+
+    kernels, spans, names = {}, {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        raw = e.name()
+        if raw not in names:
+            names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        into = spans if e.is_user_annotation() else kernels
+        us, n = into.get(names[raw], (0.0, 0))
+        into[names[raw]] = (us + e.duration_ns() / 1e3, n + 1)
+    return kernels, spans
+
+
 def profile_request(torch, label: str, run) -> dict:
     """One more request (or train step) under torch.profiler: the summed
     CUDA kernel time against the host wall time (the device's busy share),
@@ -1165,8 +1235,12 @@ def profile_request(torch, label: str, run) -> dict:
     record_function range (the optimizer's step) spans kernels on the device
     timeline: it is printed, not summed.  For information; it checks
     nothing.  Returns {"wall_ms", "kernel_ms", "busy", "launches",
-    "tensor_core_share"} (empty without device time)."""
-    from torch.autograd import DeviceType
+    "tensor_core_share"} (empty without device time).
+
+    The device events are summed by name straight from Kineto's records
+    (`device_events`): `key_averages()` builds a Python event for each of
+    the request's some 200 thousand host and device records first, about
+    20 s a request, where this takes about 1."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1174,10 +1248,9 @@ def profile_request(torch, label: str, run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    spans = [e for e in events if getattr(e, "is_user_annotation", False)]
-    rows = [(e.self_device_time_total, e.count, e.key) for e in events
-            if e not in spans]  # the kernels themselves, not the ops above them
+    t = time.perf_counter()
+    kernels, spans = device_events(torch, prof)
+    rows = [(us, n, key) for key, (us, n) in kernels.items()]
     if not rows:
         print(f"  {label} profile: no device time recorded (busy share not measured)", flush=True)
         return {}
@@ -1187,8 +1260,8 @@ def profile_request(torch, label: str, run) -> dict:
     print(f"  {label} profile: wall {wall_us / 1e3:.1f} ms, kernels {busy / 1e3:.1f} ms on the "
           f"device ({100 * busy / wall_us:.1f}% busy), {launches} launches, "
           f"{100 * tc:.1f}% of the kernel time in bf16 tensor-core GEMMs and convolutions"
-          + "".join(f"; span {e.key} {e.device_time_total / 1e3:.2f} ms" for e in spans),
-          flush=True)
+          + "".join(f"; span {key} {us / 1e3:.2f} ms" for key, (us, _) in spans.items())
+          + f" (records read in {time.perf_counter() - t:.1f} s)", flush=True)
     ranked = sorted(rows, reverse=True)
     for us, n, key in ranked[:8] + [r for r in ranked[8:] if "ralf::" in r[2]]:
         print(f"    {us / 1e3:8.2f} ms {100 * us / busy:5.2f}% {n:6d}x {key[:90]}", flush=True)
@@ -2729,6 +2802,241 @@ def run_bf16_train(torch, tok, fails: Failures, smi: list, overrides=()) -> dict
     return counted.totals
 
 
+def run_fusion(torch, tok, fails: Failures, smi: list) -> dict:
+    """RALF's six other fusion modes at full width: per mode one bf16 request
+    of BATCH canvases in the CLI-default configuration (exact K1 and K2
+    launches, forced and legal tokens, finite layouts, ms), then in fp32
+    encode_memory and greedy tokens on the card against the same weights on
+    the CPU for FUSION_CHECK canvases; returns the counted launches."""
+    from ralf_tpu_torch.core.conditioning import build_forced_tokens
+    from ralf_tpu_torch.core.sampling import SamplingConfig
+    from ralf_tpu_torch.models.base import GeneratorConfig
+    from ralf_tpu_torch.models.ralf import RALFGenerator
+
+    t0 = time.perf_counter()
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+    counted = LaunchCounter()
+    sampling = SamplingConfig(name="top_p", top_p=0.9, temperature=1.0)
+    greedy = SamplingConfig(name="deterministic")
+    L = tok.max_token_length
+    retriever = batches = check = check_retriever = None
+    for mode, k1 in FUSION.items():
+        gen = RALFGenerator(tok, GeneratorConfig(dtype=torch.bfloat16), "uncond", top_k=16,
+                            fusion=mode, device="cuda", seed=0)
+        if retriever is None:
+            retriever, _, batches = build_gallery_and_batches(gen, "cuda", 1, BATCH, GALLERY)
+        batch = dict(batches[0])
+        feats = gen.precompute_retrieved_feats(retriever.layouts)
+        batch["retrieved"] = {**batch["retrieved"], "feats": feats[batch["retrieved_indices"]]}
+
+        def request(seed):
+            cond, _ = gen.build_condition(batch, np.random.default_rng(seed))
+            forced = build_forced_tokens(cond, tok)
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            mem = gen.encode_memory(cond)
+            toks = gen.decode(mem, forced, sampling,
+                              torch.Generator(device="cuda").manual_seed(seed))
+            torch.cuda.synchronize()
+            return cond, mem, toks, time.perf_counter() - a
+
+        request(99)  # warm-up, outside the counted run
+        (cond, mem, toks, dt), n = counted(lambda: request(0))
+        want = {**dict.fromkeys(counted.count, 0), "K1": k1, "K2": 6 * L}
+        forced = torch.as_tensor(build_forced_tokens(cond, tok), device=toks.device)
+        forced_ok = bool((toks[forced >= 0] == forced[forced >= 0]).all())
+        legal = bool(gen.token_mask[torch.arange(L, device=toks.device)[None, :], toks].all())
+        layout = tok.decode(toks)
+        finite = all(bool(torch.isfinite(layout.geo(k)).all())
+                     for k in ("center_x", "center_y", "width", "height"))
+        fails.check(n == want and forced_ok and legal and finite
+                    and tuple(toks.shape) == (BATCH, L),
+                    f"fusion {mode}: memory {tuple(mem.shape)}, launches {n} (want {want}), "
+                    f"forced tokens in place={forced_ok}, tokens legal={legal}, layouts finite="
+                    f"{finite} ({int(layout.mask.sum())} elements)")
+        print(f"  fusion {mode}: {dt * 1e3:.1f} ms per request of {BATCH} (encode and decode; "
+              f"bf16, {card})", flush=True)
+        del gen
+
+        # fp32: the card against the CPU on the same weights
+        gens = {d: RALFGenerator(tok, GeneratorConfig(dtype=torch.float32), "uncond", top_k=16,
+                                 fusion=mode, device=d, seed=0) for d in ("cuda", "cpu")}
+        if check is None:  # the check's gallery and canvases, made once, as reference_check's
+            check_retriever, _, (check,) = build_gallery_and_batches(
+                gens["cpu"], "cpu", 1, FUSION_CHECK, 64, np.float32)
+        mems, conds = {}, {}
+        for d, g in gens.items():
+            b = dict(check)
+            table = g.precompute_retrieved_feats(check_retriever.layouts)
+            b["retrieved"] = {**b["retrieved"], "feats": table[b["retrieved_indices"]]}
+            conds[d], _ = g.build_condition(b, np.random.default_rng(1), task="c")
+            mems[d] = g.encode_memory(conds[d]).cpu()
+        forced = build_forced_tokens(conds["cpu"], tok)
+        toks = {d: g.decode(mems["cpu"].to(g.device), forced, greedy).cpu() for d, g in gens.items()}
+        err = float((mems["cuda"] - mems["cpu"]).abs().max())
+        same = float((toks["cuda"] == toks["cpu"]).float().mean())
+        fails.check(err < 1e-3 and same >= AGREE,
+                    f"fusion {mode} fp32: encode_memory card vs CPU max_abs_err {err:.3e} (tol "
+                    f"1e-3), memory {tuple(mems['cpu'].shape)}; greedy tokens {same:.4f} equal "
+                    f"(least {AGREE})")
+        del gens
+        torch.cuda.empty_cache()
+    print(f"  fusion phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted.totals
+
+
+def run_towers(torch, fails: Failures, smi: list) -> None:
+    """Each feature tower at full size in fp32 (TF32 off): the card against
+    the same random weights on the CPU on TOWER_CHECK canvases, within
+    TOWER_TOL of the largest magnitude, and ms per batch of TOWER_BATCH
+    350x240 canvases on the card (the resize included)."""
+    from ralf_tpu_torch.models.towers import TOWER_SPECS, build_feature_fn
+    from ralf_tpu_torch.retrieval.lpips import make_lpips_fns
+
+    t0 = time.perf_counter()
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+    rng = np.random.default_rng(0)
+    canvases = rng.random((TOWER_BATCH, 350, 240, 3), dtype=np.float32)
+    on_card = torch.from_numpy(canvases).cuda()
+    with tempfile.TemporaryDirectory() as empty:  # no checkpoints: seeded random towers
+        for kind in TOWERS:
+            out, fns = {}, {}
+            for d in ("cuda", "cpu"):
+                fns[d] = (make_lpips_fns(empty, device=d)[0] if kind == "lpips_alex"
+                          else build_feature_fn(kind, empty, d))
+                res = fns[d](canvases[:TOWER_CHECK])
+                out[d] = [t.float().cpu() for t in (res if isinstance(res, list) else [res])]
+            errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-8))
+                    for a, b in zip(out["cuda"], out["cpu"])]
+            finite = all(bool(torch.isfinite(a).all()) for a in out["cuda"])
+            fails.check(finite and max(errs) < TOWER_TOL,
+                        f"towers {kind}: card vs CPU relative max error {max(errs):.3e} (tol "
+                        f"{TOWER_TOL}), outputs {[tuple(a.shape) for a in out['cuda']]}")
+            ms = time_ms(lambda: fns["cuda"](on_card), iters=5, warmup=2)
+            size = 224 if kind == "lpips_alex" else TOWER_SPECS[kind][1]
+            print(f"  towers {kind}: {ms:.2f} ms per batch of {TOWER_BATCH} (350x240 -> "
+                  f"{size}, fp32; {card})", flush=True)
+            del fns
+            torch.cuda.empty_cache()
+    print(f"  towers phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_builders(torch, fails: Failures, smi: list, cli_job: str) -> dict:
+    """cli.build_caches on the synthetic debug splits (64/16/16): retrieval
+    with the dreamsim backbone, then reranked by mmr and by lpips (AlexNet;
+    its rows against the CPU's lpips_rerank of the same candidates), then the
+    clusters and the relationships; then cli.evaluate --image-metrics on the
+    cli phase's c pickles (`cli_job`) against the same call without the flag
+    and the same call on the CPU; returns the counted launches."""
+    from ralf_tpu_torch import cache as cache_mod
+    from ralf_tpu_torch.cli import build_caches, evaluate
+    from ralf_tpu_torch.config import FrameworkConfig, build_datasets
+    from ralf_tpu_torch.core.layout import GEO_KEYS
+    from ralf_tpu_torch.core.relationships import RelLoc, RelSize
+    from ralf_tpu_torch.data.dataset import DatasetConfig
+    from ralf_tpu_torch.retrieval.lpips import lpips_rerank
+
+    t0 = time.perf_counter()
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+    counted = LaunchCounter()
+    none = dict.fromkeys(counted.totals, 0)
+    sizes = {"train": 64, "val": 16, "test": 16}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "cache")
+        common = ["--synthetic", "--debug", "--cache-dir", cache]
+        tables = {}
+        for label, k, extra, key in (
+                ("dreamsim", BUILD_TOP_K, [], "dreamsim"),
+                ("dreamsim --rerank mmr", BUILD_TOP_K // 2, ["--rerank", "mmr"], "dreamsim"),
+                ("dreamsim --rerank lpips", LPIPS_TOP_K, ["--rerank", "lpips"], "lpips")):
+            top_k = 2 * k if extra[1:] == ["mmr"] else k
+            t = time.perf_counter()
+            _, n = counted(lambda: build_caches.main(
+                ["--what", "retrieval", "--backbone", "dreamsim", "--top-k", str(top_k),
+                 *common, *extra]))
+            t = time.perf_counter() - t
+            got = {s: cache_mod.load_retrieval_table(cache, "pku10", s, key, k) for s in sizes}
+            shapes_ok = all(got[s] is not None and got[s].shape == (m, k) for s, m in sizes.items())
+            inside = shapes_ok and all(((t_ >= 0) & (t_ < 64)).all() for t_ in got.values())
+            no_self = shapes_ok and not (got["train"] == np.arange(64)[:, None]).any()
+            tables[label] = got
+            fails.check(shapes_ok and inside and no_self and n == none,
+                        f"builders build_caches --what retrieval {label}: tables "
+                        f"{[None if v is None else v.shape for v in got.values()]}, neighbours "
+                        f"in the gallery={inside}, never the canvas itself={no_self}, "
+                        f"launches {n}")
+            print(f"  builders build_caches {label}: {t:.2f} s ({card})", flush=True)
+        # each lpips row reorders its dreamsim top-4 (the k=16 table's first 4), and
+        # the CPU's lpips_rerank of the same candidates gives the card's rows
+        base, lp = tables["dreamsim"], tables["dreamsim --rerank lpips"]
+        reorder = all(sorted(a) == sorted(b[:LPIPS_TOP_K]) for s in sizes
+                      for a, b in zip(lp[s], base[s]))
+        feats = np.load(os.path.join(cache, "pku10_dreamsim_gallery_features.npz"))["features"]
+        unit = feats / np.linalg.norm(feats, axis=-1, keepdims=True)
+        least = float((unit @ unit.T).min())  # the towers tell the canvases apart
+        splits = build_datasets(FrameworkConfig(dataset=DatasetConfig(name="pku10"),
+                                                synthetic_data=True, debug=True))
+        t = time.perf_counter()
+        cpu = {s: lpips_rerank(ds.get_images, base[s][:, :LPIPS_TOP_K], splits[0].get_images,
+                               cache_dir=cache, device="cpu") for s, ds in zip(sizes, splits)}
+        t = time.perf_counter() - t
+        moved = sum(int((lp[s] != base[s][:, :LPIPS_TOP_K]).any(1).sum()) for s in sizes)
+        differ = sum(int((cpu[s] != lp[s]).any(1).sum()) for s in sizes)
+        fails.check(reorder and differ == 0 and least < 1 - 1e-3 and feats.shape == (64, 2304)
+                    and bool(np.isfinite(feats).all()),
+                    f"builders: each lpips row a reorder of its dreamsim top-4={reorder} ("
+                    f"{moved} of 96 rows reordered); the CPU's lpips_rerank of the same "
+                    f"candidates differs in {differ} rows ({t:.1f} s); gallery features "
+                    f"{feats.shape}, least cosine {least:.6f}")
+        for what in ("clusters", "relationships"):
+            t = time.perf_counter()
+            build_caches.main(["--what", what, *common])
+            print(f"  builders build_caches --what {what}: {time.perf_counter() - t:.2f} s",
+                  flush=True)
+        with open(cache_mod.kmeans_clusters_path(cache, "pku10"), "rb") as f:
+            clusters = pickle.load(f)
+        want_keys = [f"{g}-{2**i}" for g in GEO_KEYS for i in range(1, 9)]
+        sorted_ok = all(np.all(np.diff(v) >= 0) and len(v) == int(k.split("-")[1])
+                        for k, v in clusters.items())
+        rels = cache_mod.load_relationships(cache, "pku10")
+        kinds = [c[2] for clauses in rels.values() for c in clauses]
+        fails.check(list(clusters) == want_keys and sorted_ok and len(rels) == 64 and kinds
+                    and all(isinstance(r, (RelLoc, RelSize)) for r in kinds),
+                    f"builders: {len(clusters)} kmeans vocabularies (sorted={sorted_ok}), "
+                    f"relation clauses of {len(rels)} samples ({len(kinds)} clauses)")
+
+        # cli.evaluate --image-metrics on the cli phase's c pickles, beside the same call
+        # without the flag (its other scores must not move) and the same call on the CPU
+        scores = {}
+        for label, extra, want in (
+                ("plain", [], {**none, "K1": 4 * (1 + CLI_SEEDS)}),
+                ("image-metrics", ["--image-metrics"], {**none, "K1": 4 * (1 + CLI_SEEDS)}),
+                ("image-metrics --device cpu", ["--image-metrics", "--device", "cpu"], none)):
+            argv = ["--input-dir", os.path.join(cli_job, "out_c"), "--job-dir", cli_job,
+                    "--cache-dir", os.path.join(tmp, f"eval_{len(scores)}"), *extra]
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                scores[label], n = counted(lambda: evaluate.main(argv))
+            t = time.perf_counter() - t
+            fails.check(n == want, f"builders cli.evaluate {label}: launches {n}")
+            print(f"  builders cli.evaluate {label}: {t:.2f} s ({card})", flush=True)
+        got, cpu = scores["image-metrics"], scores["image-metrics --device cpu"]
+        positive = all(got[k]["mean"] > 0 for k in ("image_fid", "R_shm"))
+        same = all(json.dumps(got[k]) == json.dumps(v) for k, v in scores["plain"].items())
+        errs = {k: abs(got[k]["mean"] - cpu[k]["mean"]) / max(abs(cpu[k]["mean"]), 1e-12)
+                for k in IMAGE_KEYS}
+        fails.check(list(got) == SCORE_KEYS + IMAGE_KEYS and positive and same
+                    and all(errs[k] < IMAGE_TOL.get(k, 1e-6) for k in IMAGE_KEYS),
+                    f"builders cli.evaluate --image-metrics: keys {list(got)[len(SCORE_KEYS):]} "
+                    f"after JAX's {len(SCORE_KEYS)} (want {IMAGE_KEYS}), image_fid "
+                    f"{got['image_fid']['mean']:.6g}, R_shm {got['R_shm']['mean']:.6g}, the other "
+                    f"scores unchanged={same}; card vs CPU relative errors "
+                    + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                    + f" (limits {IMAGE_TOL}, else 1e-6)")
+    print(f"  builders phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted.totals
+
+
 def main() -> int:
     import torch
 
@@ -2761,11 +3069,16 @@ def main() -> int:
     tok = LayoutSequenceTokenizer(TokenizerConfig(num_labels=3, max_seq_length=10, num_bin=128))
     reference_check(torch, tok, fails)
     launches = run_slice(torch, tok, fails)
+    for kid, n in run_fusion(torch, tok, fails, smi).items():
+        launches[kid] += n
     launches["K9"] += run_stream(torch, fails)
+    run_towers(torch, fails, smi)
     with tempfile.TemporaryDirectory() as cli_tmp:
         for kid, n in run_cli(torch, fails, smi, cli_tmp).items():
             launches[kid] += n
         for kid, n in run_fid_train(torch, fails, smi, os.path.join(cli_tmp, "job")).items():
+            launches[kid] += n
+        for kid, n in run_builders(torch, fails, smi, os.path.join(cli_tmp, "job")).items():
             launches[kid] += n
     for kid, n in run_zoo(torch, fails, smi).items():
         launches[kid] += n

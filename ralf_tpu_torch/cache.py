@@ -8,7 +8,11 @@ what the other wrote:
   * `{ds}_{backbone}_gallery_features.npz` (key `features`, float32): the
     gallery embedding matrix;
   * `{ds}_kmeans_train_clusters.pkl`: kmeans centers per `{geo_key}-{num_bin}`;
-  * `{ds}_relationships_dic.pkl`: the precomputed relation clauses;
+  * `{ds}_relationships_dic.pkl`: the precomputed relation clauses, whose
+    relations are the `RelLoc`/`RelSize` enums of the reading package (the
+    consumers tell loc from size clauses by `isinstance`): the port writes
+    them under JAX's module name and reads JAX's names as its own, so neither
+    package imports the other's (ROADMAP.md Queue C 70);
   * `eval_gt_features_{ds}_{split}_{tag}.npz` (key `features`): FIDNet
     features of a split's GT layouts, per feature extractor `tag`.
 
@@ -174,12 +178,47 @@ def relationships_path(cache_dir: str, dataset: str) -> str:
     return os.path.join(cache_dir, f"{dataset}_relationships_dic.pkl")
 
 
+# the module whose RelLoc and RelSize the JAX package pickles
+JAX_RELATIONSHIPS = "ralf_tpu.core.relationships"
+
+
+class _RelationsUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module == JAX_RELATIONSHIPS:
+            module = "ralf_tpu_torch.core.relationships"
+        return super().find_class(module, name)
+
+
+class _RelationsPickler(pickle._Pickler):
+    """The port's RelLoc and RelSize as JAX's globals, so that JAX's CLIs
+    read their own enums (the pure-Python pickler: its save_global is the
+    one place a global's name is written)."""
+
+    def save_global(self, obj, name=None):
+        from ralf_tpu_torch.core.relationships import RelLoc, RelSize
+
+        if obj in (RelLoc, RelSize):
+            self.write(pickle.GLOBAL + f"{JAX_RELATIONSHIPS}\n{obj.__name__}\n".encode())
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+def save_relationships(cache_dir: str, dataset: str, table: dict) -> str:
+    """Write the {sample id: clauses} table (see the module docstring)."""
+    os.makedirs(cache_dir, exist_ok=True)
+    path = relationships_path(cache_dir, dataset)
+    with open(path, "wb") as f:
+        _RelationsPickler(f, protocol=2).dump(table)
+    return path
+
+
 def load_relationships(cache_dir: str, dataset: str) -> Optional[dict]:
     path = relationships_path(cache_dir, dataset)
     if not os.path.exists(path):
         return None
     with open(path, "rb") as f:
-        return pickle.load(f)
+        return _RelationsUnpickler(f).load()
 
 
 # -------------------------------------------------------------------------

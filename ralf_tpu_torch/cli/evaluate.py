@@ -17,8 +17,15 @@ Without `--fidnet-dir` the extractor is a seeded torch init, which cannot
 equal JAX's `jax.random` init: its GT features are cached under the tag
 `untrained_torch`, never JAX's `untrained`, so a JAX-written cache is never
 compared with features of another network.  Canvases stream
-`--eval-batch-size` at a time.  `--image-metrics` needs the InceptionV3 and
-VGG16 towers, not ported yet.
+`--eval-batch-size` at a time.
+
+`--image-metrics` adds JAX's image-side columns (`eval/image_metrics.py`):
+`image_fid` and `image_{precision,recall,density,coverage}` between the
+InceptionV3 features of the GT-masked and the predicted-masked canvases
+(not with `--unannotated`), and `R_shm`, VGG16's feature distance between
+each canvas and its layout-masked copy.  The towers' checkpoints are read
+from `--cache-dir` (`inception_v3.pt`, `vgg16.pt`); without them they run
+randomly initialised, with a warning.
 """
 
 from __future__ import annotations
@@ -101,9 +108,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'both' evaluates the val and the test pickles in one run")
     p.add_argument("--fidnet-dir", default=None,
                    help="directory of a trained FIDNet's fidnet_ckpt.npz")
-    p.add_argument("--cache-dir", default="cache", help="the GT-feature cache")
+    p.add_argument("--cache-dir", default="cache",
+                   help="the GT-feature cache and the towers' checkpoints")
     p.add_argument("--image-metrics", action="store_true",
-                   help="image-FID and R_shm: need towers not ported yet")
+                   help="add image-FID (InceptionV3 on masked canvases) and R_shm (VGG16 "
+                        "feature distance)")
     p.add_argument("--unannotated", action="store_true",
                    help="no-GT split: heuristic metrics only, no FID/prdc")
     p.add_argument("--eval-batch-size", type=int, default=512,
@@ -120,9 +129,6 @@ def main(argv=None) -> dict:
     from ralf_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
-    if args.image_metrics:
-        raise NotImplementedError("--image-metrics needs the InceptionV3 and VGG16 towers, "
-                                  "not ported yet (ROADMAP.md Queue A item 9)")
 
     from ralf_tpu_torch import cache as cache_mod
     from ralf_tpu_torch.config import FrameworkConfig, build_datasets
@@ -147,6 +153,12 @@ def main(argv=None) -> dict:
 
     _, val_ds, test_ds = build_datasets(cfg)
     fidnet, feat_tag = build_fidnet(len(names), S, args.fidnet_dir, dev)
+    image_fns = None
+    if args.image_metrics:
+        from ralf_tpu_torch.eval import image_metrics
+
+        image_fns = {kind: image_metrics.tower_feature_fn(kind, args.cache_dir, device=dev)
+                     for kind in ("inception", "vgg")}
 
     splits = ["val", "test"] if args.split == "both" else [args.split]
     combined: dict[str, dict] = {}
@@ -187,18 +199,34 @@ def main(argv=None) -> dict:
             # the saliency-aware metrics per chunk of canvases: per-sample
             # values concatenate exactly
             sal_parts: dict[str, list] = {}
+            rshm_parts, real_feats, fake_feats = [], [], []
             for s in range(0, B, EB):
                 ci = np.arange(s, min(s + EB, B))
-                img = torch.from_numpy(np.asarray(ds.get_images(ci), np.float32)).to(dev)
-                sal = compute_saliency_aware_metrics(_take(layout, ci), img, text_id, underlay_id)
+                img_np = np.asarray(ds.get_images(ci), np.float32)
+                lay_c = _take(layout, ci)
+                sal = compute_saliency_aware_metrics(lay_c, torch.from_numpy(img_np).to(dev),
+                                                     text_id, underlay_id)
                 for k, v in sal.items():
                     sal_parts.setdefault(k, []).append(v.cpu().numpy())
+                if image_fns is not None:
+                    if not args.unannotated:
+                        real_feats.append(image_metrics.masked_features(
+                            _take(gt_layout, ci), img_np, image_fns["inception"]))
+                        fake_feats.append(image_metrics.masked_features(
+                            lay_c, img_np, image_fns["inception"]))
+                    rshm_parts.append(image_metrics.compute_rshm(lay_c, img_np,
+                                                                 image_fns["vgg"]))
             for k in sorted(sal_parts):  # JAX's jitted dict comes back in key order
                 scores[k] = nanmean(np.concatenate(sal_parts[k]))
 
             if gt_feats is not None:
                 scores.update(compute_generative_model_scores(gt_feats,
                                                               fidnet_features(fidnet, layout)))
+            if image_fns is not None:
+                if real_feats:
+                    scores.update(image_metrics.compute_image_fid(np.concatenate(real_feats),
+                                                                  np.concatenate(fake_feats)))
+                scores["R_shm"] = float(np.mean(np.concatenate(rshm_parts)))
             all_scores.append(scores)
             logging.info("%s: %s", os.path.basename(pkl_path),
                          {k: round(v, 4) for k, v in scores.items()})

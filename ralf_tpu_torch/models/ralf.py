@@ -1,5 +1,5 @@
 """RALF, the retrieval-augmented layout transformer: the counterpart of
-`ralf_tpu/models/ralf.py` for the final architecture (`concat_crossattn`):
+`ralf_tpu/models/ralf.py`.  The final architecture (`concat_crossattn`):
 
     memory    = ImageEncoder(image + saliency)                  [B, M, D]
     ref       = PE1d(adapter(FIDNet features of the top-k))     [B, K, D]
@@ -8,14 +8,33 @@
     memory'   = concat[fused + flag_0, ConstEnc(c) + flag_1]
     logits    = TokenDecoder(tokens | memory', causal)
 
+and JAX's six other fusion ablations (`RALFCore.FUSIONS`), which replace
+the `fused` line:
+
+    flag_concat_crossattn  memory + e_0 and ref + e_1 (a learned scalar per
+                           modality, `modality_emb` [2, 1]), then as above
+    crossattn              ViTFFN(concat[memory, memory_ca])       [B, 2M, D]
+    concat                 ViTFFN(concat[memory, ref])             [B, M+K, D]
+    adapter                concat[memory, ref]                     [B, M+K, D]
+    pre_encoder            f = features(image); the image encoder's
+                           transformer over concat[f, CA(f, ref), ref]  [B, 2M+K, D]
+    post_encoder           a second transformer (`modality_encoder`,
+                           dropout 0.1 whatever cfg.dropout is: ROADMAP.md
+                           Queue C 75) over
+                           concat[memory, ref]                     [B, M+K, D]
+
+A mode builds only the submodules it calls, as flax creates only the
+parameters a mode's init reaches (`adapter` has neither `attn` nor
+`fusion_head`), so JAX's tree of each mode loads whole.  No preset and no
+CLI flag sets a mode: `RALFGenerator(..., fusion=...)` does.
+
 The frozen FIDNet features of the gallery are computed once
 (`RALFGenerator.precompute_retrieved_feats`) and gathered per batch, or,
 as in training, FIDNet runs on the B*K retrieved layouts.  The tower stays
 frozen: `RALFCore.train()` leaves it in eval mode (JAX runs it
 deterministic inside the loss, so K1 stays on and its dropout off), and
 it runs under torch.no_grad(), the port's stop_gradient.  The ViT blocks'
-dropout rate is 0.0 in JAX, so they carry none.  The other six fusion
-ablations of the JAX package are not ported.
+dropout rate is 0.0 in JAX, so they carry none.
 """
 
 from __future__ import annotations
@@ -33,7 +52,7 @@ from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer
 from ralf_tpu_torch.models.autoreg import AutoregGenerator, ConstraintEncoder
 from ralf_tpu_torch.models.base import GeneratorConfig, compute_dtype
 from ralf_tpu_torch.models.fidnet import FIDNetV3
-from ralf_tpu_torch.models.nn import TokenDecoder, layer_norm
+from ralf_tpu_torch.models.nn import TokenDecoder, TransformerEncoder, layer_norm
 from ralf_tpu_torch.models.positional import PositionalEncoding1D
 from ralf_tpu_torch.models.resnet import ImageEncoder
 
@@ -91,12 +110,19 @@ class ViTCrossAttention(nn.Module):
 
 
 class RALFCore(nn.Module):
+    FUSIONS = ("concat_crossattn", "flag_concat_crossattn", "crossattn", "concat", "adapter",
+               "pre_encoder", "post_encoder")
+    _CROSS_ATTENTION = ("concat_crossattn", "flag_concat_crossattn", "crossattn", "pre_encoder")
+    _FUSION_HEAD = ("concat_crossattn", "flag_concat_crossattn", "crossattn", "concat")
+    MODALITY_DROPOUT = 0.1  # post_encoder's modality encoder, fixed in JAX (`ralf.py:172-177`)
+
     def __init__(self, vocab_size: int, const_vocab_size: int, num_labels: int,
                  max_seq_length: int, cfg: GeneratorConfig = GeneratorConfig(),
                  fusion: str = "concat_crossattn") -> None:
         super().__init__()
-        if fusion != "concat_crossattn":
-            raise NotImplementedError(f"fusion {fusion!r}: only 'concat_crossattn' is ported")
+        if fusion not in self.FUSIONS:
+            raise ValueError(f"unknown RALF fusion {fusion!r}; choose from {self.FUSIONS}")
+        self.fusion = fusion
         d = cfg.d_model
         self.encoder = ImageEncoder(cfg.backbone, d, cfg.nhead, cfg.num_encoder_layers,
                                     cfg.dim_feedforward, cfg.dropout)
@@ -104,8 +130,16 @@ class RALFCore(nn.Module):
                                        aux_heads=False)
         self.layout_adapter = ViTFeedForward(256, 4 * d, d)
         self.pos_emb_1d = PositionalEncoding1D(d, cfg.dropout)
-        self.attn = ViTCrossAttention(d, heads=8, dim_head=64)
-        self.fusion_head = ViTFeedForward(d, 4 * d, d)
+        if fusion in self._CROSS_ATTENTION:
+            self.attn = ViTCrossAttention(d, heads=8, dim_head=64)
+        if fusion in self._FUSION_HEAD:
+            self.fusion_head = ViTFeedForward(d, 4 * d, d)
+        if fusion == "flag_concat_crossattn":
+            self.modality_emb = nn.Parameter(torch.randn(2, 1) * 0.02)
+        if fusion == "post_encoder":
+            self.modality_encoder = TransformerEncoder(d, cfg.nhead, cfg.num_encoder_layers,
+                                                       cfg.dim_feedforward,
+                                                       dropout=self.MODALITY_DROPOUT)
         self.const_encoder = ConstraintEncoder(const_vocab_size, d, cfg.nhead,
                                                cfg.num_encoder_layers, cfg.dim_feedforward,
                                                cfg.dropout)
@@ -131,12 +165,31 @@ class RALFCore(nn.Module):
                 feats = self.layout_encoder.extract_features(flat)
         return self.pos_emb_1d(self.layout_adapter(feats.reshape(B, K, -1)))
 
+    def fuse(self, image: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+        """The image memory fused with the retrieved sequence ref [B, K, D]
+        by `self.fusion` (see the module docstring)."""
+        f = self.fusion
+        if f == "pre_encoder":
+            feat = self.encoder.features(image)
+            return self.encoder.encode_seq(torch.cat([feat, self.attn(feat, ref), ref], dim=1))
+        memory = self.encoder(image)
+        if f == "post_encoder":
+            return self.modality_encoder(torch.cat([memory, ref], dim=1))
+        if f == "adapter":
+            return torch.cat([memory, ref], dim=1)
+        if f == "concat":
+            return self.fusion_head(torch.cat([memory, ref], dim=1))
+        if f == "flag_concat_crossattn":
+            emb = self.modality_emb.to(memory.dtype)
+            memory, ref = memory + emb[0], ref + emb[1]
+        memory_ca = self.attn(memory, ref)
+        if f == "crossattn":
+            return self.fusion_head(torch.cat([memory, memory_ca], dim=1))
+        return self.fusion_head(torch.cat([memory, memory_ca, ref], dim=1))  # [B, 2M+K, D]
+
     def encode_memory(self, image: torch.Tensor, retrieved: dict, const_seq: torch.Tensor,
                       const_keep: torch.Tensor) -> torch.Tensor:
-        ref = self.encode_retrieved(retrieved)
-        memory = self.encoder(image)
-        memory_ca = self.attn(memory, ref)
-        fused = self.fusion_head(torch.cat([memory, memory_ca, ref], dim=1))  # [B, 2M+K, D]
+        fused = self.fuse(image, self.encode_retrieved(retrieved))
         const = self.const_encoder(const_seq, const_keep)
         flag = self.flag_emb.to(fused.dtype)
         return torch.cat([fused + flag[0], const + flag[1]], dim=1)
@@ -199,7 +252,8 @@ class RALFGenerator(AutoregGenerator):
 
     @torch.inference_mode()
     def encode_memory(self, cond: Condition) -> torch.Tensor:
-        """[B, 2M + K + Lc, D]: Lc, the constraint length, depends on the task."""
+        """[B, 2M + K + Lc, D] in the final architecture (the fusion sets the
+        first part); Lc, the constraint length, depends on the task."""
         return self.core.encode_memory(self._image(cond),
                                        retrieved_tensors(cond.retrieved, self.device),
                                        *self._constraint(cond))

@@ -54,8 +54,9 @@ class BatchNorm(nn.Module):
     variance included, where torch's F.batch_norm would store the unbiased
     one, n/(n-1) larger."""
 
-    def __init__(self, channels: int) -> None:
+    def __init__(self, channels: int, eps: float = BN_EPS) -> None:
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -64,7 +65,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return self._train_forward(x)
-        scale = self.weight.float() * torch.rsqrt(self.running_var.float() + BN_EPS)
+        scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         shift = self.bias.float() - self.running_mean.float() * scale
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
@@ -75,7 +76,7 @@ class BatchNorm(nn.Module):
         with torch.no_grad():
             for ra, batch in ((self.running_mean, mean), (self.running_var, var)):
                 ra.copy_(BN_MOMENTUM * ra + (1.0 - BN_MOMENTUM) * batch)
-        mul = torch.rsqrt(var + BN_EPS) * self.weight.float()
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
         return y.to(x.dtype)
 
@@ -218,7 +219,13 @@ class ImageEncoder(nn.Module):
                                               dropout=dropout)
 
     def features(self, img: torch.Tensor) -> torch.Tensor:
+        """Backbone + 2-d sine PE, before the transformer: [B, H'W', D]."""
         return self.pos_2d(self.extractor(img))
 
+    def encode_seq(self, h: torch.Tensor) -> torch.Tensor:
+        """The shared transformer over any token sequence [B, S, D] (RALF's
+        `pre_encoder` fusion runs it over [features, CA, ref])."""
+        return self.transformer(h)
+
     def forward(self, img: torch.Tensor) -> torch.Tensor:
-        return self.transformer(self.features(img))
+        return self.encode_seq(self.features(img))

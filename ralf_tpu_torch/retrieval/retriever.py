@@ -1,17 +1,22 @@
 """Brute-force top-k retrieval over the gallery, the counterpart of
-`ralf_tpu/retrieval/retriever.py` with the `saliency` backbone.
+`ralf_tpu/retrieval/retriever.py`.
 
-Query and gallery features are L2-normalized 16x16 saliency thumbnails;
-neighbours are the inner-product top-k, one matrix product on the device.
-The thumbnail is a bilinear downsample WITH antialiasing, as
-`jax.image.resize(method="linear")` does when it shrinks (without it the
-thumbnails differ by up to 0.48).
+Query and gallery features come from a backbone (`get_backbone`) and are
+L2-normalized; neighbours are the inner-product top-k, one matrix product
+on the device.  The backbones:
+
+  * `saliency`: 16x16 saliency thumbnails, a bilinear downsample WITH
+    antialiasing, as `jax.image.resize(method="linear")` does when it
+    shrinks (without it the thumbnails differ by up to 0.48);
+  * `dreamsim` (the paper's default), `clip` and `vgg`: the feature towers
+    of `models/towers.py` (`build_feature_fn`), their checkpoints read from
+    the cache dir, else random with a warning.
 
 `Retriever.build` loads the gallery features from, and saves them to, the
-cache of `ralf_tpu_torch/cache.py` (the JAX package's file), so repeated
-runs embed nothing.  `predict_top1` is the non-learnable top-1 copy
-baseline; `mmr_rerank` the maximal-marginal-relevance diversity rerank.
-The other backbones (dreamsim, clip, vgg) are towers not ported yet.
+cache of `ralf_tpu_torch/cache.py` (`{name}_{backbone}_gallery_features.npz`,
+the JAX package's file), so repeated runs embed nothing.  `predict_top1` is
+the non-learnable top-1 copy baseline; `mmr_rerank` the maximal-marginal-
+relevance diversity rerank.
 """
 
 from __future__ import annotations
@@ -40,13 +45,21 @@ def coarse_saliency_features(images: torch.Tensor, grid: int = 16) -> torch.Tens
 
 
 def _check_backbone(backbone: str) -> None:
-    if backbone == "saliency":
-        return
-    if backbone in BACKBONE_NAMES:
-        raise NotImplementedError(
-            f"retrieval backbone {backbone!r} runs a feature tower the port does not have "
-            "yet (ROADMAP.md Queue A item 9, towers); use backbone='saliency'")
-    raise ValueError(f"unknown retrieval backbone {backbone!r}; choose from {BACKBONE_NAMES}")
+    if backbone not in BACKBONE_NAMES:
+        raise ValueError(f"unknown retrieval backbone {backbone!r}; choose from {BACKBONE_NAMES}")
+
+
+def get_backbone(kind: str, cache_dir: str = "cache", device="cuda"):
+    """`fn(images [B, H, W, 4]) -> [B, D]` features on `device`: the gallery's
+    and the queries' embedder (a tower is built, or loaded, at each call)."""
+    _check_backbone(kind)
+    dev = resolve_device(device)
+    if kind == "saliency":
+        return lambda images: coarse_saliency_features(torch.as_tensor(np.asarray(images),
+                                                                       device=dev))
+    from ralf_tpu_torch.models.towers import build_feature_fn
+
+    return build_feature_fn(kind, cache_dir, dev)
 
 
 def exact_topk(query: torch.Tensor, gallery: torch.Tensor, k: int,
@@ -61,12 +74,17 @@ def exact_topk(query: torch.Tensor, gallery: torch.Tensor, k: int,
 
 
 class Retriever:
-    """Gallery of (features on the device, layouts on the host)."""
+    """Gallery of (features on the device, layouts on the host); `embed` runs
+    the backbone, built at its first use (or given by `build`, which embedded
+    the gallery with it)."""
 
-    def __init__(self, features, layouts: dict, device="cuda", backbone: str = "saliency") -> None:
+    def __init__(self, features, layouts: dict, device="cuda", backbone: str = "saliency",
+                 cache_dir: str = "cache", backbone_fn=None) -> None:
         _check_backbone(backbone)
         self.device = resolve_device(device)
         self.backbone_name = backbone
+        self.cache_dir = cache_dir
+        self._backbone_fn = backbone_fn
         f = np.asarray(features, np.float32)  # normalized in numpy, as JAX does
         f = f / np.maximum(np.linalg.norm(f, axis=-1, keepdims=True), 1e-8)
         self.features = torch.as_tensor(f, device=self.device)
@@ -88,21 +106,21 @@ class Retriever:
 
             cached = cache_mod.load_gallery_features(cache_dir, name, backbone, expect_rows=n)
             if cached is not None:
-                return cls(cached, layouts, dev, backbone)
-        feats = []
-        for s in range(0, n, batch_size):
-            idx = np.arange(s, min(s + batch_size, n))
-            images = torch.from_numpy(dataset.get_images(idx)).to(dev)
-            feats.append(coarse_saliency_features(images).cpu().numpy())
+                return cls(cached, layouts, dev, backbone, cache_dir)
+        fn = get_backbone(backbone, cache_dir or "cache", dev)
+        feats = [fn(dataset.get_images(np.arange(s, min(s + batch_size, n)))).float().cpu().numpy()
+                 for s in range(0, n, batch_size)]
         features = np.concatenate(feats, 0)
         if cache_dir and name:
             from ralf_tpu_torch import cache as cache_mod
 
             cache_mod.save_gallery_features(cache_dir, name, backbone, features)
-        return cls(features, layouts, dev, backbone)
+        return cls(features, layouts, dev, backbone, cache_dir or "cache", fn)
 
     def embed(self, images) -> torch.Tensor:
-        return coarse_saliency_features(torch.as_tensor(np.asarray(images), device=self.device))
+        if self._backbone_fn is None:
+            self._backbone_fn = get_backbone(self.backbone_name, self.cache_dir, self.device)
+        return self._backbone_fn(images)
 
     def topk(self, query_feats: torch.Tensor, k: int, exclude_self: bool = False,
              query_ids: Optional[np.ndarray] = None) -> np.ndarray:

@@ -21,7 +21,13 @@ after the flax tree, so the leaf at `a/b/c/kernel` lands in submodule
   * BatchNorm:    scale -> weight; bias -> bias; batch_stats mean/var ->
                   running_mean/running_var
   * anything else: a leaf named like one of the module's own parameters
-    (flag_emb, cls_token, ...) is copied as it is.
+    (flag_emb, RALF's modality_emb, a ViT's cls_token and pos_embed, ...)
+    is copied as it is.
+
+The names follow flax's, so a subtree a model builds only in some
+configurations (RALF's `modality_encoder` and `modality_emb` under two of
+its fusion modes, `attn` and `fusion_head` under others) loads and exports
+through the same walk.
 
 It raises if a leaf has no home in the port, if a shape disagrees, or if a
 parameter or BatchNorm statistic of the port was left unfilled.

@@ -19,6 +19,7 @@ import json
 import logging
 import os
 import pickle
+import shutil
 import sys
 
 import jax
@@ -226,9 +227,18 @@ def test_clis_guard_the_device_and_what_is_not_ported(jobs, tmp_path, monkeypatc
         teval.main(["--input-dir", f"{job}/port_c", "--job-dir", job])
     with pytest.raises(NotImplementedError, match="Queue A item 10"):
         tinf.main(["--job-dir", job, "--device", "cpu", "--mesh", "on"])
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        teval.main(["--input-dir", f"{job}/port_c", "--job-dir", job, "--device", "cpu",
-                    "--image-metrics"])
+    # --image-metrics runs on the CPU and writes R_shm (the towers cut to a
+    # cheap feature function here; tests/test_torch_port_towers.py holds them)
+    from ralf_tpu_torch.eval import image_metrics
+
+    monkeypatch.setattr(image_metrics, "tower_feature_fn", lambda kind, *a, **kw: (
+        lambda images: np.asarray(images, np.float32)[..., :3].mean((1, 2))))
+    pickles = shutil.copytree(f"{job}/port_c", tmp_path / "image_metrics")
+    scores = teval.main(["--input-dir", str(pickles), "--job-dir", job, "--device", "cpu",
+                         "--image-metrics", "--cache-dir", str(tmp_path / "image_cache")])
+    assert np.isfinite(scores["R_shm"]["mean"]) and "image_fid" in scores
+    with open(pickles / "scores_all.json") as f:
+        assert "R_shm" in json.load(f)
     with pytest.raises(FileNotFoundError, match="no parameters"):
         tinf.main(["--job-dir", job, "--device", "cpu", "--ckpt", "missing", "--out-dir",
                    str(tmp_path / "x")])

@@ -1167,3 +1167,57 @@ def test_bf16_ralf_train_step_on_the_card_equals_the_cpu(dev, tmp_path):
     fails = chip_smoke.Failures()
     chip_smoke.train_step_check(torch, tok, fails, str(tmp_path), model, "bfloat16")
     assert not fails
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S", [
+    (128, 676),  # RALF's pre_encoder fusion: the image encoder over [features, CA, ref], 2M+K
+    (128, 346),  # post_encoder's modality encoder over [memory, ref], M+K
+])
+def test_encoder_attention_at_the_fusion_shapes(dev, dtype, B, S):
+    """K1 at the fusion ablations' new lengths against its plain version (in
+    bf16 S=676 runs the shared-memory route, past the rows route's 384); an
+    element outside the tolerance passes only as one flipped rounding of a p
+    (`chip_smoke.k1_one_flip`)."""
+    import chip_smoke
+
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v = (torch.randn(B, S, 256, generator=g, device=dev) for _ in range(3))
+    q = (q * 32**-0.5).to(dtype)
+    k, v = k.to(dtype), v.to(dtype)
+    n = ea.encoder_attention.launches
+    out = ea.encoder_attention(q, k, v, 8, None)
+    assert ea.encoder_attention.launches == n + 1
+    ref = ea.encoder_attention_plain(q, k, v, 8, None)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    outside = (out.float() - ref.float()).abs() > atol + rtol * ref.float().abs()
+    if dtype == torch.bfloat16 and bool(outside.any()):
+        explained, _ = chip_smoke.k1_one_flip(torch, q, k, v, 8, None)(out, outside)
+        assert bool(explained.all()), int((~explained).sum())
+    else:
+        _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("kind", ["vgg", "inception", "clip", "dreamsim", "lpips_alex"])
+def test_tower_on_the_card_equals_the_cpu(dev, kind, tmp_path):
+    """Each feature tower at full size in fp32 (TF32 off) on the same random
+    weights: card against CPU within 1e-4 of the largest magnitude, JAX's
+    limit for its towers against torch twins."""
+    import numpy as np
+
+    from ralf_tpu_torch.models import towers
+    from ralf_tpu_torch.retrieval import lpips
+
+    torch.backends.cudnn.allow_tf32 = False
+    canvases = np.random.default_rng(0).random((2, 350, 240, 4), dtype=np.float32)
+    out = {}
+    for d in ("cuda", "cpu"):
+        if kind == "lpips_alex":
+            embed, _ = lpips.make_lpips_fns(str(tmp_path), device=d)
+            out[d] = [t.float().cpu() for t in embed(canvases)]
+        else:
+            out[d] = [towers.build_feature_fn(kind, str(tmp_path), d)(canvases).cpu()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max() / b.abs().max().clamp_min(1e-8)) < 1e-4

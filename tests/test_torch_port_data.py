@@ -245,12 +245,28 @@ def test_retriever_gallery_cache_crosses_and_matches(retrievers, tmp_path):
                                   saved / np.linalg.norm(saved, axis=-1, keepdims=True))
 
 
-@pytest.mark.parametrize("backbone,error", [("dreamsim", NotImplementedError),
-                                            ("vgg", NotImplementedError), ("nope", ValueError)])
-def test_retriever_backbones_other_than_saliency_raise(backbone, error):
+@pytest.mark.parametrize("backbone,error", [("dreamsim", None), ("vgg", None),
+                                            ("nope", ValueError)])
+def test_retriever_backbones_other_than_saliency_raise(backbone, error, monkeypatch, tmp_path):
+    """Only an unknown backbone raises; the towers embed the gallery (DreamSim
+    cut to a small ViT ensemble here, VGG16 at its full size) into
+    normalised features, and `embed` gives the same features of a query."""
     _, tg = _datasets(size=4)
-    with pytest.raises(error, match="Queue A item 9" if error is NotImplementedError else "nope"):
-        tret.Retriever.build(tg, backbone=backbone, device="cpu")
+    if error is not None:
+        with pytest.raises(error, match="nope"):
+            tret.Retriever.build(tg, backbone=backbone, device="cpu")
+        return
+    from ralf_tpu_torch.models import towers
+
+    small = (lambda: towers.DreamSimEnsemble(64, 1, 4, img_size=32), 32,
+             *towers.TOWER_SPECS["dreamsim"][2:])
+    monkeypatch.setitem(towers.TOWER_SPECS, "dreamsim", small)
+    r = tret.Retriever.build(tg, backbone=backbone, device="cpu", cache_dir=str(tmp_path))
+    dim = {"dreamsim": 3 * 64, "vgg": 4096}[backbone]
+    assert tuple(r.features.shape) == (4, dim)
+    torch.testing.assert_close(r.features.norm(dim=-1), torch.ones(4))
+    q = r.embed(tg.get_images(np.arange(4)))
+    torch.testing.assert_close(q / q.norm(dim=-1, keepdim=True), r.features)
 
 
 def test_predict_top1_and_mmr_rerank_match_jax(retrievers):
