@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of RALF's sample and training paths (every fusion mode), of the
 baselines' sample and training paths (the GANs' adversarial training among them), of the
-feature towers and of the offline builders and image metrics, on one CUDA card.
+feature towers, of the offline builders and image metrics, and of the dataset build's
+saliency and inpainting nets, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -53,7 +54,8 @@ Run from the repository root.  Phases, each of which must pass:
               [2048, 680, 256] int8 slabs (one to warm up, 8 timed) and their
               int16, int32, bit-30-cleared f32 and bf16 views; GB/s per view
               and its share of 3.35 TB/s, and distinct outputs
-  7. cli      the entry points a user runs, in this process: a job dir written
+  7. cli      (right after the kernels phase) the entry points a user runs, in this
+              process: a job dir written
               by the port's build_config("ralf") at full width in bf16 (random
               weights from seed 0 as ckpt_final.npz, the synthetic splits of
               512 gallery and 64 test canvases), then cli.inference on the 64
@@ -183,8 +185,25 @@ Run from the repository root.  Phases, each of which must pass:
               with --device cpu: JAX's keys, positive image_fid and R_shm equal to
               the CPU's (IMAGE_TOL), the other scores unchanged, K1 12 each on the
               card
-  18. report  one JSON line of the kernels, the nvidia-smi line, and last
+  18. preprocess (after the builders phase) the dataset build's nets, fp32, random
+              weights drawn to flax's laws from seed 0 (the saliency nets with random
+              BatchNorm statistics, so that a map spans a range): ISNet at 1024^2 and
+              BASNet at 256^2, batch 4, through cli.saliency's array function
+              (`saliency_maps`), then big-lama through `inpaint` (its weights traced
+              into a TorchScript file first) on 8 canvases of PKU's raw 750x513 with
+              masks from `box_union_mask`: ms per batch, images/s, peak memory, one
+              profiled batch each; one canvas card against CPU (the raw maps within
+              1e-4 with their range printed, LaMa within 3e-4 at 256x256)
+  19. report  one JSON line of the kernels, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
+
+The card-against-CPU checks of phases 4, 9-15 (`reference_check`, `fusion_check`,
+`zoo_check`, `baseline_check` and the train, zoo_train, gan_train and bf16_train
+phases' one-step checks) run in one spawned worker process (`worker`, `Checks`), as
+do the towers' CPU outputs and the builders' CPU cli.evaluate: the phases here are
+host-bound on one thread and the checks mostly CPU work, so the two run side by side.
+A check's output is printed, and its failures counted, at the end (`Checks.wait`);
+the worker's K1 shapes join K1_LAUNCHED.
 
 Every configuration is chosen here explicitly (q8_mxu is an argument of the
 package's decodes); no environment variable selects a kernel, so that each
@@ -356,6 +375,13 @@ TOWER_CHECK, TOWER_BATCH, TOWER_TOL = 2, 64, 1e-4
 # top-16 tables; the LPIPS rerank of each split's top-4 (every candidate canvas is made
 # on the host again: 16 ms each)
 BUILD_TOP_K, LPIPS_TOP_K = 16, 4
+# the preprocess phase: each saliency net at its CLI's size and batch, LaMa on PKU's raw
+# canvases (H x W) in inpaint's default batch; the card-vs-CPU limits: the towers' 1e-4
+# on the raw maps, JAX's LaMa test's 3e-4 (tests/test_lama.py); a map's least range, so
+# that the comparison is not one of constants
+SALIENCY_BATCH, SALIENCY_TOL, SALIENCY_RANGE = 4, 1e-4, 0.05
+LAMA_HW, LAMA_BATCH, LAMA_CHECK_HW, LAMA_TOL = (750, 513), 8, (256, 256), 3e-4
+PREPROCESS_TIMED = 5  # calls timed after a warm-up (median)
 IMAGE_KEYS = ["image_precision", "image_recall", "image_density", "image_coverage",
               "image_fid", "R_shm"]  # cli.evaluate --image-metrics, after SCORE_KEYS
 # card against CPU, relative: the towers agree within about 1e-6 of their largest
@@ -1500,7 +1526,7 @@ def zoo_k1(gen) -> int:
     return gen.cfg.num_encoder_layers + denoise + (4 if getattr(gen, "with_retrieval", False) else 0)
 
 
-def run_zoo(torch, fails: Failures, smi: list, overrides=()) -> dict:
+def run_zoo(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
     """MaskGIT, LayoutDM, VQDiffusion and RA-LayoutDM on the card: the fp32
     check against the CPU, requests of ZOO_BATCH canvases in bf16 with exact
     K1 counts, one profiled request, then cli.inference and cli.evaluate on
@@ -1518,8 +1544,7 @@ def run_zoo(torch, fails: Failures, smi: list, overrides=()) -> dict:
         return {**dict.fromkeys(counted.totals, 0), **launches}
 
     with tempfile.TemporaryDirectory() as tmp:
-        zoo_check(torch, fails, tmp, overrides)
-        print(f"  zoo check {time.perf_counter() - t0:.1f} s", flush=True)
+        checks.run("zoo_check", tmp=tmp, overrides=overrides)
 
         for exp, tasks in ZOO_SERVE.items():
             cfg, gen = zoo_generator(exp, tmp, "cuda", ("model.dtype=bfloat16", *overrides))
@@ -1687,7 +1712,7 @@ def baseline_check(torch, fails: Failures, tmp: str, overrides=()) -> None:
         torch.cuda.empty_cache()
 
 
-def run_baselines(torch, fails: Failures, smi: list, overrides=()) -> dict:
+def run_baselines(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
     """CGL-GAN, DS-GAN (each with and without retrieval), ICVT and the
     retriever on the card: the fp32 check against the CPU, bf16 requests of
     BASELINE_BATCH canvases with exact K1 counts (ICVT's all at head width
@@ -1708,8 +1733,7 @@ def run_baselines(torch, fails: Failures, smi: list, overrides=()) -> dict:
         return {**dict.fromkeys(counted.totals, 0), **launches}
 
     with tempfile.TemporaryDirectory() as tmp:
-        baseline_check(torch, fails, tmp, overrides)
-        print(f"  baselines check {time.perf_counter() - t0:.1f} s", flush=True)
+        checks.run("baseline_check", tmp=tmp, overrides=overrides)
 
         for exp, tasks in BASELINE_SERVE.items():
             cfg, gen = zoo_generator(exp, tmp, "cuda", ("model.dtype=bfloat16", *overrides))
@@ -2117,7 +2141,7 @@ def dtype_name(torch, dtype) -> str:
     return str(dtype or torch.float32).split(".")[1]
 
 
-def run_train(torch, tok, fails: Failures, smi: list, overrides=()) -> dict:
+def run_train(torch, tok, fails: Failures, smi: list, checks, overrides=()) -> dict:
     """Training on the card: the one-step check against the CPU, Trainer.fit
     at the ralf preset's size and its resume, then cli.train -> cli.inference;
     returns the launches of each kernel summed over the counted calls.
@@ -2138,8 +2162,8 @@ def run_train(torch, tok, fails: Failures, smi: list, overrides=()) -> dict:
         return {**dict.fromkeys(counted.totals, 0), **launches}
 
     with tempfile.TemporaryDirectory() as tmp:
-        train_step_check(torch, tok, fails, tmp, build_config("ralf", list(overrides)).model)
-        print(f"  train step check {time.perf_counter() - t0:.1f} s", flush=True)
+        checks.run("train_step_check", tok=tok, tmp=tmp,
+                   model=build_config("ralf", list(overrides)).model)
 
         # Trainer.fit at the ralf preset's size: full width, fp32, batch 32,
         # dropout 0.1, the non-debug synthetic splits, retrieval in the train split
@@ -2247,7 +2271,7 @@ def zoo_step_check(torch, fails: Failures, tmp: str, preset: str, overrides=()) 
     compare_step(fails, f"zoo_train {preset} step", out)
 
 
-def run_zoo_train(torch, fails: Failures, smi: list, overrides=()) -> dict:
+def run_zoo_train(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
     """Training MaskGIT, LayoutDM, VQDiffusion, RA-LayoutDM and ICVT on the
     card: per preset the one-step check against the CPU, Trainer.fit at the
     preset's training size and its resume (ZOO_TRAIN_FIT's presets), then
@@ -2271,10 +2295,7 @@ def run_zoo_train(torch, fails: Failures, smi: list, overrides=()) -> dict:
     for preset, (k1_step, k1_eval, k1_infer) in ZOO_TRAIN.items():
         t = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
-            zoo_step_check(torch, fails, tmp, preset, overrides)
-            torch.cuda.empty_cache()
-            t_step = time.perf_counter() - t
-
+            checks.run("zoo_step_check", tmp=tmp, preset=preset, overrides=overrides)
             if preset in ZOO_TRAIN_FIT:
                 # Trainer.fit at the preset's training size: full width, fp32, batch
                 # 32, dropout 0.1, the non-debug synthetic splits (RA-LayoutDM's
@@ -2309,7 +2330,7 @@ def run_zoo_train(torch, fails: Failures, smi: list, overrides=()) -> dict:
                                             card)
                 del trainer, state, gen
                 torch.cuda.empty_cache()
-            t_fit = time.perf_counter() - t - t_step
+            t_fit = time.perf_counter() - t
 
             # the entry points: cli.train --debug on the card, then cli.inference on
             # its ckpt_final.npz (--cond c; icvt serves uncond only), one batch of 16
@@ -2354,8 +2375,8 @@ def run_zoo_train(torch, fails: Failures, smi: list, overrides=()) -> dict:
                         f"violations {violations}, {summary['ms_per_sample'][0]:.3f} ms per "
                         f"sample")
         torch.cuda.empty_cache()
-        print(f"  zoo_train {preset} {time.perf_counter() - t:.1f} s (step check {t_step:.1f} s, "
-              f"fit {t_fit:.1f} s)", flush=True)
+        print(f"  zoo_train {preset} {time.perf_counter() - t:.1f} s (fit {t_fit:.1f} s)",
+              flush=True)
     print(f"  zoo_train phase {time.perf_counter() - t0:.1f} s", flush=True)
     return counted.totals
 
@@ -2495,7 +2516,7 @@ def run_gan_fit(torch, fails: Failures, counted: LaunchCounter, preset: str, tmp
     del trainer, state, dis, gen
 
 
-def run_gan_train(torch, fails: Failures, smi: list, overrides=()) -> dict:
+def run_gan_train(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
     """Training CGL-GAN, DS-GAN and their RA variants on the card: per preset
     the one-step check against the CPU, GANTrainer.fit_gan at the training
     size (GAN_TRAIN_FIT's presets), then cli.train --debug ->
@@ -2515,12 +2536,11 @@ def run_gan_train(torch, fails: Failures, smi: list, overrides=()) -> dict:
     for preset, (k1_gen, k1_dis, k1_infer) in GAN_TRAIN.items():
         t = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
-            gan_step_check(torch, fails, tmp, preset, overrides)
-            t_step = time.perf_counter() - t
+            checks.run("gan_step_check", tmp=tmp, preset=preset, overrides=overrides)
             if preset in GAN_TRAIN_FIT:
                 run_gan_fit(torch, fails, counted, preset, tmp, k1_gen, k1_dis, card, overrides)
                 torch.cuda.empty_cache()
-            t_fit = time.perf_counter() - t - t_step
+            t_fit = time.perf_counter() - t
 
             # the entry points: cli.train --debug on the card (2 GAN steps of
             # TRAIN_CLI_BATCH canvases, no validation), then cli.inference on its
@@ -2554,8 +2574,8 @@ def run_gan_train(torch, fails: Failures, smi: list, overrides=()) -> dict:
                         f"{len(coords) // 4} elements with coordinates in [0, 1], violations "
                         f"{violated}/{total}, {summary['ms_per_sample'][0]:.3f} ms per sample")
         torch.cuda.empty_cache()
-        print(f"  gan_train {preset} {time.perf_counter() - t:.1f} s (step check {t_step:.1f} s, "
-              f"fit {t_fit:.1f} s)", flush=True)
+        print(f"  gan_train {preset} {time.perf_counter() - t:.1f} s (fit {t_fit:.1f} s)",
+              flush=True)
     print(f"  gan_train phase {time.perf_counter() - t0:.1f} s", flush=True)
     return counted.totals
 
@@ -2688,7 +2708,7 @@ def run_fid_train(torch, fails: Failures, smi: list, cli_job: str) -> dict:
     return counted.totals
 
 
-def run_bf16_train(torch, tok, fails: Failures, smi: list, overrides=()) -> dict:
+def run_bf16_train(torch, tok, fails: Failures, smi: list, checks, overrides=()) -> dict:
     """bf16 training (fp32 parameters, autocast) on the card: one full-width
     RALF train step against the CPU's at the CPU test's bf16 tolerance;
     Trainer.fit of ralf at batch 32 (as the train phase's fp32 fit, its
@@ -2716,9 +2736,8 @@ def run_bf16_train(torch, tok, fails: Failures, smi: list, overrides=()) -> dict
         return {**dict.fromkeys(counted.totals, 0), **launches}
 
     with tempfile.TemporaryDirectory() as tmp:
-        train_step_check(torch, tok, fails, tmp, build_config("ralf", list(overrides)).model,
-                         "bfloat16")
-        print(f"  bf16_train step check {time.perf_counter() - t0:.1f} s", flush=True)
+        checks.run("train_step_check", tok=tok, tmp=tmp,
+                   model=build_config("ralf", list(overrides)).model, dtype="bfloat16")
 
         job = os.path.join(tmp, "fit")
         cfg = build_config("ralf", ["synthetic_data=true", f"cache_dir={tmp}/cache",
@@ -2802,12 +2821,48 @@ def run_bf16_train(torch, tok, fails: Failures, smi: list, overrides=()) -> dict
     return counted.totals
 
 
-def run_fusion(torch, tok, fails: Failures, smi: list) -> dict:
+def fusion_check(torch, tok, fails: Failures) -> None:
+    """RALF's six other fusion modes at full width in fp32: encode_memory and
+    greedy tokens on the card against the same weights on the CPU for
+    FUSION_CHECK canvases."""
+    from ralf_tpu_torch.core.conditioning import build_forced_tokens
+    from ralf_tpu_torch.core.sampling import SamplingConfig
+    from ralf_tpu_torch.models.base import GeneratorConfig
+    from ralf_tpu_torch.models.ralf import RALFGenerator
+
+    greedy = SamplingConfig(name="deterministic")
+    check = check_retriever = None
+    for mode in FUSION:
+        gens = {d: RALFGenerator(tok, GeneratorConfig(dtype=torch.float32), "uncond", top_k=16,
+                                 fusion=mode, device=d, seed=0) for d in ("cuda", "cpu")}
+        if check is None:  # the check's gallery and canvases, made once, as reference_check's
+            check_retriever, _, (check,) = build_gallery_and_batches(
+                gens["cpu"], "cpu", 1, FUSION_CHECK, 64, np.float32)
+        mems, conds = {}, {}
+        for d, g in gens.items():
+            b = dict(check)
+            table = g.precompute_retrieved_feats(check_retriever.layouts)
+            b["retrieved"] = {**b["retrieved"], "feats": table[b["retrieved_indices"]]}
+            conds[d], _ = g.build_condition(b, np.random.default_rng(1), task="c")
+            mems[d] = g.encode_memory(conds[d]).cpu()
+        forced = build_forced_tokens(conds["cpu"], tok)
+        toks = {d: g.decode(mems["cpu"].to(g.device), forced, greedy).cpu() for d, g in gens.items()}
+        err = float((mems["cuda"] - mems["cpu"]).abs().max())
+        same = float((toks["cuda"] == toks["cpu"]).float().mean())
+        fails.check(err < 1e-3 and same >= AGREE,
+                    f"fusion {mode} fp32: encode_memory card vs CPU max_abs_err {err:.3e} (tol "
+                    f"1e-3), memory {tuple(mems['cpu'].shape)}; greedy tokens {same:.4f} equal "
+                    f"(least {AGREE})")
+        del gens
+        torch.cuda.empty_cache()
+
+
+def run_fusion(torch, tok, fails: Failures, smi: list, checks) -> dict:
     """RALF's six other fusion modes at full width: per mode one bf16 request
     of BATCH canvases in the CLI-default configuration (exact K1 and K2
-    launches, forced and legal tokens, finite layouts, ms), then in fp32
-    encode_memory and greedy tokens on the card against the same weights on
-    the CPU for FUSION_CHECK canvases; returns the counted launches."""
+    launches, forced and legal tokens, finite layouts, ms); `fusion_check`
+    (fp32, card against CPU) through `checks`; returns the counted
+    launches."""
     from ralf_tpu_torch.core.conditioning import build_forced_tokens
     from ralf_tpu_torch.core.sampling import SamplingConfig
     from ralf_tpu_torch.models.base import GeneratorConfig
@@ -2816,10 +2871,10 @@ def run_fusion(torch, tok, fails: Failures, smi: list) -> dict:
     t0 = time.perf_counter()
     card = smi[0] if smi else torch.cuda.get_device_name(0)
     counted = LaunchCounter()
+    checks.run("fusion_check", tok=tok)
     sampling = SamplingConfig(name="top_p", top_p=0.9, temperature=1.0)
-    greedy = SamplingConfig(name="deterministic")
     L = tok.max_token_length
-    retriever = batches = check = check_retriever = None
+    retriever = batches = None
     for mode, k1 in FUSION.items():
         gen = RALFGenerator(tok, GeneratorConfig(dtype=torch.bfloat16), "uncond", top_k=16,
                             fusion=mode, device="cuda", seed=0)
@@ -2857,77 +2912,176 @@ def run_fusion(torch, tok, fails: Failures, smi: list) -> dict:
         print(f"  fusion {mode}: {dt * 1e3:.1f} ms per request of {BATCH} (encode and decode; "
               f"bf16, {card})", flush=True)
         del gen
-
-        # fp32: the card against the CPU on the same weights
-        gens = {d: RALFGenerator(tok, GeneratorConfig(dtype=torch.float32), "uncond", top_k=16,
-                                 fusion=mode, device=d, seed=0) for d in ("cuda", "cpu")}
-        if check is None:  # the check's gallery and canvases, made once, as reference_check's
-            check_retriever, _, (check,) = build_gallery_and_batches(
-                gens["cpu"], "cpu", 1, FUSION_CHECK, 64, np.float32)
-        mems, conds = {}, {}
-        for d, g in gens.items():
-            b = dict(check)
-            table = g.precompute_retrieved_feats(check_retriever.layouts)
-            b["retrieved"] = {**b["retrieved"], "feats": table[b["retrieved_indices"]]}
-            conds[d], _ = g.build_condition(b, np.random.default_rng(1), task="c")
-            mems[d] = g.encode_memory(conds[d]).cpu()
-        forced = build_forced_tokens(conds["cpu"], tok)
-        toks = {d: g.decode(mems["cpu"].to(g.device), forced, greedy).cpu() for d, g in gens.items()}
-        err = float((mems["cuda"] - mems["cpu"]).abs().max())
-        same = float((toks["cuda"] == toks["cpu"]).float().mean())
-        fails.check(err < 1e-3 and same >= AGREE,
-                    f"fusion {mode} fp32: encode_memory card vs CPU max_abs_err {err:.3e} (tol "
-                    f"1e-3), memory {tuple(mems['cpu'].shape)}; greedy tokens {same:.4f} equal "
-                    f"(least {AGREE})")
-        del gens
         torch.cuda.empty_cache()
     print(f"  fusion phase {time.perf_counter() - t0:.1f} s", flush=True)
     return counted.totals
 
 
-def run_towers(torch, fails: Failures, smi: list) -> None:
+WORKER_THREADS = 4  # the worker's torch threads, of the host's 8 cores
+
+
+def _worker_init() -> None:
+    import torch
+
+    torch.set_num_threads(WORKER_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record_k1_shapes()
+
+
+def worker():
+    """One spawned process beside this one for the CPU halves that need no
+    card (the towers' outputs, the builders' CPU cli.evaluate) and for the
+    card-against-CPU checks of the phases (`Checks`): the phases are
+    host-bound on one thread, the checks mostly CPU work, so they run side
+    by side.  Its kernel libraries are the ones `_build.build_all` built."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_worker_init)
+
+
+def check_in_worker(name: str, kwargs: dict) -> tuple[list, str, set]:
+    """Run the check `name` of this script, `name(torch, fails=..., **kwargs)`,
+    in the worker, with a `tmp` of its own (the phase's may be gone by then):
+    (its failures, a check that raised among them with its traceback; its
+    printed output; the K1 shapes the worker has launched)."""
+    import torch
+
+    fails = Failures()
+    out = io.StringIO()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(out):
+        if "tmp" in kwargs:
+            kwargs = {**kwargs, "tmp": tmp}
+        try:
+            globals()[name](torch, fails=fails, **kwargs)
+        except Exception:  # the worker's boundary: the check fails, its output is kept
+            fails.check(False, f"{name} raised:\n{traceback.format_exc()}")
+        torch.cuda.empty_cache()
+        print(f"  {name} {time.perf_counter() - t:.1f} s in the worker", flush=True)
+    return list(fails), out.getvalue(), set(K1_LAUNCHED)
+
+
+class Checks:
+    """Where the phases' card-against-CPU checks run: in the worker `pool`
+    (`worker`), submitted when a phase reaches its check and read by `wait`
+    (each one's output printed in submission order, its failures and K1
+    shapes taken over), or here at once without a pool (a rehearsal)."""
+
+    def __init__(self, fails: Failures, pool=None) -> None:
+        self.fails, self.pool, self.pending = fails, pool, []
+
+    def run(self, name: str, **kwargs) -> None:
+        if self.pool is None:
+            import torch
+
+            globals()[name](torch, fails=self.fails, **kwargs)
+        else:
+            self.pending.append(self.pool.submit(check_in_worker, name, kwargs))
+
+    def wait(self) -> None:
+        t = time.perf_counter()
+        for future in self.pending:
+            failures, text, shapes = future.result()
+            print(text, end="", flush=True)
+            self.fails.extend(failures)
+            K1_LAUNCHED.update(shapes)
+        print(f"checks: waited {time.perf_counter() - t:.1f} s for the worker", flush=True)
+        self.pending = []
+
+
+def cpu_tower_outputs(kinds) -> tuple[dict, float]:
+    """(each tower's outputs on the CPU for the first TOWER_CHECK canvases of
+    `tower_canvases()`, seeded random weights as on the card; the seconds);
+    run in the worker."""
+    from ralf_tpu_torch.models.towers import build_feature_fn
+    from ralf_tpu_torch.retrieval.lpips import make_lpips_fns
+
+    t = time.perf_counter()
+    canvases = tower_canvases()[:TOWER_CHECK]
+    out = {}
+    with tempfile.TemporaryDirectory() as empty:  # no checkpoints: seeded random towers
+        for kind in kinds:
+            fn = (make_lpips_fns(empty, device="cpu")[0] if kind == "lpips_alex"
+                  else build_feature_fn(kind, empty, "cpu"))
+            res = fn(canvases)
+            out[kind] = [a.float().numpy() for a in (res if isinstance(res, list) else [res])]
+            del fn
+    return out, time.perf_counter() - t
+
+
+def tower_canvases() -> np.ndarray:
+    return np.random.default_rng(0).random((TOWER_BATCH, 350, 240, 3), dtype=np.float32)
+
+
+def cpu_image_metrics(cli_job: str) -> tuple[dict, dict, float]:
+    """cli.evaluate --image-metrics --device cpu on a copy of the cli phase's
+    c pickles (its own input and cache dirs in the job's parent), run in the
+    worker: (its scores; the kernels it launched there; the seconds)."""
+    import shutil
+
+    from ralf_tpu_torch.cli import evaluate
+
+    t = time.perf_counter()
+    parent = os.path.dirname(cli_job)
+    inputs = shutil.copytree(os.path.join(cli_job, "out_c"), os.path.join(parent, "cpu_out_c"))
+    argv = ["--input-dir", inputs, "--job-dir", cli_job, "--cache-dir",
+            os.path.join(parent, "cpu_eval_cache"), "--image-metrics", "--device", "cpu"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        scores, n = LaunchCounter()(lambda: evaluate.main(argv))
+    return scores, n, time.perf_counter() - t
+
+
+def run_towers(torch, fails: Failures, smi: list, cpu) -> None:
     """Each feature tower at full size in fp32 (TF32 off): the card against
     the same random weights on the CPU on TOWER_CHECK canvases, within
     TOWER_TOL of the largest magnitude, and ms per batch of TOWER_BATCH
-    350x240 canvases on the card (the resize included)."""
+    350x240 canvases on the card (the resize included).  `cpu` is the
+    future of `cpu_tower_outputs(TOWERS)`, which the worker computes while
+    the card runs the phases before this one."""
     from ralf_tpu_torch.models.towers import TOWER_SPECS, build_feature_fn
     from ralf_tpu_torch.retrieval.lpips import make_lpips_fns
 
     t0 = time.perf_counter()
     card = smi[0] if smi else torch.cuda.get_device_name(0)
-    rng = np.random.default_rng(0)
-    canvases = rng.random((TOWER_BATCH, 350, 240, 3), dtype=np.float32)
+    canvases = tower_canvases()
     on_card = torch.from_numpy(canvases).cuda()
+    cpu_out, cpu_s = cpu.result()
+    print(f"  towers: the CPU's outputs took {cpu_s:.1f} s in the worker, waited for "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as empty:  # no checkpoints: seeded random towers
         for kind in TOWERS:
-            out, fns = {}, {}
-            for d in ("cuda", "cpu"):
-                fns[d] = (make_lpips_fns(empty, device=d)[0] if kind == "lpips_alex"
-                          else build_feature_fn(kind, empty, d))
-                res = fns[d](canvases[:TOWER_CHECK])
-                out[d] = [t.float().cpu() for t in (res if isinstance(res, list) else [res])]
+            fn = (make_lpips_fns(empty, device="cuda")[0] if kind == "lpips_alex"
+                  else build_feature_fn(kind, empty, "cuda"))
+            res = fn(canvases[:TOWER_CHECK])
+            out = [t.float().cpu() for t in (res if isinstance(res, list) else [res])]
+            ref = [torch.from_numpy(a) for a in cpu_out[kind]]
             errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-8))
-                    for a, b in zip(out["cuda"], out["cpu"])]
-            finite = all(bool(torch.isfinite(a).all()) for a in out["cuda"])
-            fails.check(finite and max(errs) < TOWER_TOL,
+                    for a, b in zip(out, ref)]
+            finite = all(bool(torch.isfinite(a).all()) for a in out)
+            fails.check(finite and len(out) == len(ref) and max(errs) < TOWER_TOL,
                         f"towers {kind}: card vs CPU relative max error {max(errs):.3e} (tol "
-                        f"{TOWER_TOL}), outputs {[tuple(a.shape) for a in out['cuda']]}")
-            ms = time_ms(lambda: fns["cuda"](on_card), iters=5, warmup=2)
+                        f"{TOWER_TOL}), outputs {[tuple(a.shape) for a in out]}")
+            ms = time_ms(lambda: fn(on_card), iters=5, warmup=2)
             size = 224 if kind == "lpips_alex" else TOWER_SPECS[kind][1]
             print(f"  towers {kind}: {ms:.2f} ms per batch of {TOWER_BATCH} (350x240 -> "
                   f"{size}, fp32; {card})", flush=True)
-            del fns
+            del fn
             torch.cuda.empty_cache()
     print(f"  towers phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def run_builders(torch, fails: Failures, smi: list, cli_job: str) -> dict:
+def run_builders(torch, fails: Failures, smi: list, cli_job: str, cpu_eval) -> dict:
     """cli.build_caches on the synthetic debug splits (64/16/16): retrieval
     with the dreamsim backbone, then reranked by mmr and by lpips (AlexNet;
     its rows against the CPU's lpips_rerank of the same candidates), then the
     clusters and the relationships; then cli.evaluate --image-metrics on the
     cli phase's c pickles (`cli_job`) against the same call without the flag
-    and the same call on the CPU; returns the counted launches."""
+    and the same call on the CPU, `cpu_eval`, the future of
+    `cpu_image_metrics(cli_job)`, which the worker runs from the cli phase's
+    end; returns the counted launches."""
     from ralf_tpu_torch import cache as cache_mod
     from ralf_tpu_torch.cli import build_caches, evaluate
     from ralf_tpu_torch.config import FrameworkConfig, build_datasets
@@ -3008,19 +3162,22 @@ def run_builders(torch, fails: Failures, smi: list, cli_job: str) -> dict:
         # cli.evaluate --image-metrics on the cli phase's c pickles, beside the same call
         # without the flag (its other scores must not move) and the same call on the CPU
         scores = {}
-        for label, extra, want in (
-                ("plain", [], {**none, "K1": 4 * (1 + CLI_SEEDS)}),
-                ("image-metrics", ["--image-metrics"], {**none, "K1": 4 * (1 + CLI_SEEDS)}),
-                ("image-metrics --device cpu", ["--image-metrics", "--device", "cpu"], none)):
+        for label, extra in (("plain", []), ("image-metrics", ["--image-metrics"])):
             argv = ["--input-dir", os.path.join(cli_job, "out_c"), "--job-dir", cli_job,
                     "--cache-dir", os.path.join(tmp, f"eval_{len(scores)}"), *extra]
             t = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 scores[label], n = counted(lambda: evaluate.main(argv))
             t = time.perf_counter() - t
-            fails.check(n == want, f"builders cli.evaluate {label}: launches {n}")
+            fails.check(n == {**none, "K1": 4 * (1 + CLI_SEEDS)},
+                        f"builders cli.evaluate {label}: launches {n}")
             print(f"  builders cli.evaluate {label}: {t:.2f} s ({card})", flush=True)
-        got, cpu = scores["image-metrics"], scores["image-metrics --device cpu"]
+        t = time.perf_counter()
+        cpu, n, cpu_s = cpu_eval.result()
+        fails.check(n == none, f"builders cli.evaluate image-metrics --device cpu: launches {n}")
+        print(f"  builders cli.evaluate image-metrics --device cpu: {cpu_s:.2f} s in the "
+              f"worker, waited for {time.perf_counter() - t:.2f} s", flush=True)
+        got = scores["image-metrics"]
         positive = all(got[k]["mean"] > 0 for k in ("image_fid", "R_shm"))
         same = all(json.dumps(got[k]) == json.dumps(v) for k, v in scores["plain"].items())
         errs = {k: abs(got[k]["mean"] - cpu[k]["mean"]) / max(abs(cpu[k]["mean"]), 1e-12)
@@ -3035,6 +3192,155 @@ def run_builders(torch, fails: Failures, smi: list, cli_job: str) -> dict:
                     + f" (limits {IMAGE_TOL}, else 1e-6)")
     print(f"  builders phase {time.perf_counter() - t0:.1f} s", flush=True)
     return counted.totals
+
+
+def randomize_bn(torch, module, seed: int) -> None:
+    """Every BatchNorm's statistics and affine drawn from a seeded CPU
+    generator (tests/test_lama.py's `_randomize_bn` laws): with flax's initial
+    ones (mean 0, var 1, scale 1, bias 0) BatchNorm is the identity, and a
+    random saliency map spans too little to test."""
+    from ralf_tpu_torch.models.resnet import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                n = m.weight.numel()
+                m.running_mean.copy_(torch.randn(n, generator=g) * 0.3)
+                m.running_var.copy_(torch.rand(n, generator=g) + 0.5)
+                m.weight.copy_(1.0 + torch.randn(n, generator=g) * 0.2)
+                m.bias.copy_(torch.randn(n, generator=g) * 0.2)
+
+
+def random_layouts(n: int, rng: np.random.Generator, max_elements: int = 10):
+    """A Layout of `n` canvases with 1..max_elements boxes each, drawn with numpy."""
+    from ralf_tpu_torch.core.layout import Layout
+
+    count = rng.integers(1, max_elements + 1, n)
+    mask = np.arange(max_elements)[None, :] < count[:, None]
+    shape = (n, max_elements)
+    return Layout.fromdict({"label": rng.integers(0, 3, shape) * mask,
+                            "center_x": rng.uniform(0.1, 0.9, shape) * mask,
+                            "center_y": rng.uniform(0.1, 0.9, shape) * mask,
+                            "width": rng.uniform(0.05, 0.4, shape) * mask,
+                            "height": rng.uniform(0.03, 0.2, shape) * mask, "mask": mask})
+
+
+def measure_batch(torch, label: str, run, card: str, unit: str, n: int) -> dict:
+    """ms per call of `run` on the card (median of PREPROCESS_TIMED after a
+    warm-up), n / that as items/s, peak memory of one call, and one call
+    under torch.profiler (device ms, busy share, launches); printed and
+    returned."""
+    run()
+    torch.cuda.synchronize()
+    ms = time_ms(run, iters=PREPROCESS_TIMED, warmup=0)
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = profile_request(torch, f"preprocess {label}", run)
+    print(f"  preprocess {label}: {ms:.2f} ms per batch of {n} {unit}, {1e3 * n / ms:.2f} "
+          f"{unit}/s, peak memory {peak:.3f} GiB (fp32; {card})", flush=True)
+    return {"ms": ms, "per_s": 1e3 * n / ms, "peak_gib": peak, **prof}
+
+
+def run_preprocess(torch, fails: Failures, smi: list) -> dict:
+    """The offline dataset build's nets on the card, fp32, TF32 off, random
+    weights drawn to flax's laws from seed 0, the saliency nets' with random
+    BatchNorm statistics (`randomize_bn`): ISNet (1024^2) and BASNet (256^2)
+    through cli.saliency's array function on SALIENCY_BATCH canvases, then
+    LaMa (BIG_LAMA) through
+    `inpaint` on LAMA_BATCH canvases of PKU's raw LAMA_HW with masks from
+    `box_union_mask`, its weights written as TorchScript first; each with ms
+    per batch, items/s, peak memory and one profiled batch, and one canvas
+    card against CPU (the raw maps within SALIENCY_TOL, with their range
+    printed; LaMa at LAMA_CHECK_HW within LAMA_TOL).  Returns the figures by
+    net."""
+    import copy
+
+    from ralf_tpu_torch.cli import saliency
+    from ralf_tpu_torch.models.towers import seeded
+    from ralf_tpu_torch.preprocess.inpainting import box_union_mask, inpaint
+    from ralf_tpu_torch.preprocess.lama import BIG_LAMA, LamaGenerator
+
+    t0 = time.perf_counter()
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+    rng = np.random.default_rng(0)
+    figures = {}
+    for model in ("isnet", "basnet"):
+        size = saliency.SIZES[model]
+        cpu_net = saliency.build_net(model, device="cpu")
+        randomize_bn(torch, cpu_net, 0)
+        card_net = copy.deepcopy(cpu_net).cuda()
+        imgs = rng.random((SALIENCY_BATCH, size, size, 3), dtype=np.float32)
+        # one canvas, card against CPU, on the raw maps (the min-max would amplify noise)
+        one = {"cpu": saliency.raw_maps(cpu_net, model, imgs[:1]).numpy()[0],
+               "cuda": saliency.raw_maps(card_net, model, imgs[:1]).cpu().numpy()[0]}
+        err = float(np.abs(one["cuda"] - one["cpu"]).max())
+        span = float(one["cpu"].max() - one["cpu"].min())
+        maps = saliency.saliency_maps(card_net, model, imgs)
+        fails.check(err < SALIENCY_TOL and span > SALIENCY_RANGE and maps.shape == (
+            SALIENCY_BATCH, size, size) and bool(np.isfinite(maps).all())
+                    and maps.min() >= 0 and maps.max() <= 1,
+                    f"preprocess {model}: raw map card vs CPU max_abs_err {err:.3e} (tol "
+                    f"{SALIENCY_TOL}) at {size}^2, the CPU map's range {one['cpu'].min():.4f}-"
+                    f"{one['cpu'].max():.4f} ({span:.4f}, least {SALIENCY_RANGE}); normalised "
+                    f"maps {maps.shape} in [{maps.min():.3f}, {maps.max():.3f}]")
+        figures[model] = measure_batch(torch, f"{model} ({size}^2)",
+                                       lambda: saliency.saliency_maps(card_net, model, imgs),
+                                       card, "images", SALIENCY_BATCH)
+        del cpu_net, card_net
+        torch.cuda.empty_cache()
+
+    H, W = LAMA_HW
+    images = rng.integers(0, 256, (LAMA_BATCH, H, W, 3), dtype=np.uint8)
+    masks = box_union_mask(random_layouts(LAMA_BATCH, rng), H, W)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "big-lama.pt")
+        # flax's laws alone: with random BatchNorm statistics the 18 residual blocks grow
+        # the stream to about 1e5 and fp32's own error (against fp64) to 2e-4
+        gen = seeded(lambda: LamaGenerator(BIG_LAMA)).eval()
+        example = (torch.rand(1, 3, 64, 64), torch.zeros(1, 1, 64, 64))
+        torch.jit.trace(gen, example, check_trace=False).save(path)
+        del gen
+        t = time.perf_counter()
+        out = inpaint(images, masks, path, batch_size=LAMA_BATCH)
+        t = time.perf_counter() - t
+        keep = masks == 0
+        fails.check(out.shape == (LAMA_BATCH, H, W, 3) and bool(np.isfinite(out).all())
+                    and out.min() >= 0 and out.max() <= 1
+                    and bool(np.allclose(out[keep], images[keep] / 255.0, atol=1e-6)),
+                    f"preprocess lama: inpaint of {LAMA_BATCH} canvases {H}x{W} (masks cover "
+                    f"{100 * (~keep).mean():.1f}%) -> {out.shape} in [{out.min():.3f}, "
+                    f"{out.max():.3f}], unmasked pixels kept; the call {t:.2f} s (load, pad to "
+                    f"8, run, crop)")
+        h, w = LAMA_CHECK_HW
+        hole = box_union_mask(random_layouts(1, rng), h, w)
+        one = {d: inpaint(images[:1, :h, :w], hole, path, device=d) for d in ("cpu", "cuda")}
+        err = float(np.abs(one["cuda"] - one["cpu"]).max())
+        pred = one["cpu"][hole > 0]
+        live = float(((pred > 0.01) & (pred < 0.99)).mean())  # the rest sigmoid saturates
+        fails.check(err < LAMA_TOL and 0.05 < (hole > 0).mean() < 0.95 and live > 0.01,
+                    f"preprocess lama: inpaint card vs CPU max_abs_err {err:.3e} (tol "
+                    f"{LAMA_TOL}) on one canvas at {h}x{w}, its mask {100 * (hole > 0).mean():.1f}%"
+                    f" of the canvas, {100 * live:.1f}% of the masked values inside (0.01, 0.99)")
+        # the generator inpaint builds from the file, timed on the padded batch
+        from ralf_tpu_torch.preprocess.lama import build_generator, load_lama_params, pad_to_modulo
+
+        gen = build_generator(load_lama_params(path)).cuda()
+        x, m = (torch.from_numpy(pad_to_modulo(a)[0]).cuda().permute(0, 3, 1, 2)
+                for a in (images / np.float32(255.0), (masks > 127)[..., None].astype(np.float32)))
+
+        def batch():
+            with torch.inference_mode():
+                return gen(x, m)
+
+        figures["lama"] = measure_batch(torch, f"lama ({H}x{W} padded to {x.shape[2]}x"
+                                        f"{x.shape[3]})", batch, card, "images", LAMA_BATCH)
+        del gen, x, m
+        torch.cuda.empty_cache()
+    print(f"  preprocess phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return figures
 
 
 def main() -> int:
@@ -3062,36 +3368,47 @@ def main() -> int:
     _build.build_all()
     print(f"build: {time.perf_counter() - t:.1f} s for {list(_build.SOURCES)}", flush=True)
 
-    dev = torch.device("cuda")
-    main_rows = run_kernel_checks(torch, dev, fails)
-    run_backward_checks(torch, dev, fails)
-    record_k1_shapes()
-    tok = LayoutSequenceTokenizer(TokenizerConfig(num_labels=3, max_seq_length=10, num_bin=128))
-    reference_check(torch, tok, fails)
-    launches = run_slice(torch, tok, fails)
-    for kid, n in run_fusion(torch, tok, fails, smi).items():
-        launches[kid] += n
-    launches["K9"] += run_stream(torch, fails)
-    run_towers(torch, fails, smi)
-    with tempfile.TemporaryDirectory() as cli_tmp:
-        for kid, n in run_cli(torch, fails, smi, cli_tmp).items():
+    # the worker (`worker`) computes the towers' CPU outputs from here, the builders' CPU
+    # cli.evaluate from the cli phase's end, and the card-against-CPU checks (`Checks`)
+    # beside the phases that submit them; leaving the block stops it
+    with worker() as pool:
+        checks = Checks(fails, pool)
+        towers_cpu = pool.submit(cpu_tower_outputs, TOWERS)
+        dev = torch.device("cuda")
+        main_rows = run_kernel_checks(torch, dev, fails)
+        run_backward_checks(torch, dev, fails)
+        record_k1_shapes()
+        tok = LayoutSequenceTokenizer(TokenizerConfig(num_labels=3, max_seq_length=10,
+                                                      num_bin=128))
+        checks.run("reference_check", tok=tok)
+        with tempfile.TemporaryDirectory() as cli_tmp:
+            launches = run_cli(torch, fails, smi, cli_tmp)
+            cli_job = os.path.join(cli_tmp, "job")
+            cpu_eval = pool.submit(cpu_image_metrics, cli_job)
+            for kid, n in run_slice(torch, tok, fails).items():
+                launches[kid] += n
+            for kid, n in run_fusion(torch, tok, fails, smi, checks).items():
+                launches[kid] += n
+            launches["K9"] += run_stream(torch, fails)
+            run_towers(torch, fails, smi, towers_cpu)
+            for kid, n in run_fid_train(torch, fails, smi, cli_job).items():
+                launches[kid] += n
+            for kid, n in run_builders(torch, fails, smi, cli_job, cpu_eval).items():
+                launches[kid] += n
+        run_preprocess(torch, fails, smi)
+        for kid, n in run_zoo(torch, fails, smi, checks).items():
             launches[kid] += n
-        for kid, n in run_fid_train(torch, fails, smi, os.path.join(cli_tmp, "job")).items():
+        for kid, n in run_baselines(torch, fails, smi, checks).items():
             launches[kid] += n
-        for kid, n in run_builders(torch, fails, smi, os.path.join(cli_tmp, "job")).items():
+        for kid, n in run_train(torch, tok, fails, smi, checks).items():
             launches[kid] += n
-    for kid, n in run_zoo(torch, fails, smi).items():
-        launches[kid] += n
-    for kid, n in run_baselines(torch, fails, smi).items():
-        launches[kid] += n
-    for kid, n in run_train(torch, tok, fails, smi).items():
-        launches[kid] += n
-    for kid, n in run_zoo_train(torch, fails, smi).items():
-        launches[kid] += n
-    for kid, n in run_gan_train(torch, fails, smi).items():
-        launches[kid] += n
-    for kid, n in run_bf16_train(torch, tok, fails, smi).items():
-        launches[kid] += n
+        for kid, n in run_zoo_train(torch, fails, smi, checks).items():
+            launches[kid] += n
+        for kid, n in run_gan_train(torch, fails, smi, checks).items():
+            launches[kid] += n
+        for kid, n in run_bf16_train(torch, tok, fails, smi, checks).items():
+            launches[kid] += n
+        checks.wait()
 
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[kid], **main_rows[n]} for n, (kid, rep, src) in KERNELS.items()]

@@ -50,13 +50,16 @@ class BatchNorm(nn.Module):
     eval: x * (w / sqrt(ra_var + eps)) + (b - ra_mean * that).
     train: the batch's mean and BIASED variance, E[x^2] - E[x]^2 clipped at
     0 (flax's fast variance), in fp32; y = (x - mean) * (rsqrt(var + eps) w)
-    + b; and the running statistics move to 0.9 ra + 0.1 batch, the biased
+    + b; and the running statistics move to momentum * ra + (1 - momentum)
+    * batch (0.9 here, flax's default 0.99 in the saliency nets), the biased
     variance included, where torch's F.batch_norm would store the unbiased
     one, n/(n-1) larger."""
 
-    def __init__(self, channels: int, eps: float = BN_EPS) -> None:
+    def __init__(self, channels: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM) -> None:
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -75,7 +78,7 @@ class BatchNorm(nn.Module):
         var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
         with torch.no_grad():
             for ra, batch in ((self.running_mean, mean), (self.running_var, var)):
-                ra.copy_(BN_MOMENTUM * ra + (1.0 - BN_MOMENTUM) * batch)
+                ra.copy_(self.momentum * ra + (1.0 - self.momentum) * batch)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
         return y.to(x.dtype)

@@ -1221,3 +1221,59 @@ def test_tower_on_the_card_equals_the_cpu(dev, kind, tmp_path):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max() / b.abs().max().clamp_min(1e-8)) < 1e-4
+
+
+@pytest.mark.parametrize("model,size", [("isnet", 512), ("basnet", 256)])
+def test_saliency_net_on_the_card_equals_the_cpu(dev, model, size):
+    """ISNet and BASNet in fp32 (TF32 off) on the same random weights (flax's
+    laws, random BatchNorm statistics): the raw maps and every side output,
+    card against CPU within 1e-4, the towers' limit."""
+    import chip_smoke
+    import numpy as np
+
+    from ralf_tpu_torch.cli import saliency
+    from ralf_tpu_torch.preprocess.saliency_models import basnet_preprocess, isnet_preprocess
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = saliency.build_net(model, device="cpu")
+    chip_smoke.randomize_bn(torch, cpu, 0)
+    card = saliency.build_net(model, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    imgs = np.random.default_rng(0).random((2, size, size, 3), dtype=np.float32)
+    want = saliency.raw_maps(cpu, model, imgs)
+    got = saliency.raw_maps(card, model, imgs).cpu()
+    assert got.shape == (2, size, size) and float(want.max() - want.min()) > 0.05
+    assert float((got - want).abs().max()) < 1e-4
+    x = (isnet_preprocess if model == "isnet" else basnet_preprocess)(imgs)
+    x = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        sides = {"cpu": cpu(x, full=True), "cuda": card(x.cuda(), full=True)}
+    flat = {d: [t.cpu() for t in (s[0] if model == "isnet" else s)] for d, s in sides.items()}
+    for a, b in zip(flat["cuda"], flat["cpu"]):
+        assert float((a - b).abs().max()) < 1e-4
+
+
+def test_lama_on_the_card_equals_the_cpu(dev):
+    """big-lama at full width in fp32 (TF32 off), random weights drawn to
+    flax's laws, at 256x256 and at a canvas whose global branch is of odd
+    size: card against CPU within 3e-4 (JAX's LaMa test's limit).  With
+    random BatchNorm statistics too, the residual stream grows to about 1e5
+    and fp32's own error against fp64 reaches 2e-4."""
+    import numpy as np
+
+    from ralf_tpu_torch.models.towers import seeded
+    from ralf_tpu_torch.preprocess.lama import BIG_LAMA, LamaGenerator
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = seeded(lambda: LamaGenerator(BIG_LAMA)).eval()
+    card = LamaGenerator(BIG_LAMA).cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    for H, W in ((256, 256), (264, 200)):
+        img = torch.from_numpy(rng.random((1, 3, H, W), dtype=np.float32))
+        mask = torch.from_numpy((rng.random((1, 1, H, W)) > 0.7).astype(np.float32))
+        with torch.inference_mode():
+            want = cpu(img, mask)
+            got = card(img.cuda(), mask.cuda()).cpu()
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) < 3e-4

@@ -90,6 +90,19 @@ def test_native_build_failure_raises(monkeypatch, tmp_path):
 # ---- the batch loader --------------------------------------------------------
 
 
+@pytest.mark.parametrize("n,hw", [(40, None), (5, None), (24, HW)])
+def test_synthetic_canvases_are_jax_bit_for_bit(n, hw):
+    """The port makes each box's rectangle only and the canvases on threads
+    (from 16 a call): JAX's canvases bit for bit, float32 and uint8, at the
+    350x240 canvas and a tiny one, in a shuffled order."""
+    jd, td = _datasets(size=64, seed=5, hw=hw, name="pku10")
+    idx = np.random.default_rng(0).permutation(64)[:n]
+    for dtype in (np.float32, np.uint8):
+        want, got = jd.get_images(idx, dtype), td.get_images(idx, dtype)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("drop_last", [False, True])
 def test_loader_keeps_or_drops_the_partial_batch_as_jax(drop_last):
     """21 canvases in batches of 8: the inference loader (drop_last=False)

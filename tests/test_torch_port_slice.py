@@ -204,7 +204,10 @@ def test_port_imports_nothing_of_jax():
                      "core/mask.py", "core/seq_length.py", "models/maskgit.py",
                      "models/diffusion.py", "models/retrieval_augment.py",
                      "ops/relation_costs.py", "models/towers.py", "retrieval/lpips.py",
-                     "eval/image_metrics.py", "cli/build_caches.py", "utils/checkpoints.py"}
+                     "eval/image_metrics.py", "cli/build_caches.py", "utils/checkpoints.py",
+                     "preprocess/readers.py", "preprocess/saliency_models.py",
+                     "preprocess/lama.py", "preprocess/inpainting.py", "cli/saliency.py",
+                     "cli/build_dataset.py"}
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -225,6 +228,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+    # the offline dataset build: inpainting and the saliency CLI's nets
+    from ralf_tpu_torch.cli import saliency
+    from ralf_tpu_torch.preprocess.inpainting import inpaint
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inpaint(np.zeros((1, 8, 8, 3), np.uint8), np.zeros((1, 8, 8), np.uint8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        saliency.build_net("basnet")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        saliency.main(["--model", "basnet", "--input-dir", ".", "--output-dir", "unused"])
 
 
 def test_weights_bridge_checks_every_leaf(models):
