@@ -194,7 +194,24 @@ Run from the repository root.  Phases, each of which must pass:
               masks from `box_union_mask`: ms per batch, images/s, peak memory, one
               profiled batch each; one canvas card against CPU (the raw maps within
               1e-4 with their range printed, LaMa within 3e-4 at 256x256)
-  19. report  one JSON line of the kernels, the nvidia-smi line, and last
+  19. mesh    (right after the cli phase) the multi-GPU layer (ralf_tpu_torch/parallel/)
+              on the one card: the full-width RALF in fp32 (seed 0) samples a
+              request of 128 canvases (task uncond, greedy, top-16 of the 256-canvas
+              gallery) over 2 spawned ranks over gloo with CUDA tensors (NCCL takes
+              one rank a device; `mesh_rank`), 64 rows each: the first-step
+              logits within 1e-5 of world 1's and the tokens equal on every row
+              whose top-two margin stays above 1e-4 (near-tie rows counted), no
+              collective in the program and one all-gather a request, exactly K1 12
+              and K2 300 a rank (on the kernels line); sharded_topk over a gallery
+              of CGL's train split's 60,548 rows at the dreamsim width (2304) split
+              over a gallery axis of 2, against the card's exact_topk and the fp64
+              top-16 on the CPU (in the worker); then over NCCL at world 1
+              cli.inference --mesh on against --mesh off on the cli phase's job
+              (greedy and top_p: equal pickles, launches, one all-gather a request)
+              and one fp32 data-parallel train step at batch 32 against the
+              single-process step (`compare_step`), its collectives all-reduces
+              only; ms per request and per step beside the single-process path's
+  20. report  one JSON line of the kernels, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
 The card-against-CPU checks of phases 4, 9-15 (`reference_check`, `fusion_check`,
@@ -215,6 +232,7 @@ check fails.  It imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import csv
 import io
@@ -388,6 +406,14 @@ IMAGE_KEYS = ["image_precision", "image_recall", "image_density", "image_coverag
 # feature (the towers phase); FID's matrix square root may amplify that, R_shm is a
 # mean of distances; prdc counts neighbours and is exact unless two distances tie
 IMAGE_TOL = {"image_fid": 1e-3, "R_shm": 1e-4}
+# the mesh phase: a request of MESH_BATCH canvases over MESH_WORLD ranks on the one card
+# (gloo), fp32, against world 1; the gallery-sharded top-k over CGL's train split
+# (60,548 canvases) at the dreamsim backbone's width (3 x 768), from a seeded draw
+MESH_BATCH, MESH_WORLD = 128, 2
+MESH_GALLERY, MESH_WIDTH, MESH_TOP_K, MESH_SEED = 60548, 3 * 768, 16, 7
+MESH_LOGITS_TOL = 1e-5  # first-step logits, world 2 against world 1 (fp32)
+MESH_MARGIN = 1e-4  # a row whose top-two logit margin at some step is below this may flip
+MESH_TIMED = 3  # requests and train steps timed each way
 
 
 class Failures(list):
@@ -676,9 +702,11 @@ def kernel_cases(torch, dev):
         cases += [k1_case(torch, g, dev, dtype, *shape) for shape in k1_shapes]
         # K2, K3, K4 also at the wrapper's largest M (K2: slices streamed; K3,
         # K4: slices of 512 tokens) and K3, K4 at a small M (CTAs with no token);
-        # K2, K3 also at the cli phase's batch of 64 and its single canvas, and in
-        # fp32 at the train phase's cli.inference batch (16 canvases, task c)
-        k2_shapes = ((128, 680), (128, 677), (128, 4096), (128, 5), (64, 680), (1, 680))
+        # K2, K3 also at the cli phase's batch of 64 (the mesh phase's rows a rank of
+        # a request of 128 over 2; uncond and c's memories) and its single canvas, and
+        # in fp32 at the train phase's cli.inference batch (16 canvases, task c)
+        k2_shapes = ((128, 680), (128, 677), (128, 4096), (128, 5), (64, 680), (64, 699),
+                     (1, 680))
         for B, M in k2_shapes + (((16, 699),) if dtype == torch.float32 else ()):
             H, E = 8, 256
             qt = (torch.randn(B, H, E, generator=g, device=dev) / 16).to(dtype)
@@ -908,11 +936,12 @@ def build_gallery_and_batches(gen, dev, n_requests: int, batch: int, gallery_siz
 
 
 def layer_decode(torch, decoder, memory, token_mask, forced, tok, sampling, generator=None,
-                 shared=False, kv_quant=False):
+                 shared=False, kv_quant=False, margins=False):
     """The decode loop written against TokenDecoder's own methods (stack.cross_kv,
     embed_step, stack.step, head), as a user of the decoder writes it: the way
     to the per-layer cross K/V of cross_kv(shared=False), which ar_decode does
-    not offer.  Returns (tokens [B, L], the first step's logits [B, V])."""
+    not offer.  Returns (tokens [B, L], the first step's logits [B, V]) and with
+    `margins` each row's least top-two margin of the logits it sampled from."""
     from ralf_tpu_torch.core.sampling import NEG_INF, sample
 
     B, dev, L = memory.shape[0], memory.device, tok.max_token_length
@@ -925,6 +954,7 @@ def layer_decode(torch, decoder, memory, token_mask, forced, tok, sampling, gene
         keep = torch.zeros((B, L), dtype=torch.bool, device=dev)
         prev = torch.full((B,), tok.bos_id, dtype=torch.long, device=dev)
         toks, first = [], None
+        least = torch.full((B,), float("inf"), device=dev)
         for t in range(L):
             keep[:, t] = prev != tok.pad_id
             x = decoder.stack.step(decoder.embed_step(prev, t), t, cache, cross,
@@ -934,8 +964,14 @@ def layer_decode(torch, decoder, memory, token_mask, forced, tok, sampling, gene
             logits = torch.where(token_mask[t][None], logits, NEG_INF)
             f = forced[:, t]
             only_f = torch.where(vocab[None] == f[:, None], 0.0, NEG_INF)
-            prev = sample(torch.where((f >= 0)[:, None], only_f, logits), sampling, generator)
+            logits = torch.where((f >= 0)[:, None], only_f, logits)
+            if margins:
+                top2 = logits.topk(2, dim=-1).values
+                least = torch.minimum(least, top2[:, 0] - top2[:, 1])
+            prev = sample(logits, sampling, generator)
             toks.append(prev)
+        if margins:
+            return torch.stack(toks, 1), first, least
         return torch.stack(toks, 1), first
 
 
@@ -1976,7 +2012,7 @@ def _cosine(a: np.ndarray, b: np.ndarray) -> float:
 
 
 def compare_step(fails: Failures, label: str, out: dict, dtype: str = "float32",
-                 grads: dict | None = None) -> None:
+                 grads: dict | None = None, sides: str = "card vs CPU") -> None:
     """One train step on the card against the CPU from the same weights and
     batch, out = {device: (loss, params before, (params, batch_stats) after)}:
     the loss and each top-level subtree's update within STEP_TOL[dtype]
@@ -1996,7 +2032,7 @@ def compare_step(fails: Failures, label: str, out: dict, dtype: str = "float32",
     (lc, before, (pc, sc)), (lp, _, (pp, sp)) = out["cuda"], out["cpu"]
     loss_rtol, cos_min, (lo, hi) = STEP_TOL[dtype]
     rel = abs(lc - lp) / abs(lp)
-    fails.check(rel <= loss_rtol, f"{label} card vs CPU: loss {lc:.7f} vs {lp:.7f}, relative "
+    fails.check(rel <= loss_rtol, f"{label} {sides}: loss {lc:.7f} vs {lp:.7f}, relative "
                                   f"{rel:.2e} (tol {loss_rtol})")
     start, ends = dict(_leaves(before[0])), (dict(_leaves(pc)), dict(_leaves(pp)))
     frozen = sorted(k for k in start if "/layout_encoder/" in f"/{k}")
@@ -2019,7 +2055,7 @@ def compare_step(fails: Failures, label: str, out: dict, dtype: str = "float32",
         norm_p = float(np.linalg.norm(d_p))
         cos, ratio = _cosine(d_c, d_p), float(np.linalg.norm(d_c)) / max(norm_p, 1e-30)
         fails.check(cos >= cos_min and lo < ratio < hi,
-                    f"{label} card vs CPU, {what} of {key}: cosine {cos:.5f} (>= {cos_min}), "
+                    f"{label} {sides}, {what} of {key}: cosine {cos:.5f} (>= {cos_min}), "
                     f"norm ratio {ratio:.5f} ({lo}-{hi}), CPU norm {norm_p:.3e}{note}")
     if not sp:  # no BatchNorm (FIDNet)
         return
@@ -2028,12 +2064,12 @@ def compare_step(fails: Failures, label: str, out: dict, dtype: str = "float32",
         cos = float(d_c @ d_p / (np.linalg.norm(d_c) * np.linalg.norm(d_p)))
         ratio = float(np.linalg.norm(d_c) / np.linalg.norm(d_p))
         fails.check(cos > 0.99 and 0.97 < ratio < 1.03,
-                    f"{label} card vs CPU: BatchNorm statistics' change, cosine {cos:.6f} "
+                    f"{label} {sides}: BatchNorm statistics' change, cosine {cos:.6f} "
                     f"(> 0.99), norm ratio {ratio:.5f} (0.97-1.03)")
         return
     worst = max(float((np.abs(_flat(sc[k]) - _flat(sp[k])) /
                        (1e-6 + 1e-4 * np.abs(_flat(sp[k])))).max()) for k in sp)
-    fails.check(worst <= 1.0, f"{label} card vs CPU: BatchNorm running statistics within "
+    fails.check(worst <= 1.0, f"{label} {sides}: BatchNorm running statistics within "
                               f"1e-6 + 1e-4*|CPU| (worst element uses {worst:.3f} of it)")
 
 
@@ -2917,6 +2953,326 @@ def run_fusion(torch, tok, fails: Failures, smi: list, checks) -> dict:
     return counted.totals
 
 
+
+def mesh_gallery(n: int, queries: int) -> tuple[np.ndarray, np.ndarray]:
+    """(the mesh phase's gallery features [n, MESH_WIDTH], L2-normalized as a
+    Retriever normalizes them, and `queries` queries), from MESH_SEED on the host."""
+    rng = np.random.default_rng(MESH_SEED)
+    g = rng.standard_normal((n, MESH_WIDTH), dtype=np.float32)
+    g /= np.linalg.norm(g, axis=-1, keepdims=True)
+    q = rng.standard_normal((queries, MESH_WIDTH), dtype=np.float32)
+    return g, q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def mesh_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of the mesh phase's world of MESH_WORLD on the one card, over
+    gloo with CUDA tensors (NCCL takes one rank a device): the fp32 RALF's
+    MeshSampler on the request of workdir/request.pkl (its rows' first-step
+    logits too) and `sharded_topk` over the gallery's rows split on a gallery
+    axis; its results to workdir/rank{rank}.pkl."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.cuda.is_available():
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
+                            world_size=world)
+    try:
+        record_k1_shapes()
+        out = mesh_rank_work(torch, rank, world, workdir)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def mesh_rank_work(torch, rank: int, world: int, workdir: str) -> dict:
+    from ralf_tpu_torch.core.conditioning import build_forced_tokens
+    from ralf_tpu_torch.core.sampling import SamplingConfig
+    from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer, TokenizerConfig
+    from ralf_tpu_torch.models.base import GeneratorConfig
+    from ralf_tpu_torch.models.ralf import RALFGenerator
+    from ralf_tpu_torch.parallel.decode import MeshSampler, make_decode_mesh
+    from ralf_tpu_torch.parallel.mesh import GALLERY_AXIS, batch_rows, counting, make_mesh, take_rows
+    from ralf_tpu_torch.retrieval.retriever import sharded_topk
+
+    with open(os.path.join(workdir, "request.pkl"), "rb") as f:
+        spec = pickle.load(f)
+    cond, dev, B = spec["cond"], spec["device"], spec["batch"]
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    tok = LayoutSequenceTokenizer(TokenizerConfig(num_labels=3, max_seq_length=10, num_bin=128))
+    gen = RALFGenerator(tok, GeneratorConfig(**spec["model"]), "uncond", device=dev, seed=0)
+    checksum = float(sum(float(p.double().sum()) for p in gen.core.parameters()))
+    greedy = SamplingConfig(name="deterministic")
+    mesh = make_decode_mesh()
+    sampler = MeshSampler(gen, mesh, greedy)
+    counted = LaunchCounter()
+    sampler.sample_tokens(cond)  # warm-up
+    times = []
+    for _ in range(MESH_TIMED):
+        sync()
+        t = time.perf_counter()
+        toks, launches = counted(lambda: sampler.sample_tokens(cond))
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    program, request = sampler.counts
+    lo, hi = batch_rows(mesh, B)
+    local = take_rows(cond, np.arange(lo, hi), B)
+    first = layer_decode(torch, gen.core.decoder, gen.encode_memory(local), gen.token_mask,
+                         build_forced_tokens(local, tok), tok, greedy, shared=True)[1]
+    # the gallery's rows over a gallery axis of `world` ranks, zero-padded
+    g, q = mesh_gallery(spec["gallery"], B)
+    per = -(-g.shape[0] // world)
+    shard = np.zeros((per, g.shape[1]), np.float32)
+    part = g[rank * per:(rank + 1) * per]
+    shard[:len(part)] = part
+    del g, part
+    gmesh = make_mesh((1, world))
+    shard_t, q_t = torch.from_numpy(shard).to(dev), torch.from_numpy(q).to(dev)
+    topk_ms = []
+    for _ in range(1 + MESH_TIMED):
+        sync()
+        t = time.perf_counter()
+        with counting() as topk_counts:
+            idx = sharded_topk(gmesh, GALLERY_AXIS, q_t, shard_t, MESH_TOP_K,
+                               n_valid=spec["gallery"])
+        sync()
+        topk_ms.append((time.perf_counter() - t) * 1e3)
+    return {"tokens": toks.cpu().numpy(), "first": first.cpu().numpy(), "rows": (lo, hi),
+            "launches": launches, "program": dict(program), "request": dict(request),
+            "ms": times, "checksum": checksum, "topk": idx.cpu().numpy(),
+            "topk_counts": dict(topk_counts), "topk_ms": topk_ms[1:], "k1": set(K1_LAUNCHED)}
+
+
+def mesh_topk_check(torch, fails: Failures, got: np.ndarray, gallery: int) -> None:
+    """The mesh phase's sharded top-k against the exact top-k of the same
+    gallery and queries in fp64 on the CPU: equal indices on every query
+    whose fp64 scores around the k-th do not lie within 1e-5 (the card's fp32
+    products over MESH_WIDTH can swap such neighbours)."""
+    g, q = mesh_gallery(gallery, got.shape[0])
+    scores = q.astype(np.float64) @ g.astype(np.float64).T
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :MESH_TOP_K + 1]
+    top = np.take_along_axis(scores, order, axis=1)
+    tied = (np.diff(-top, axis=1) < 1e-5).any(axis=1)
+    same = (got == order[:, :MESH_TOP_K]).all(axis=1)
+    fails.check(bool(same[~tied].all()),
+                f"mesh: sharded_topk over {gallery} x {MESH_WIDTH} on {MESH_WORLD} ranks "
+                f"against the fp64 top-{MESH_TOP_K} on the CPU: {int(same[~tied].sum())} of "
+                f"{int((~tied).sum())} queries equal; {int(tied.sum())} with near-tied scores "
+                f"(within 1e-5; {int(same[tied].sum())} of them equal too)")
+
+
+def run_mesh(torch, tok, fails: Failures, smi: list, checks, cli_job: str, dev: str = "cuda",
+             model=None, batch: int = MESH_BATCH, gallery: int = MESH_GALLERY) -> dict:
+    """The multi-GPU layer on the one card: world 2 over gloo (`mesh_rank`,
+    spawned) against world 1 in fp32; then over NCCL at world 1,
+    cli.inference --mesh on against --mesh off and one data-parallel fp32
+    train step against the single-process one.  Returns the launches of each
+    kernel summed over the counted calls, the ranks' requests among them.
+    `dev`, `model` (GeneratorConfig fields), `batch` and `gallery` cut it for
+    a rehearsal without a card; the script passes none."""
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    from ralf_tpu_torch.cli import inference
+    from ralf_tpu_torch.core.conditioning import build_forced_tokens
+    from ralf_tpu_torch.core.sampling import SamplingConfig
+    from ralf_tpu_torch.data.dataset import BatchLoader, DatasetConfig, SyntheticPosterDataset
+    from ralf_tpu_torch.models.base import GeneratorConfig
+    from ralf_tpu_torch.models.ralf import RALFGenerator
+    from ralf_tpu_torch.parallel import mesh as pmesh
+    from ralf_tpu_torch.retrieval.retriever import Retriever, exact_topk
+    from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
+    from ralf_tpu_torch.train.trainer import TrainConfig, Trainer
+    from ralf_tpu_torch.utils.weights import export_params
+
+    t0 = time.perf_counter()
+    counted = LaunchCounter()
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+    greedy = SamplingConfig(name="deterministic")
+    model = {"dtype": torch.float32, **(model or {})}
+    with tempfile.TemporaryDirectory() as tmp:
+        # world 2: a request of 128 canvases, task uncond, fp32; its condition from the host
+        gen = RALFGenerator(tok, GeneratorConfig(**model), "uncond", device=dev, seed=0)
+        _, _, batches = build_gallery_and_batches(gen, dev, 1, batch, GALLERY)
+        cond, _ = gen.build_condition(batches[0], np.random.default_rng(0), task="uncond")
+        with open(os.path.join(tmp, "request.pkl"), "wb") as f:
+            pickle.dump({"cond": cond, "device": dev, "model": model, "batch": batch,
+                         "gallery": gallery}, f)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank, args=(r, MESH_WORLD, tmp)) for r in range(MESH_WORLD)]
+        for p in procs:
+            p.start()
+        # meanwhile world 1: the same program's tokens, first-step logits and margins
+        with torch.inference_mode():
+            memory = gen.encode_memory(cond)
+            forced = build_forced_tokens(cond, tok)
+            want = gen.decode(memory, forced, greedy).cpu().numpy()
+            _, first, least = layer_decode(torch, gen.core.decoder, memory, gen.token_mask, forced,
+                                           tok, greedy, shared=True, margins=True)
+        first, least = first.cpu().numpy(), least.cpu().numpy()
+        checksum = float(sum(float(p.double().sum()) for p in gen.core.parameters()))
+        g, q = mesh_gallery(gallery, batch)
+        exact = exact_topk(torch.from_numpy(q).to(dev), torch.from_numpy(g).to(dev),
+                           MESH_TOP_K).cpu().numpy()
+        del g
+        for p in procs:
+            p.join(timeout=600)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        codes = [p.exitcode for p in procs]
+        single_ms = []  # world 1's request, the card free again
+        for _ in range(MESH_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.inference_mode():
+                gen.decode(gen.encode_memory(cond), build_forced_tokens(cond, tok), greedy)
+            torch.cuda.synchronize()
+            single_ms.append((time.perf_counter() - t) * 1e3)
+        print(f"  mesh world 1: {', '.join(f'{x:.2f}' for x in single_ms)} ms a request of {batch} "
+              f"(single process, fp32; {card})", flush=True)
+        del gen, memory
+        fails.check(codes == [0] * MESH_WORLD, f"mesh: world {MESH_WORLD} ranks over gloo with "
+                                               f"CUDA tensors exited {codes}")
+        if codes == [0] * MESH_WORLD:
+            ranks = []
+            for r in range(MESH_WORLD):
+                with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                    ranks.append(pickle.load(f))
+            mesh_world2(torch, fails, card, ranks, counted, checksum, want, first, least, exact)
+            checks.run("mesh_topk_check", got=ranks[0]["topk"], gallery=gallery)
+        torch.cuda.empty_cache()
+
+        # world 1 over NCCL: cli.inference --mesh on against --mesh off on the cli
+        # phase's job (bf16, batches of CLI_BATCH, task c), greedy and top_p
+        with open(os.path.join(cli_job, "config.json")) as f:
+            config = json.load(f)
+        for name in ("deterministic", "top_p"):
+            job = os.path.join(tmp, f"job_{name}")
+            os.makedirs(job)
+            with open(os.path.join(job, "config.json"), "w") as f:
+                json.dump({**config, "sampling": {**config["sampling"], "name": name}}, f)
+            per, records = {}, {}
+            for mesh in ("off", "on"):
+                out = os.path.join(job, f"out_{mesh}")
+                argv = ["--job-dir", job, "--params", os.path.join(cli_job, "ckpt_final.npz"),
+                        "--cond", "c", "--num-seeds", "1", "--batch-size", str(CLI_BATCH),
+                        "--mesh", mesh, "--out-dir", out]
+                with pmesh.counting() as coll:
+                    summary, n = counted(lambda: inference.main(argv))
+                with open(os.path.join(out, "test_0.pkl"), "rb") as f:
+                    records[mesh] = pickle.load(f)["results"]
+                per[mesh] = (summary["ms_per_sample"][0] * CLI_BATCH, dict(coll), n)
+            fails.check(records["on"] == records["off"] and per["on"][2] == per["off"][2]
+                        and per["on"][1].get("all_gather") == 1,
+                        f"mesh: cli.inference --mesh on (world 1, NCCL) against --mesh off, "
+                        f"{name}: {len(records['on'])} records equal={records['on'] == records['off']}, "
+                        f"launches {per['on'][2]} and {per['off'][2]}, collectives {per['on'][1]} "
+                        f"(one all-gather a request of {CLI_BATCH})")
+            print(f"  mesh cli {name}: {per['on'][0]:.2f} ms a request of {CLI_BATCH} with --mesh on, "
+                  f"{per['off'][0]:.2f} ms with --mesh off ({card})", flush=True)
+
+        # world 1 over NCCL: one fp32 data-parallel train step at batch 32 against the
+        # single-process step, from the same seeded weights and batch
+        _, made = pmesh.init_distributed(dev)
+        try:
+            mesh = pmesh.make_mesh()
+            ds = SyntheticPosterDataset(DatasetConfig(name="synthetic"), size=64, seed=0)
+            loader = RetrievalAugmentedLoader(BatchLoader(ds, TRAIN_BATCH, shuffle=False),
+                                              Retriever.build(ds, device=dev), 16,
+                                              is_train_split=True)
+            step_batch = next(iter(loader))
+            out, ms, colls = {}, {}, {}
+            for label, m in (("mesh", mesh), ("single", None)):
+                gen = RALFGenerator(tok, GeneratorConfig(**{**model, "dropout": 0.0}), "uncond",
+                                    device=dev, seed=0)
+                trainer = Trainer(gen, TrainConfig(job_dir=os.path.join(tmp, f"step_{label}")), m)
+                before = export_params(gen.core)
+                state = trainer.init_state()
+                inputs, targets = gen.preprocess(step_batch, np.random.default_rng(0))
+                with pmesh.counting() as coll:
+                    loss, n = counted(lambda: float(trainer.train_step(state, inputs, targets)["loss"]))
+                out["cuda" if m is not None else "cpu"] = (loss, before, export_params(gen.core))
+                colls[label] = dict(coll)
+                times = []
+                for _ in range(MESH_TIMED):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    trainer.train_step(state, inputs, targets)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t) * 1e3)
+                ms[label] = times
+                del gen, trainer, state
+                torch.cuda.empty_cache()
+            compare_step(fails, "mesh: data-parallel train step (world 1, NCCL, fp32, batch "
+                         f"{TRAIN_BATCH})", out, "float32", sides="against the single process")
+            try:
+                pmesh.assert_dp_train_hlo(collections.Counter(colls["mesh"]), expect_sync=False)
+                ok = colls["mesh"].get("all_reduce", 0) >= 1 and not colls["single"]
+            except AssertionError:
+                ok = False
+            fails.check(ok, f"mesh: a train step's collectives {colls['mesh']} (all-reduces only; "
+                            f"the single process {colls['single']})")
+            print(f"  mesh train step: {', '.join(f'{x:.2f}' for x in ms['mesh'])} ms with the mesh "
+                  f"(world 1), {', '.join(f'{x:.2f}' for x in ms['single'])} ms single-process "
+                  f"(fp32, batch {TRAIN_BATCH}; {card})", flush=True)
+        finally:
+            if made:
+                dist.destroy_process_group()
+    print(f"  mesh phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted.totals
+
+
+def mesh_world2(torch, fails: Failures, card: str, ranks: list, counted: LaunchCounter,
+                checksum: float, want: np.ndarray, first: np.ndarray, least: np.ndarray,
+                exact: np.ndarray) -> None:
+    """The world-2 ranks' results against world 1's (`run_mesh`)."""
+    toks = ranks[0]["tokens"]
+    same_weights = all(r["checksum"] == checksum for r in ranks)
+    got_first = np.concatenate([r["first"] for r in ranks])
+    err = float(np.abs(got_first - first).max())
+    ties = least <= MESH_MARGIN
+    equal_rows = (toks == want).all(axis=1)
+    fails.check(same_weights and err <= MESH_LOGITS_TOL and bool(equal_rows[~ties].all())
+                and all(np.array_equal(r["tokens"], toks) for r in ranks),
+                f"mesh: RALF fp32 greedy, a request of {len(toks)} over {MESH_WORLD} ranks (gloo, "
+                f"rows {[r['rows'] for r in ranks]}) against world 1: weights equal={same_weights}, "
+                f"first-step logits max_abs_err {err:.3e} (tol {MESH_LOGITS_TOL}), rows with equal "
+                f"tokens {int(equal_rows[~ties].sum())} of {int((~ties).sum())} clear of a near tie; "
+                f"{int(ties.sum())} near-tie rows (a top-two margin <= {MESH_MARGIN}), "
+                f"{int(equal_rows[ties].sum())} of them equal")
+    for r, rank in enumerate(ranks):
+        ok = (rank["program"] == {} and rank["request"] == {"all_gather": 1}
+              and rank["launches"]["K1"] == 12 and rank["launches"]["K2"] == 6 * want.shape[1])
+        fails.check(ok, f"mesh: rank {r}: a request's collectives {rank['request']}, in the "
+                        f"program {rank['program']}; launches {rank['launches']} (want K1 12, K2 "
+                        f"{6 * want.shape[1]} at {len(toks) // MESH_WORLD} rows)")
+        for k, v in rank["launches"].items():
+            counted.totals[k] += v
+        K1_LAUNCHED.update(rank["k1"])
+        print(f"  mesh rank {r}: {', '.join(f'{x:.2f}' for x in rank['ms'])} ms a request of "
+              f"{len(toks)} (its {len(toks) // MESH_WORLD} rows; 2 ranks on one card, gloo; "
+              f"{card})", flush=True)
+    topk = ranks[0]["topk"]
+    same = (topk == exact).all(axis=1)
+    fails.check(all(np.array_equal(r["topk"], topk) for r in ranks)
+                and all(r["topk_counts"] == {"all_gather": 1} for r in ranks),
+                f"mesh: sharded_topk over a gallery of {MESH_WIDTH}-wide rows on a gallery axis "
+                f"of {MESH_WORLD}: the ranks agree, one all-gather each; {int(same.sum())} of "
+                f"{len(topk)} queries equal the card's exact_topk over the whole gallery "
+                f"(held exactly against fp64 in the worker)")
+    print(f"  mesh sharded_topk: {', '.join(f'{x:.2f}' for x in ranks[0]['topk_ms'])} ms for "
+          f"{len(topk)} queries, top-{MESH_TOP_K} ({card})", flush=True)
+
+
 WORKER_THREADS = 4  # the worker's torch threads, of the host's 8 cores
 
 
@@ -3384,6 +3740,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as cli_tmp:
             launches = run_cli(torch, fails, smi, cli_tmp)
             cli_job = os.path.join(cli_tmp, "job")
+            for kid, n in run_mesh(torch, tok, fails, smi, checks, cli_job).items():
+                launches[kid] += n
             cpu_eval = pool.submit(cpu_image_metrics, cli_job)
             for kid, n in run_slice(torch, tok, fails).items():
                 launches[kid] += n

@@ -31,8 +31,21 @@ deterministic` decodes equal JAX's (MaskGIT's re-masking noise also needs
 `sampling.temperature=0`).  `--kv-quant` and `--self-quant` exist for the
 AR decodes only and raise for the other presets, as JAX's do; `--no-backtrack`
 and `--max-retries` concern the AR relation decode and are ignored by the
-others.  `--mesh on` (multi-GPU) is not ported yet; `auto` and `off` run
-the single-card path.
+others.
+
+`--mesh on` samples through the family's batch-sharded sampler
+(`parallel.zoo.build_mesh_sampler`): each rank samples its rows of every
+batch and one all-gather returns the tokens, which equal the single-card
+path's at the same (padded) batch.  Under torchrun
+
+    torchrun --nproc_per_node=N -m ralf_tpu_torch.cli.inference --job-dir ... --mesh on
+
+the default group comes from torchrun's environment (NCCL on the card, gloo
+with `--device cpu`); started plainly, `--mesh on` runs a world of one.
+`--mesh auto` (the default) takes the mesh path under torchrun (WORLD_SIZE
+set) and the single-card path otherwise; `--mesh off` the single-card path.
+Rank 0 writes the gallery cache first and alone writes the pickles, the
+violation csvs and the ms-per-sample lines.
 """
 
 from __future__ import annotations
@@ -46,9 +59,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ralf_tpu_torch.core.layout import GEO_KEYS, Layout
 from ralf_tpu_torch.models.autoreg import AutoregGenerator
+from ralf_tpu_torch.parallel import mesh as pmesh
 
 COND_CHOICES = ["uncond", "c", "cwh", "partial", "refinement", "relation", "gt"]
 
@@ -148,7 +163,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--self-quant", action="store_true",
                    help="int8 per-token self-attention caches in the decode")
     p.add_argument("--mesh", default="auto", choices=["auto", "on", "off"],
-                   help="auto / off: the single-card sample path; on: multi-GPU, not ported")
+                   help="on: the batch-sharded sampler over every rank (a world of one when "
+                        "not under torchrun); auto: on under torchrun, else off; off: the "
+                        "single-card sample path")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
     return p
@@ -162,10 +179,18 @@ def main(argv=None) -> dict:
     from ralf_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
-    if args.mesh == "on":
-        raise NotImplementedError("--mesh on: multi-GPU inference is not ported yet "
-                                  "(ROADMAP.md Queue A item 10); use --mesh auto or off")
+    use_mesh = args.mesh == "on" or (args.mesh == "auto" and "WORLD_SIZE" in os.environ)
+    made_group = False
+    if use_mesh:
+        dev, made_group = pmesh.init_distributed(dev)
+    try:
+        return _infer(args, dev, use_mesh)
+    finally:
+        if made_group:
+            dist.destroy_process_group()
 
+
+def _infer(args, dev: torch.device, use_mesh: bool) -> dict:
     from ralf_tpu_torch import cache as cache_mod
     from ralf_tpu_torch.config import (
         FrameworkConfig,
@@ -213,8 +238,9 @@ def main(argv=None) -> dict:
     if needs_retrieval:
         from ralf_tpu_torch.retrieval.retriever import Retriever
 
-        retriever = Retriever.build(train_ds, cache_dir=cfg.cache_dir,
-                                    dataset_name=cfg.dataset.name, device=dev)
+        with pmesh.rank0_first():  # rank 0 writes the gallery's cache, the others read it
+            retriever = Retriever.build(train_ds, cache_dir=cfg.cache_dir,
+                                        dataset_name=cfg.dataset.name, device=dev)
         if hasattr(gen, "precompute_retrieved_feats"):  # RALF's frozen tower, once a run
             feats_table = gen.precompute_retrieved_feats(retriever.layouts)
 
@@ -244,10 +270,24 @@ def main(argv=None) -> dict:
     if is_ar:
         extra = {"kv_quant": args.kv_quant, "self_quant": args.self_quant,
                  "use_backtrack": not args.no_backtrack, "max_retries": args.max_retries}
+    sampler, is_main = None, True
+    if use_mesh:
+        from ralf_tpu_torch.parallel.zoo import build_mesh_sampler, make_decode_mesh
+
+        sampler = build_mesh_sampler(gen, make_decode_mesh(), cfg.sampling, task=args.cond,
+                                     kv_quant=args.kv_quant, self_quant=args.self_quant,
+                                     use_backtrack=not args.no_backtrack,
+                                     max_retries=args.max_retries)
+        is_main = dist.get_rank() == 0
+        logging.info("mesh inference (%s) over %d rank(s), %d batch shard(s)",
+                     type(sampler).__name__, dist.get_world_size(), sampler.num_shards)
     summary = {"out_dir": out_dir, "ms_per_sample": {}, "layouts_per_s": {}}
+    # decided before rank 0 writes any: every rank runs the same seeds
+    seeds = [s for s in range(num_seeds)
+             if not os.path.exists(os.path.join(out_dir, f"{args.split}_{s}.pkl"))]
     for seed in range(num_seeds):
         pkl_path = os.path.join(out_dir, f"{args.split}_{seed}.pkl")
-        if os.path.exists(pkl_path):
+        if seed not in seeds:
             logging.info("skip existing %s", pkl_path)
             continue
         rng = np.random.default_rng(seed)
@@ -256,15 +296,18 @@ def main(argv=None) -> dict:
         for batch in batches:
             t0 = time.perf_counter()
             if tokenizer is None:  # GANs, ICVT, the retriever: one call on the batch
-                layout = gen.sample(batch, rng)
+                layout = (sampler or gen).sample(batch, rng)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
             else:
                 cond, _ = gen.build_condition(batch, rng, task=args.cond)
                 generator = torch.Generator(device=dev).manual_seed(seed * 2**32 + len(results))
                 with torch.inference_mode():
-                    layout, seq = gen.sample(cond, cfg.sampling, generator, return_tokens=True,
-                                             **extra)
+                    if sampler is not None:
+                        layout, seq = sampler.sample(cond, generator, return_tokens=True)
+                    else:
+                        layout, seq = gen.sample(cond, cfg.sampling, generator,
+                                                 return_tokens=True, **extra)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 v = calculate_violation(cond, seq, layout, tokenizer)
@@ -274,6 +317,12 @@ def main(argv=None) -> dict:
             n_total += layout.label.shape[0]
             results.extend(layout_to_records(layout, batch.get("id")))
 
+        ms = 1000.0 * t_total / max(n_total, 1)
+        per_s = n_total / max(t_total, 1e-9)
+        summary["ms_per_sample"][seed] = ms
+        summary["layouts_per_s"][seed] = per_s
+        if not is_main:
+            continue
         with open(pkl_path, "wb") as f:
             pickle.dump({"results": results, "cond": args.cond, "split": args.split,
                          "seed": seed}, f)
@@ -283,12 +332,9 @@ def main(argv=None) -> dict:
             w.writerow(["total", "viorated", "rate"])
             rate = violations["viorated"] / max(violations["total"], 1)
             w.writerow([violations["total"], violations["viorated"], rate])
-        ms = 1000.0 * t_total / max(n_total, 1)
-        per_s = n_total / max(t_total, 1e-9)
-        summary["ms_per_sample"][seed] = ms
-        summary["layouts_per_s"][seed] = per_s
         print(f"seed {seed}: {ms:.3f} ms per sample ({per_s:.1f} layouts/sec)")
-    print(f"wrote {out_dir}")
+    if is_main:
+        print(f"wrote {out_dir}")
     return summary
 
 

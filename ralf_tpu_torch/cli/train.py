@@ -29,16 +29,29 @@ run under autocast (`train.trainer`), and the checkpoints hold fp32, which
 both packages' `cli.inference` serve in either dtype.
 
 It runs on the card (`--device cuda`, the default, which raises without
-CUDA) or on the CPU with `--device cpu`.  `train.gallery_shards > 1`
-raises from `Trainer`, naming ROADMAP.md Queue A item 10, which ports it.
+CUDA) or on the CPU with `--device cpu`.  Under torchrun, or with
+`train.gallery_shards > 1`, it trains data-parallel (`parallel.mesh`):
+
+    torchrun --nproc_per_node=N -m ralf_tpu_torch.cli.train --experiment ralf ... \
+        train.gallery_shards=2
+
+The default group comes from torchrun's environment (a world of one without
+it; NCCL on the card, gloo with `--device cpu`).  With retrieval and
+`gallery_shards` gs > 1 the mesh is (data W / gs, gallery gs) and the
+gallery's rows are split over the gallery axis (`Retriever.shard_gallery`),
+as JAX's cli.train does; a gs that does not divide the world size W is
+refused.  Otherwise every rank is on the data axis.  Rank 0 writes the
+job dir's files and the gallery cache first, then the other ranks read them.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 import numpy as np
+import torch.distributed as dist
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,20 +89,30 @@ def main(argv=None) -> str:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
 
-    from ralf_tpu_torch import cache as cache_mod
-    from ralf_tpu_torch.config import (
-        EXPERIMENTS,
-        build_config,
-        build_datasets,
-        build_generator,
-        build_tokenizer,
-    )
-    from ralf_tpu_torch.data.dataset import BatchLoader, DatasetConfig
-    from ralf_tpu_torch.train.trainer import Trainer
+    from ralf_tpu_torch.config import build_config
+    from ralf_tpu_torch.parallel import mesh as pmesh
     from ralf_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
     cfg = build_config(args.experiment, args.overrides)
+    distributed = "WORLD_SIZE" in os.environ or cfg.train.gallery_shards > 1
+    made_group = False
+    if distributed:
+        dev, made_group = pmesh.init_distributed(dev)
+    try:
+        return _train(args, cfg, dev, distributed)
+    finally:
+        if made_group:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, dev, distributed: bool) -> str:
+    from ralf_tpu_torch import cache as cache_mod
+    from ralf_tpu_torch.config import EXPERIMENTS, build_datasets, build_generator, build_tokenizer
+    from ralf_tpu_torch.data.dataset import BatchLoader, DatasetConfig
+    from ralf_tpu_torch.parallel import mesh as pmesh
+    from ralf_tpu_torch.train.trainer import Trainer
+
     generator = EXPERIMENTS[cfg.experiment]["generator"]
     cfg.dataset = DatasetConfig(name=args.dataset, data_dir=args.data_dir)
     cfg.auxiliary_task = args.task
@@ -109,7 +132,9 @@ def main(argv=None) -> str:
     cfg.train.job_dir = args.job_dir or f"tmp/jobs/{args.experiment}_{args.dataset}_{args.task}"
     if args.debug:
         cfg.train.epochs = 1
-    cfg.save(cfg.train.job_dir)
+    with pmesh.rank0_first():
+        if not distributed or dist.get_rank() == 0:
+            cfg.save(cfg.train.job_dir)
     if generator == "retriever":  # non-learnable: the saved config is the whole job
         print(f"done: {cfg.train.job_dir} (retriever is non-learnable; config saved, no "
               "checkpoint needed)")
@@ -133,12 +158,21 @@ def main(argv=None) -> str:
                              transforms=cfg.transforms, seed=cfg.train.seed,
                              image_dtype=image_dtype)
 
+    mesh = pmesh.make_mesh() if distributed else None
     if cfg.experiment == "ralf" or cfg.generator_kwargs.get("with_retrieval"):
         from ralf_tpu_torch.retrieval.retriever import Retriever
         from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
 
-        retriever = Retriever.build(train_ds, cache_dir=cfg.cache_dir,
-                                    dataset_name=cfg.dataset.name, device=dev)
+        with pmesh.rank0_first():  # rank 0 writes the gallery's cache, the others read it
+            retriever = Retriever.build(train_ds, cache_dir=cfg.cache_dir,
+                                        dataset_name=cfg.dataset.name, device=dev)
+        gs = cfg.train.gallery_shards
+        if gs > 1:  # the gallery's rows over gs ranks; the rest of the world is the data axis
+            n = dist.get_world_size()
+            if n % gs:
+                raise SystemExit(f"train.gallery_shards={gs} must divide the world size {n}")
+            mesh = pmesh.make_mesh((n // gs, gs))
+            retriever.shard_gallery(mesh, pmesh.GALLERY_AXIS)
         top_k = cfg.generator_kwargs.get("top_k", 16)
         tables = {  # a cache hit skips the per-run gallery scoring pass
             split: cache_mod.load_retrieval_table(
@@ -154,10 +188,10 @@ def main(argv=None) -> str:
     if generator in ("cglgan", "dsgan"):
         from ralf_tpu_torch.train.gan_trainer import GANTrainer
 
-        GANTrainer(gen, cfg.train).fit_gan(train_loader, num_steps_cap=cap)
+        GANTrainer(gen, cfg.train, mesh).fit_gan(train_loader, num_steps_cap=cap)
     else:
-        Trainer(gen, cfg.train).fit(train_loader, val_loader, num_steps_cap=cap,
-                                    resume=args.resume)
+        Trainer(gen, cfg.train, mesh).fit(train_loader, val_loader, num_steps_cap=cap,
+                                          resume=args.resume)
     print(f"done: {cfg.train.job_dir}")
     return cfg.train.job_dir
 

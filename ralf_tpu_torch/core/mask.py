@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from ralf_tpu_torch.parallel import rows
+
 
 def batch_topk_mask(scores: torch.Tensor, topk: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -36,7 +38,8 @@ def sequence_mask(length: torch.Tensor, maxlen: int) -> torch.Tensor:
 def sample_mask(mask: torch.Tensor, ratio: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """About ratio of each row's True positions, at least one, picked at random."""
-    scores = torch.rand(mask.shape, generator=generator, device=mask.device)
+    scores = rows.draw(lambda shape: torch.rand(shape, generator=generator, device=mask.device),
+                       mask.shape)
     n_elem = mask.sum(dim=-1)
     topk = torch.clamp((ratio * n_elem).to(torch.int32), min=1)
     picked, _ = batch_topk_mask(scores, topk, mask=mask)

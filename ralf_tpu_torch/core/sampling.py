@@ -6,7 +6,9 @@ nucleus over the top-k logits) and `gumbel` (Gumbel noise, then a draw).
 `top_p_filter` is the sort formulation, the bisection's oracle.  Draws come from an explicit
 `torch.Generator` by the Gumbel-max rule, which samples the softmax exactly
 and, unlike `torch.multinomial`, never waits on the device; they cannot
-reproduce `jax.random`'s numbers.
+reproduce `jax.random`'s numbers.  Every draw's leading axis is the batch
+(`parallel.rows.draw`: a rank of a sharded program draws its rows of the
+whole batch's draw).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from ralf_tpu_torch.parallel import rows
 
 # logit mask value of the sampler; attention masks use models.nn.NEG_INF (-1e9)
 NEG_INF = torch.finfo(torch.float32).min
@@ -70,7 +74,8 @@ def top_p_filter_bisect(logits: torch.Tensor, p: float, iters: int = 26) -> torc
 
 def categorical(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
     """One draw per row from softmax(logits) (Gumbel-max), int64 [...]."""
-    e = torch.empty_like(logits, dtype=torch.float32).exponential_(generator=generator)
+    e = rows.draw(lambda shape: torch.empty(shape, device=logits.device).exponential_(
+        generator=generator), logits.shape)
     return torch.argmax(logits.float() - torch.log(e), dim=-1)
 
 
@@ -102,7 +107,8 @@ def sample(logits: torch.Tensor, cfg: SamplingConfig,
     elif cfg.name == "gumbel":
         # Gumbel noise, then a draw from the noisy softmax: doubly stochastic,
         # as the JAX package (and the reference it follows) does
-        u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+        u = rows.draw(lambda shape: torch.rand(shape, generator=generator, device=scaled.device),
+                      scaled.shape)
         c = 1e-30
         scaled = scaled - torch.log(-torch.log(u + c) + c)
     elif cfg.name != "random":

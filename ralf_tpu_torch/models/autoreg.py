@@ -40,6 +40,7 @@ from ralf_tpu_torch.models.positional import PositionalEncoding1D
 from ralf_tpu_torch.models.resnet import ImageEncoder
 from ralf_tpu_torch.ops.decode_loop import ar_decode
 from ralf_tpu_torch.ops.relation_decode import build_relation_tensors, relation_aware_decode
+from ralf_tpu_torch.parallel import rows
 from ralf_tpu_torch.utils.device import resolve_device
 
 
@@ -94,13 +95,14 @@ def smoothed_ce_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_id: int
                      smoothing: float = 0.1) -> torch.Tensor:
     """torch's CrossEntropyLoss(label_smoothing, ignore_index) as JAX writes
     it: the mean over non-ignored positions of -(1 - s) log p_target -
-    (s / V) sum log p, in fp32."""
+    (s / V) sum log p, in fp32.  In a data-parallel step the count of
+    non-ignored positions is the global batch's (`parallel.rows`)."""
     V = logits.shape[-1]
     logp = torch.log_softmax(logits.float(), dim=-1)
     tgt_logp = logp.gather(-1, targets[..., None].long())[..., 0]
     loss = -((1.0 - smoothing) * tgt_logp + (smoothing / V) * logp.sum(dim=-1))
     keep = (targets != ignore_id).float()
-    return (loss * keep).sum() / keep.sum().clamp_min(1.0)
+    return (loss * keep).sum() / rows.mean_denominator(keep.sum(), 1.0)
 
 
 class AutoregGenerator:

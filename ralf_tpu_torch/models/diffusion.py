@@ -66,6 +66,7 @@ from ralf_tpu_torch.models.positional import ElemAttrPositionalEncoding1D, Posit
 from ralf_tpu_torch.models.ralf import RETRIEVED_KEYS, retrieved_tensors
 from ralf_tpu_torch.models.resnet import ImageEncoder
 from ralf_tpu_torch.ops.relation_costs import update_logits_for_relation
+from ralf_tpu_torch.parallel import rows
 from ralf_tpu_torch.utils.device import resolve_device
 
 LOG_EPS = float(np.log(1e-30))
@@ -190,7 +191,7 @@ def gumbel_uniforms(shape: tuple, seed: int, device) -> torch.Tensor:
     """The uniforms [0, 1) of `q_sample`'s Gumbel noise, from a generator on
     `device` seeded by `seed`."""
     g = torch.Generator(device=device).manual_seed(seed)
-    return torch.rand(shape, generator=g, device=device)
+    return rows.draw(lambda s: torch.rand(s, generator=g, device=device), shape)
 
 
 def aux_weight(t: torch.Tensor, T: int) -> torch.Tensor:

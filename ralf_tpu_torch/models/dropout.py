@@ -8,7 +8,8 @@ never from the global RNG: the trainer gives every Dropout of a model one
 generator (`set_dropout_generator`) and seeds it from (seed, step) before
 each step, so that a resumed run draws the masks an uninterrupted one
 draws, as JAX's replayed key stream does.  torch cannot reproduce
-`jax.random`'s numbers, so only the frequencies of the masks match JAX's.
+`jax.random`'s numbers, so only the frequencies of the masks match JAX's.  A rank of a data-parallel
+step draws its rows of the whole batch's masks (`parallel.rows.draw`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ralf_tpu_torch.parallel import rows
 
 
 class Dropout(nn.Module):
@@ -34,7 +37,8 @@ class Dropout(nn.Module):
             raise RuntimeError("Dropout in train mode needs a generator: call "
                                "set_dropout_generator(model, torch.Generator(...)) first")
         keep_prob = 1.0 - self.p
-        keep = torch.empty(x.shape, device=x.device).bernoulli_(keep_prob, generator=self.generator)
+        keep = rows.draw(lambda shape: torch.empty(shape, device=x.device).bernoulli_(
+            keep_prob, generator=self.generator), x.shape)
         return torch.where(keep.bool(), x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ralf_tpu_torch.core.layout import GEO_KEYS, Layout
 from ralf_tpu_torch.ops.assignment import batched_lsa
+from ralf_tpu_torch.parallel import rows
 
 # class-frequency priors of DS-GAN's random class init, by K
 DS_COEF = {4: (0.8, 1.0, 1.0, 0.1), 5: (0.8, 0.8, 1.0, 1.0, 0.1)}
@@ -216,7 +217,8 @@ def set_criterion(pred_logits: torch.Tensor, pred_boxes: torch.Tensor, tgt_label
                   num_classes_total: int) -> dict[str, torch.Tensor]:
     """DETR's losses over the Hungarian assignment: the CE over every query
     weighted by its matched target's class weight, over max(sum of the
-    weights, 1e-8); L1 and 1 - gIoU of the matched boxes over B * S.  Also
+    weights, 1e-8) (the global batch's in a data-parallel step,
+    `parallel.rows`); L1 and 1 - gIoU of the matched boxes over B * S.  Also
     `match`, the assignment [B, S] int32."""
     pred_boxes, tgt_boxes = pred_boxes[..., :4], tgt_boxes[..., :4]
     match = hungarian_match(pred_logits, pred_boxes, tgt_labels, tgt_boxes)
@@ -226,8 +228,8 @@ def set_criterion(pred_logits: torch.Tensor, pred_boxes: torch.Tensor, tgt_label
     logp = torch.log_softmax(pred_logits.float(), -1)
     w = empty_weight[tgt_l]
     ce = -logp.gather(-1, tgt_l[..., None])[..., 0]
-    loss_ce = (ce * w).sum() / torch.maximum(w.sum(), torch.tensor(1e-8, device=w.device))
-    num_boxes = tgt_labels.shape[0] * tgt_labels.shape[1]
+    loss_ce = (ce * w).sum() / rows.mean_denominator(w.sum(), 1e-8)
+    num_boxes = tgt_labels.shape[0] * tgt_labels.shape[1]  # equal shards: a plain mean
     loss_bbox = (pred_boxes - tgt_b).abs().sum() / num_boxes
     giou = generalized_box_iou(_box_cxcywh_to_xyxy(pred_boxes),
                                _box_cxcywh_to_xyxy(tgt_b)).diagonal(dim1=-2, dim2=-1)

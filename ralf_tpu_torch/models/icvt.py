@@ -66,6 +66,7 @@ from ralf_tpu_torch.models.nn import (
 )
 from ralf_tpu_torch.models.positional import PositionalEncoding1D
 from ralf_tpu_torch.models.resnet import ImageEncoder
+from ralf_tpu_torch.parallel import rows
 from ralf_tpu_torch.utils.device import resolve_device
 
 ATTRS = ("label", *GEO_KEYS)
@@ -75,7 +76,7 @@ def seeded_normal(shape: tuple, seed: int, device) -> torch.Tensor:
     """N(0, I) draws (the latent z of sampling, the posterior's eps in
     training) from a generator on `device` seeded by `seed`."""
     g = torch.Generator(device=device).manual_seed(seed)
-    return torch.randn(shape, generator=g, device=device)
+    return rows.draw(lambda s: torch.randn(s, generator=g, device=device), shape)
 
 
 class ICVTTokenizer:
@@ -379,15 +380,19 @@ class ICVTGenerator:
         """z ~ N(0, I) [B, 1, d] from a generator on the device seeded by `seed`."""
         return seeded_normal((B, 1, self.cfg.d_model), seed, self.device)
 
-    @torch.inference_mode()
     def sample(self, batch: dict, rng: np.random.Generator,
                z: Optional[torch.Tensor] = None) -> Layout:
         """Layouts for a batch's canvases: S argmax steps from the latent z
         ([B, 1, d]; by default N(0, I) from a generator seeded by a draw of
         `rng`, which is made even when z is given, as in JAX)."""
         seed = int(rng.integers(2**31))
+        return self.icvt_tokenizer.decode(self.sample_ids(batch["image"], seed, z))
+
+    @torch.inference_mode()
+    def sample_ids(self, image, seed: int, z: Optional[torch.Tensor] = None) -> dict:
+        """{attribute: ids [B, S]} of `sample`, z drawn from `seed` unless given."""
         core, dev = self.core, self.device
-        image = device_image(batch["image"], dev)
+        image = device_image(image, dev)
         B, d = image.shape[0], self.cfg.d_model
         img_memory = core.encode_image(image)
         ga_k = core.ga_key_grid(B)
@@ -401,4 +406,4 @@ class ICVTGenerator:
             for k in ATTRS:
                 ids[k][:, i] = out[k][:, i].argmax(-1)
             tgt[:, i + 1] = core.embed_layout({k: ids[k][:, i:i + 1] for k in ATTRS})[:, 0]
-        return self.icvt_tokenizer.decode(ids)
+        return ids

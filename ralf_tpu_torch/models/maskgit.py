@@ -50,6 +50,7 @@ from ralf_tpu_torch.models.base import (
 )
 from ralf_tpu_torch.models.nn import TokenDecoder
 from ralf_tpu_torch.models.resnet import ImageEncoder
+from ralf_tpu_torch.parallel import rows
 from ralf_tpu_torch.utils.device import resolve_device
 
 
@@ -134,14 +135,15 @@ class MaskGITGenerator:
 
     def loss(self, inputs: dict, targets: dict) -> tuple[torch.Tensor, dict]:
         """Cross-entropy with smoothing 0.1 (0.9 on the target, 0.1 / V on every
-        token) over the masked positions, divided by their count (at least 1)."""
+        token) over the masked positions, divided by their count (at least 1; in a
+        data-parallel step the global batch's, `parallel.rows`)."""
         logits = self.core(inputs["seq"], inputs["image"])
         logp = torch.log_softmax(logits.float(), dim=-1)
         V = logp.shape[-1]
         tgt_logp = logp.gather(-1, targets["seq"][..., None])[..., 0]
         per_tok = -(0.9 * tgt_logp + (0.1 / V) * logp.sum(-1))
         keep = targets["loss_mask"].float()
-        nll = (per_tok * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+        nll = (per_tok * keep).sum() / rows.mean_denominator(keep.sum(), 1.0)
         return nll, {"nll_loss": nll}
 
     def build_condition(self, batch: dict, rng: np.random.Generator,
@@ -199,7 +201,8 @@ class MaskGITGenerator:
             seq_pred = sample(logits, sampling, generator)
             conf = torch.log_softmax(logits, dim=-1).gather(-1, seq_pred[..., None])[..., 0]
             if self.use_gumbel_noise:
-                u = torch.rand(conf.shape, generator=generator, device=self.device)
+                u = rows.draw(lambda shape: torch.rand(shape, generator=generator,
+                                                       device=self.device), conf.shape)
                 float_t = np.float32((t + 1) * float(np.float32(1.0) / np.float32(T_steps)))
                 temp_t = float(np.float32(sampling.temperature) * (np.float32(1.0) - float_t))
                 conf = conf + temp_t * -torch.log(-torch.log(u + 1e-30) + 1e-30)

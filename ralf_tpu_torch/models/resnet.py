@@ -37,6 +37,7 @@ from torch import nn
 from ralf_tpu_torch.models.base import compute_dtype
 from ralf_tpu_torch.models.nn import TransformerEncoder
 from ralf_tpu_torch.models.positional import PositionEmbeddingSine2D
+from ralf_tpu_torch.parallel import rows
 
 BN_EPS = 1e-5
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -53,7 +54,10 @@ class BatchNorm(nn.Module):
     + b; and the running statistics move to momentum * ra + (1 - momentum)
     * batch (0.9 here, flax's default 0.99 in the saliency nets), the biased
     variance included, where torch's F.batch_norm would store the unbiased
-    one, n/(n-1) larger."""
+    one, n/(n-1) larger.  In a data-parallel step (`parallel.rows`) the
+    statistics are the global batch's, as flax's mean over JAX's
+    batch-sharded array is: the sums of x and x^2 go through an all-reduce
+    that carries the gradient."""
 
     def __init__(self, channels: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM) -> None:
@@ -74,8 +78,15 @@ class BatchNorm(nn.Module):
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+        if rows.group_size() == 1:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+        else:  # a data-parallel step: the global batch's statistics, as in JAX
+            n = xf.numel() // xf.shape[1] * rows.group_size()
+            sums = rows.global_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                                xf.square().sum(dim=(0, 2, 3))]))
+            mean = sums[0] / n
+            var = (sums[1] / n - mean.square()).clamp_min(0.0)
         with torch.no_grad():
             for ra, batch in ((self.running_mean, mean), (self.running_var, var)):
                 ra.copy_(self.momentum * ra + (1.0 - self.momentum) * batch)

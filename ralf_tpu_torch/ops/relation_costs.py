@@ -18,6 +18,7 @@ import torch
 from ralf_tpu_torch.core.layout import GEO_KEYS
 from ralf_tpu_torch.core.relationships import REL_SIZE_ALPHA, RelLoc, RelSize
 from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer
+from ralf_tpu_torch.parallel import rows
 
 # the update's gradient steps and their size, as the diffusion samplers take them
 RELATION_LAMBDA, NUM_UPDATE = 1.0, 3
@@ -98,7 +99,7 @@ def relation_cost(bbox_flat: torch.Tensor, edge_idx: torch.Tensor,
     total = acc(total, _le(rj, li) + overlap_band, ei & has(RelLoc.LEFT))
     total = acc(total, _le(ri, lj) + overlap_band, ei & has(RelLoc.RIGHT))
     total = acc(total, _lt(li, rj) + _lt(lj, ri) + overlap_band, ei & has(RelLoc.CENTER))
-    return total.mean() / 14.0
+    return rows.batch_mean(total) / 14.0
 
 
 def update_logits_for_relation(log_prob: torch.Tensor, t: torch.Tensor, edge_idx: torch.Tensor,

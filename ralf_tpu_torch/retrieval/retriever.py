@@ -16,7 +16,8 @@ on the device.  The backbones:
 cache of `ralf_tpu_torch/cache.py` (`{name}_{backbone}_gallery_features.npz`,
 the JAX package's file), so repeated runs embed nothing.  `predict_top1` is
 the non-learnable top-1 copy baseline; `mmr_rerank` the maximal-marginal-
-relevance diversity rerank.
+relevance diversity rerank.  `Retriever.shard_gallery` splits the gallery's
+rows over a mesh axis; its `topk` then runs `sharded_topk`.
 """
 
 from __future__ import annotations
@@ -73,6 +74,48 @@ def exact_topk(query: torch.Tensor, gallery: torch.Tensor, k: int,
     return torch.topk(scores, k, dim=-1).indices
 
 
+def _top_k_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, equal values in
+    ascending index order, as `lax.top_k` returns them."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def sharded_topk(mesh, axis: str, query: torch.Tensor, gallery: torch.Tensor, k: int, *,
+                 exclude_self: bool = False, query_ids: Optional[torch.Tensor] = None,
+                 n_valid: Optional[int] = None) -> torch.Tensor:
+    """Top-k gallery rows [B, k] of a gallery whose rows are split over the
+    mesh axis `axis`: `gallery` is this rank's shard [N / shards, D] of the
+    zero-padded gallery (`Retriever.shard_gallery`), `query` [B, D] the same
+    on every rank.  Each rank takes the top-k of its shard, one all-gather
+    over the axis brings every shard's (score, global row), and the global
+    top-k of those candidates, in shard order, is the result: equal values
+    in ascending candidate order, as JAX's `lax.top_k` over its gathered
+    array.  Rows >= `n_valid` (the padding) and, with exclude_self, each
+    query's own row (`query_ids`) never come back."""
+    from ralf_tpu_torch.parallel.mesh import all_gather
+
+    n_shards, shard = mesh.shape[axis], mesh.coords[axis]
+    shard_n = gallery.shape[0]
+    k_local = min(k, shard_n)  # a tiny shard still yields the exact top-k overall
+    if k > n_shards * k_local:
+        raise ValueError(f"k={k} exceeds the gallery's {n_shards * shard_n} rows")
+    n_real = n_shards * shard_n if n_valid is None else n_valid
+    rows = shard * shard_n + torch.arange(shard_n, device=gallery.device)
+    s = query.float() @ gallery.float().t()
+    dead = (rows >= n_real)[None, :]
+    if exclude_self:
+        dead = dead | (rows[None, :] == query_ids.to(rows.device)[:, None])
+    s = s.masked_fill(dead, float("-inf"))
+    val, idx = _top_k_stable(s, k_local)
+    # one gather of both: fp64 holds every fp32 score and every row index exactly
+    cand = all_gather(torch.stack([val.double(), (idx + shard * shard_n).double()])
+                      .permute(1, 2, 0)[None], mesh.group(axis))  # [shards, B, k_local, 2]
+    cand = cand.permute(1, 0, 2, 3).reshape(query.shape[0], n_shards * k_local, 2)
+    _, pick = _top_k_stable(cand[..., 0], k)
+    return cand[..., 1].gather(1, pick).long()
+
+
 class Retriever:
     """Gallery of (features on the device, layouts on the host); `embed` runs
     the backbone, built at its first use (or given by `build`, which embedded
@@ -89,6 +132,19 @@ class Retriever:
         f = f / np.maximum(np.linalg.norm(f, axis=-1, keepdims=True), 1e-8)
         self.features = torch.as_tensor(f, device=self.device)
         self.layouts = {k: np.asarray(v) for k, v in layouts.items()}
+        self.mesh = self.mesh_axis = self._sharded_features = None  # shard_gallery
+
+    def shard_gallery(self, mesh, axis: str = "gallery") -> "Retriever":
+        """Split the gallery's rows over the mesh axis `axis`, zero-padded to a
+        multiple of its size: this rank keeps its shard, and `topk` (hence
+        `precompute_table` and `retrieval.wrapper.RetrievalAugmentedLoader`)
+        runs `sharded_topk`, where padding never comes back."""
+        n_shards = mesh.shape[axis]
+        f = torch.nn.functional.pad(self.features, (0, 0, 0, (-self.features.shape[0]) % n_shards))
+        per = f.shape[0] // n_shards
+        self._sharded_features = f[mesh.coords[axis] * per:(mesh.coords[axis] + 1) * per].clone()
+        self.mesh, self.mesh_axis = mesh, axis
+        return self
 
     @classmethod
     def build(cls, dataset, backbone: str = "saliency", batch_size: int = 256,
@@ -127,6 +183,10 @@ class Retriever:
         qid = None
         if exclude_self:
             qid = torch.as_tensor(np.asarray(query_ids), device=self.device)
+        if self.mesh is not None:
+            return sharded_topk(self.mesh, self.mesh_axis, query_feats, self._sharded_features,
+                                k, exclude_self=exclude_self, query_ids=qid,
+                                n_valid=self.features.shape[0]).cpu().numpy()
         return exact_topk(query_feats, self.features, k, exclude_self, qid).cpu().numpy()
 
     def gather_neighbors(self, idx: np.ndarray, use_native: bool = True) -> dict:

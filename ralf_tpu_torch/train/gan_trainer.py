@@ -27,6 +27,13 @@ d_loss, sec}.  It saves `epoch{N}` (the generator) when
 `ckpt_final_dis.npz`, `ckpt_final_dis_opt.pt`.  As in JAX it runs no
 validation, writes no `best` or step checkpoint and does not resume.
 
+With a mesh both steps are data-parallel as `Trainer`'s step is: each rank
+runs its rows of the batch under the row shard (the discriminator's
+BatchNorm takes the global batch's statistics, the matching loss the global
+weight sum) and one all-reduce averages the stepped net's gradients; rank 0
+broadcasts both nets' initial state and alone writes `metrics.jsonl` and the
+checkpoints.
+
 Both steps compute in the config's dtype, with both nets cast to fp32 as
 `Trainer` casts its core (`models.base.autocast`); DS-GAN trains in fp32
 only, as in JAX.  Dropout draws from two generators, the generator's and the
@@ -46,6 +53,7 @@ import torch
 
 from ralf_tpu_torch.models.base import autocast
 from ralf_tpu_torch.models.dropout import set_dropout_generator
+from ralf_tpu_torch.parallel.mesh import replicate
 from ralf_tpu_torch.train.optim import Optimizer
 from ralf_tpu_torch.train.schedulers import build_scheduler
 from ralf_tpu_torch.train.trainer import TrainConfig, Trainer, TrainState, step_seed
@@ -54,13 +62,13 @@ logger = logging.getLogger(__name__)
 
 
 class GANTrainer(Trainer):
-    def __init__(self, generator, cfg: TrainConfig, warmup_dis_epoch: int = 10) -> None:
+    def __init__(self, generator, cfg: TrainConfig, mesh=None, warmup_dis_epoch: int = 10) -> None:
         if generator.FP32_TRAINING_ONLY and generator.cfg.dtype not in (None, torch.float32):
             raise ValueError(
                 f"model.dtype={generator.cfg.dtype}: {type(generator).__name__} trains in "
                 "float32 only, as in JAX, whose DS-GAN cannot be built at a low dtype (flax's "
                 "LSTM scan refuses the bf16 initial carry its fp32 cells return in fp32)")
-        super().__init__(generator, cfg)
+        super().__init__(generator, cfg, mesh)
         self.warmup_dis_epoch = warmup_dis_epoch
         self.scheduler_dis = build_scheduler(
             cfg.scheduler, cfg.epochs, **{**cfg.scheduler_kwargs, "network": "discriminator"})
@@ -79,6 +87,8 @@ class GANTrainer(Trainer):
         for p in disc.parameters():
             p.requires_grad_(True)
         set_dropout_generator(disc, self._dropout_dis)
+        if self.mesh is not None:
+            replicate(self.mesh, disc)
         opt = Optimizer(disc, base_lr=self.lr_dis, weight_decay=self.cfg.weight_decay,
                         clip_max_norm=self.cfg.clip_max_norm)
         return state, TrainState(disc, opt, 0)
@@ -92,16 +102,20 @@ class GANTrainer(Trainer):
         state.module.train()
         dis_state.module.eval().requires_grad_(False)
         self._dropout.manual_seed(step_seed(self.cfg.seed, state.step))
+        inputs, targets, shard = self.shard(inputs, targets)
         try:
-            with autocast(self.gen.cfg, self.gen.device):
+            with shard, autocast(self.gen.cfg, self.gen.device):
                 loss, aux = self.gen.loss(inputs, targets, disc=dis_state.module)
             state.optimizer.zero_grad()
             loss.backward()
         finally:
             dis_state.module.requires_grad_(True)
+        metrics = {**{k: v.detach().clone() for k, v in aux.items()},
+                   "loss": loss.detach().clone()}
+        self.sync(metrics, state.module)
         state.optimizer.step()
         state.step += 1
-        return {**{k: v.detach() for k, v in aux.items()}, "loss": loss.detach()}
+        return metrics
 
     def dis_step(self, dis_state: TrainState, state: TrainState, inputs: dict,
                  targets: dict) -> dict:
@@ -109,13 +123,17 @@ class GANTrainer(Trainer):
         state.module.eval()
         dis_state.module.train()
         self._dropout_dis.manual_seed(step_seed(self.cfg.seed + 1, dis_state.step))
-        with autocast(self.gen.cfg, self.gen.device):
+        inputs, targets, shard = self.shard(inputs, targets)
+        with shard, autocast(self.gen.cfg, self.gen.device):
             loss, aux = self.gen.disc_loss(inputs, targets)
         dis_state.optimizer.zero_grad()
         loss.backward()
+        metrics = {**{k: v.detach().clone() for k, v in aux.items()},
+                   "loss_d": loss.detach().clone()}
+        self.sync(metrics, dis_state.module)
         dis_state.optimizer.step()
         dis_state.step += 1
-        return {**{k: v.detach() for k, v in aux.items()}, "loss_d": loss.detach()}
+        return metrics
 
     # ---- the loop ------------------------------------------------------------
 
@@ -145,9 +163,10 @@ class GANTrainer(Trainer):
             d_loss = float(torch.stack(d_losses).mean()) if d_losses else float("nan")
             logger.info("epoch %d: g_loss %.4f d_loss %.4f (%.1fs)", epoch, g_loss, d_loss,
                         time.time() - t0)
-            with open(self._metrics_path, "a") as f:
-                f.write(json.dumps({"epoch": epoch, "g_loss": g_loss, "d_loss": d_loss,
-                                    "sec": round(time.time() - t0, 2)}) + "\n")
+            if self.is_main:
+                with open(self._metrics_path, "a") as f:
+                    f.write(json.dumps({"epoch": epoch, "g_loss": g_loss, "d_loss": d_loss,
+                                        "sec": round(time.time() - t0, 2)}) + "\n")
             if cfg.save_every_epochs and epoch % cfg.save_every_epochs == 0:
                 self.save(state, tag=f"epoch{epoch}")
         state.module.eval()

@@ -30,10 +30,27 @@ norm, AdamW's moments and the checkpoints stay fp32.  A generator built at
 bf16 was cast whole (`models.base.build_core`), so its random weights come
 back rounded to bf16; weights loaded after the Trainer is built (a resume,
 `utils.weights.load_jax_params`) keep their fp32 values.
+
+With a `mesh` (`parallel.mesh`, one process per rank) the steps are
+data-parallel, as JAX's step over its mesh is.  Rank 0 broadcasts the
+initial state once.  Every rank runs the same loader stream and
+`preprocess` on the whole batch (the numpy draws stay in step with a single
+process's and with JAX's) and keeps its rows (`parallel.mesh.batch_rows`);
+the loss runs under `parallel.rows.row_shard` with the batch group, so that
+dropout draws its rows of the whole batch's masks, BatchNorm takes the
+global batch's statistics and the count-normalised losses the global count.
+After backward one flat, bucketed all-reduce averages the gradients (the
+frozen leaves' too, which the clip's norm counts) and the step's scalar
+metrics over the batch group; the update then runs alike on every rank.
+It is no `DistributedDataParallel` wrapper: the clip's norm, K1, K5 and K6's
+recomputed backward and the GAN step's frozen discriminator stay as they
+are.  Rank 0 alone writes the checkpoints, `metrics.jsonl`, profiles and
+renders, and a barrier follows each checkpoint; every rank resumes from it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -48,6 +65,8 @@ from torch import nn
 from ralf_tpu_torch.core.layout import FIELDS, Layout
 from ralf_tpu_torch.models.base import autocast
 from ralf_tpu_torch.models.dropout import set_dropout_generator
+from ralf_tpu_torch.parallel import mesh as pmesh
+from ralf_tpu_torch.parallel.rows import row_shard
 from ralf_tpu_torch.train.optim import Optimizer
 from ralf_tpu_torch.train.schedulers import build_scheduler
 from ralf_tpu_torch.utils.weights import (
@@ -80,7 +99,7 @@ class TrainConfig:
     profile_steps: Optional[tuple] = None  # torch.profiler over train steps [a, b] of epoch 1
     tensorboard: bool = False
     render_every_epochs: int = 0
-    gallery_shards: int = 1
+    gallery_shards: int = 1  # cli.train: the retrieval gallery's rows over this many ranks
 
 
 @dataclasses.dataclass
@@ -99,11 +118,9 @@ def step_seed(seed: int, global_step: int) -> int:
 
 
 class Trainer:
-    def __init__(self, generator, cfg: TrainConfig) -> None:
-        if cfg.gallery_shards > 1:
-            raise NotImplementedError(
-                f"train.gallery_shards={cfg.gallery_shards}: the row-sharded retrieval "
-                "gallery is multi-GPU work, not ported yet (ROADMAP.md Queue A item 10)")
+    def __init__(self, generator, cfg: TrainConfig, mesh: Optional[pmesh.Mesh] = None) -> None:
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.device_mesh.get_rank() == 0
         generator.core.float()  # fp32 parameters and statistics; the steps cast at the ops
         self.gen = generator
         self.cfg = cfg
@@ -112,7 +129,7 @@ class Trainer:
         os.makedirs(cfg.job_dir, exist_ok=True)
         self._metrics_path = os.path.join(cfg.job_dir, "metrics.jsonl")
         self._tb = None
-        if cfg.tensorboard:
+        if cfg.tensorboard and self.is_main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError as e:  # keep training without tensorboard
@@ -130,29 +147,60 @@ class Trainer:
         for p in core.parameters():
             p.requires_grad_(True)
         set_dropout_generator(core, self._dropout)
+        if self.mesh is not None:
+            pmesh.replicate(self.mesh, core)
         opt = Optimizer(core, base_lr=self.cfg.lr, weight_decay=self.cfg.weight_decay,
                         clip_max_norm=self.cfg.clip_max_norm)
         return TrainState(core, opt, 0)
 
     # ---- steps ---------------------------------------------------------------
 
+    def shard(self, inputs: dict, targets: dict):
+        """(this rank's rows of a whole batch's inputs and targets, the row
+        shard its loss runs under); the batch and a null context without a mesh."""
+        if self.mesh is None:
+            return inputs, targets, contextlib.nullcontext()
+        B = pmesh.leading_size(inputs)
+        lo, hi = pmesh.batch_rows(self.mesh, B)
+        return (pmesh.shard_batch(self.mesh, inputs), pmesh.shard_batch(self.mesh, targets),
+                row_shard(B, lo, hi, self.mesh.batch_group, self.mesh.num_shards))
+
+    def sync(self, metrics: dict, module: Optional[nn.Module] = None) -> None:
+        """Average the scalar metrics and the module's gradients over the batch
+        group in place (one flat all-reduce a bucket); nothing without a mesh.
+        A metric with a batch axis keeps this rank's rows."""
+        if self.mesh is None:
+            return
+        tensors = [] if module is None else [p.grad for p in module.parameters()
+                                             if p.grad is not None]
+        tensors += [v for v in metrics.values() if v.dim() == 0 and v.is_floating_point()]
+        pmesh.all_reduce_mean(tensors, self.mesh.batch_group, self.mesh.num_shards)
+
     def train_step(self, state: TrainState, inputs: dict, targets: dict) -> dict:
-        """Forward, loss, backward, clip and update; the metrics stay on the device."""
+        """Forward, loss, backward, clip and update on a whole batch (this
+        rank's rows of it with a mesh); the metrics stay on the device."""
         state.module.train()
         self._dropout.manual_seed(step_seed(self.cfg.seed, state.step))
-        with autocast(self.gen.cfg, self.gen.device):
+        inputs, targets, shard = self.shard(inputs, targets)
+        with shard, autocast(self.gen.cfg, self.gen.device):
             loss, aux = self.gen.loss(inputs, targets)
         state.optimizer.zero_grad()
         loss.backward()
+        metrics = {**{k: v.detach().clone() for k, v in aux.items()},
+                   "loss": loss.detach().clone()}
+        self.sync(metrics, state.module)
         state.optimizer.step()
         state.step += 1
-        return {**{k: v.detach() for k, v in aux.items()}, "loss": loss.detach()}
+        return metrics
 
     def eval_step(self, state: TrainState, inputs: dict, targets: dict) -> dict:
         state.module.eval()
-        with torch.no_grad(), autocast(self.gen.cfg, self.gen.device):
+        inputs, targets, shard = self.shard(inputs, targets)
+        with torch.no_grad(), shard, autocast(self.gen.cfg, self.gen.device):
             loss, _ = self.gen.loss(inputs, targets)
-        return {"loss": loss}
+        metrics = {"loss": loss}
+        self.sync(metrics)
+        return metrics
 
     # ---- loops ---------------------------------------------------------------
 
@@ -194,7 +242,7 @@ class Trainer:
                     break
                 if epoch == start_epoch and i < skip_steps:
                     continue  # trained before the resume point
-                if prof and epoch == 1 and i == prof[0]:
+                if prof and epoch == 1 and i == prof[0] and self.is_main:
                     profiler = self._start_profile()
                 inputs, targets = self.gen.preprocess(batch, rng)
                 metrics = self.train_step(state, inputs, targets)
@@ -230,8 +278,9 @@ class Trainer:
 
             rec = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
                    "lr_scale": scale, "sec": round(time.time() - t0, 2)}
-            with open(self._metrics_path, "a") as f:
-                f.write(json.dumps(rec) + "\n")
+            if self.is_main:
+                with open(self._metrics_path, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
             logger.info("epoch %d done: %s", epoch, rec)
             if self._tb is not None:
                 self._tb.add_scalar("train/loss", train_loss, epoch)
@@ -240,7 +289,7 @@ class Trainer:
                 self._tb.add_scalar("train/lr_scale", scale, epoch)
 
             if (cfg.render_every_epochs and epoch % cfg.render_every_epochs == 0
-                    and val_loader is not None):
+                    and val_loader is not None and self.is_main):
                 self._render_samples(val_loader, epoch)
 
             if val_loss is not None and val_loss < best_val:
@@ -309,12 +358,14 @@ class Trainer:
         """The rolling mid-epoch checkpoint and its meta, written after it,
         so that a crash between the two leaves the previous consistent pair."""
         self.save(state, tag="step")
-        meta = {"epoch": epoch, "step_in_epoch": step_in_epoch, "global_step": global_step}
-        path = os.path.join(self.cfg.job_dir, "ckpt_step_meta.json")
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(meta, f)
-        os.replace(tmp, path)
+        if self.is_main:
+            meta = {"epoch": epoch, "step_in_epoch": step_in_epoch, "global_step": global_step}
+            path = os.path.join(self.cfg.job_dir, "ckpt_step_meta.json")
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(meta, f)
+            os.replace(tmp, path)
+        self._barrier()
 
     def _load_step_meta(self) -> Optional[dict]:
         path = os.path.join(self.cfg.job_dir, "ckpt_step_meta.json")
@@ -323,14 +374,21 @@ class Trainer:
         with open(path) as f:
             return json.load(f)
 
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            pmesh.barrier()
+
     def save(self, state: TrainState, tag: str = "final") -> None:
-        npz, opt = self._paths(tag)
-        tmp_npz, tmp_opt = npz[: -len(".npz")] + ".tmp.npz", opt + ".tmp"
-        save_params_npz(tmp_npz, *export_params(state.module))
-        torch.save({"optimizer": state.optimizer.state_dict(), "step": state.step}, tmp_opt)
-        os.replace(tmp_npz, npz)
-        os.replace(tmp_opt, opt)
-        logger.info("saved checkpoint %s", npz)
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if self.is_main:
+            npz, opt = self._paths(tag)
+            tmp_npz, tmp_opt = npz[: -len(".npz")] + ".tmp.npz", opt + ".tmp"
+            save_params_npz(tmp_npz, *export_params(state.module))
+            torch.save({"optimizer": state.optimizer.state_dict(), "step": state.step}, tmp_opt)
+            os.replace(tmp_npz, npz)
+            os.replace(tmp_opt, opt)
+            logger.info("saved checkpoint %s", npz)
+        self._barrier()
 
     def restore(self, tag: str = "final", state: Optional[TrainState] = None) -> TrainState:
         if state is None:

@@ -225,8 +225,11 @@ def test_clis_guard_the_device_and_what_is_not_ported(jobs, tmp_path, monkeypatc
         tinf.main(["--job-dir", job])
     with pytest.raises(RuntimeError, match="CUDA"):
         teval.main(["--input-dir", f"{job}/port_c", "--job-dir", job])
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tinf.main(["--job-dir", job, "--device", "cpu", "--mesh", "on"])
+    # --mesh on, started plainly: the batch-sharded sampler over a world of one
+    # (tests/test_torch_port_mesh.py holds it at world 2 and 4)
+    tinf.main(["--job-dir", job, "--cond", "c", "--num-seeds", "1", "--batch-size", "16",
+               "--device", "cpu", "--mesh", "on", "--out-dir", str(tmp_path / "mesh_on")])
+    assert _pickle(tmp_path / "mesh_on" / "test_0.pkl") == _pickle(f"{job}/port_c/test_0.pkl")
     # --image-metrics runs on the CPU and writes R_shm (the towers cut to a
     # cheap feature function here; tests/test_torch_port_towers.py holds them)
     from ralf_tpu_torch.eval import image_metrics

@@ -650,12 +650,19 @@ def test_resume_with_dropout_replays_the_run_bit_for_bit(pairs, job_root):
 
 
 def test_trainer_and_cli_refuse_what_waits_for_later_items(pairs, job_root):
-    """The row-sharded gallery waits for item 10.  bf16 training is ported
-    (item 11): the trainer takes a core cast whole to bf16, as serving
-    builds it, and trains it with fp32 master weights."""
+    """The row-sharded gallery is ported (item 10): cli.train refuses a
+    train.gallery_shards that does not divide the world size, as JAX's does
+    (a plain start is a world of one; tests/test_torch_port_dp_train.py
+    trains at world 2).  bf16 training is ported (item 11): the trainer
+    takes a core cast whole to bf16, as serving builds it, and trains it
+    with fp32 master weights."""
+    from ralf_tpu_torch.cli import train as cli_train
+
     _, _, tg = pairs["autoreg"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TTrainer(tg, TTrainConfig(job_dir=str(job_root), gallery_shards=2))
+    with pytest.raises(SystemExit, match="gallery_shards=2 must divide the world size 1"):
+        cli_train.main(["--experiment", "ralf", "--synthetic", "--debug", "--device", "cpu",
+                        "--job-dir", str(job_root / "gs2"), "--cache-dir",
+                        str(job_root / "cache"), *CLI_TINY, "train.gallery_shards=2"])
     bf16 = dataclasses.replace(tg.cfg, dtype=torch.bfloat16)
     served = TAutoreg(tg.tokenizer, bf16, "uncond", image_hw=HW, device="cpu")
     assert {t.dtype for t in served.core.state_dict().values() if t.is_floating_point()} == {
