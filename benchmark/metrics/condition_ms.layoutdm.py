@@ -1,0 +1,10 @@
+"""`condition_ms` of the LayoutDM cell, under a name of its own so that the cell's
+end-to-end metrics keep bounds of their own (its runs spread far less
+than RALF's): the same reader, `condition_ms.py`."""
+
+from benchmark.lib.manifest import metric_reader
+
+LAYER = "request loop"
+UNIT = "ms"
+MOVES = "request_ms_p95.layoutdm"
+read = metric_reader("condition_ms").read

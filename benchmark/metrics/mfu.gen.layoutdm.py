@@ -1,0 +1,10 @@
+"""`mfu.gen` of the LayoutDM cell, under a name of its own so that the cell's
+end-to-end metrics keep bounds of their own (its runs spread far less
+than RALF's): the same reader, `mfu.gen.py`."""
+
+from benchmark.lib.manifest import metric_reader
+
+LAYER = "model step"
+UNIT = "%"
+MOVES = "layouts_per_s.layoutdm"
+read = metric_reader("mfu.gen").read
