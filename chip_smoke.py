@@ -1268,67 +1268,56 @@ def tensor_core_gemm(name: str) -> bool:
         m in n for m in ("gemm", "conv", "fprop", "dgrad", "wgrad", "tensorop")))
 
 
-def device_events(torch, prof) -> tuple[dict, dict]:
-    """The CUDA records of a finished `torch.profiler.profile`, summed by
-    name as `key_averages()` sums them (its filters and its demangled
-    names): ({kernel: (device us, count)}, {record_function span: (us,
-    count)}).  The spans cover kernels on the device timeline."""
-    from torch.autograd import DeviceType
-
-    kernels, spans, names = {}, {}, {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA or getattr(e, "is_hidden_event", lambda: False)():
-            continue
-        raw = e.name()
-        if raw not in names:
-            names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
-        into = spans if e.is_user_annotation() else kernels
-        us, n = into.get(names[raw], (0.0, 0))
-        into[names[raw]] = (us + e.duration_ns() / 1e3, n + 1)
-    return kernels, spans
-
-
 def profile_request(torch, label: str, run) -> dict:
-    """One more request (or train step) under torch.profiler: the summed
-    CUDA kernel time against the host wall time (the device's busy share),
-    the share of it in bf16 tensor-core GEMMs and convolutions
-    (`tensor_core_gemm`), the kernels that take most of it, and the port's
-    own kernels below those, each with its share of the kernel time.  A
-    record_function range (the optimizer's step) spans kernels on the device
-    timeline: it is printed, not summed.  For information; it checks
-    nothing.  Returns {"wall_ms", "kernel_ms", "busy", "launches",
-    "tensor_core_share"} (empty without device time).
+    """One more request (or train step) under torch.profiler, inside the
+    benchmark's marked window and read by its reader (`benchmark/lib/trace.py`,
+    straight from Kineto's records: `key_averages()` builds a Python event for
+    each of a request's some 200 thousand host and device records first, about
+    20 s a request, where this takes about 1): the device's busy share of the
+    window as the union of the device operations' intervals
+    (`benchmark/costs/idle.py`; a sum of their durations counts overlaps twice
+    and can pass 100%), the share of the device time in bf16 tensor-core
+    GEMMs and convolutions (`tensor_core_gemm`), the operations that take
+    most of it and the port's own kernels below those, each with its share
+    of the device time, and the host ranges by name (the port's spans,
+    `utils/tracing.py`, and the optimizer's own record).  For information;
+    it checks nothing.  Returns {"wall_ms", "kernel_ms", "busy", "launches",
+    "tensor_core_share"} (empty without device time)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    The device events are summed by name straight from Kineto's records
-    (`device_events`): `key_averages()` builds a Python event for each of
-    the request's some 200 thousand host and device records first, about
-    20 s a request, where this takes about 1."""
-    from torch.profiler import ProfilerActivity, profile
+    from benchmark.lib import trace as trace_mod
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
+        with record_function(trace_mod.WINDOW):
+            run()
+            torch.cuda.synchronize()
     t = time.perf_counter()
-    kernels, spans = device_events(torch, prof)
-    rows = [(us, n, key) for key, (us, n) in kernels.items()]
-    if not rows:
+    tr = trace_mod.read(torch, prof, 1)
+    if not tr.ops:
         print(f"  {label} profile: no device time recorded (busy share not measured)", flush=True)
         return {}
-    busy = sum(r[0] for r in rows)
-    tc = sum(r[0] for r in rows if tensor_core_gemm(r[2])) / busy
-    launches = sum(r[1] for r in rows)
-    print(f"  {label} profile: wall {wall_us / 1e3:.1f} ms, kernels {busy / 1e3:.1f} ms on the "
-          f"device ({100 * busy / wall_us:.1f}% busy), {launches} launches, "
-          f"{100 * tc:.1f}% of the kernel time in bf16 tensor-core GEMMs and convolutions"
-          + "".join(f"; span {key} {us / 1e3:.2f} ms" for key, (us, _) in spans.items())
+    kernels: dict = collections.defaultdict(lambda: [0.0, 0])
+    for s0, e0, name in tr.ops:
+        kernels[name][0] += (e0 - s0) / 1e3
+        kernels[name][1] += 1
+    spans: dict = collections.defaultdict(float)
+    for s0, e0, name in tr.host:
+        if name != trace_mod.WINDOW:
+            spans[name] += (e0 - s0) / 1e6
+    rows = [(us, n, key) for key, (us, n) in kernels.items()]
+    device_us = sum(r[0] for r in rows)
+    busy = tr.busy_s / tr.window_s
+    tc = sum(r[0] for r in rows if tensor_core_gemm(r[2])) / device_us
+    print(f"  {label} profile: window {tr.window_s * 1e3:.1f} ms, device {tr.busy_s * 1e3:.1f} ms "
+          f"busy ({100 * busy:.1f}%, {device_us / 1e3:.1f} ms summed), {len(tr.ops)} launches, "
+          f"{100 * tc:.1f}% of the device time in bf16 tensor-core GEMMs and convolutions"
+          + "".join(f"; span {key} {ms:.2f} ms" for key, ms in sorted(spans.items()))
           + f" (records read in {time.perf_counter() - t:.1f} s)", flush=True)
     ranked = sorted(rows, reverse=True)
     for us, n, key in ranked[:8] + [r for r in ranked[8:] if "ralf::" in r[2]]:
-        print(f"    {us / 1e3:8.2f} ms {100 * us / busy:5.2f}% {n:6d}x {key[:90]}", flush=True)
-    return {"wall_ms": wall_us / 1e3, "kernel_ms": busy / 1e3, "busy": busy / wall_us,
-            "launches": launches, "tensor_core_share": tc}
+        print(f"    {us / 1e3:8.2f} ms {100 * us / device_us:5.2f}% {n:6d}x {key[:90]}", flush=True)
+    return {"wall_ms": tr.window_s * 1e3, "kernel_ms": device_us / 1e3, "busy": busy,
+            "launches": len(tr.ops), "tensor_core_share": tc}
 
 
 def run_cli(torch, fails: Failures, smi: list, tmp: str, overrides=tuple(CLI_CONFIG)) -> dict:

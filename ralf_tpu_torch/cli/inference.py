@@ -46,6 +46,10 @@ with `--device cpu`); started plainly, `--mesh on` runs a world of one.
 set) and the single-card path otherwise; `--mesh off` the single-card path.
 Rank 0 writes the gallery cache first and alone writes the pickles, the
 violation csvs and the ms-per-sample lines.
+
+`--trace` turns the port's spans and counters on for the run
+(`utils.tracing`; each batch is the root span `infer.batch`) and writes
+their summary to `trace_summary.json` in the output directory.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ import torch.distributed as dist
 from ralf_tpu_torch.core.layout import GEO_KEYS, Layout
 from ralf_tpu_torch.models.autoreg import AutoregGenerator
 from ralf_tpu_torch.parallel import mesh as pmesh
+from ralf_tpu_torch.utils import tracing
 
 COND_CHOICES = ["uncond", "c", "cwh", "partial", "refinement", "relation", "gt"]
 
@@ -168,6 +173,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "single-card sample path")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
+    p.add_argument("--trace", action="store_true",
+                   help=f"record the port's spans and counters; their summary goes to "
+                        f"{tracing.SUMMARY_FILE} in the output directory")
     return p
 
 
@@ -184,7 +192,11 @@ def main(argv=None) -> dict:
     if use_mesh:
         dev, made_group = pmesh.init_distributed(dev)
     try:
-        return _infer(args, dev, use_mesh)
+        with tracing.traced(args.trace):
+            summary = _infer(args, dev, use_mesh)
+            if args.trace:
+                tracing.write_summary(summary["out_dir"])
+        return summary
     finally:
         if made_group:
             dist.destroy_process_group()
@@ -295,24 +307,26 @@ def _infer(args, dev: torch.device, use_mesh: bool) -> dict:
         t_total, n_total = 0.0, 0
         for batch in batches:
             t0 = time.perf_counter()
-            if tokenizer is None:  # GANs, ICVT, the retriever: one call on the batch
-                layout = (sampler or gen).sample(batch, rng)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-            else:
-                cond, _ = gen.build_condition(batch, rng, task=args.cond)
-                generator = torch.Generator(device=dev).manual_seed(seed * 2**32 + len(results))
-                with torch.inference_mode():
-                    if sampler is not None:
-                        layout, seq = sampler.sample(cond, generator, return_tokens=True)
-                    else:
-                        layout, seq = gen.sample(cond, cfg.sampling, generator,
-                                                 return_tokens=True, **extra)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                v = calculate_violation(cond, seq, layout, tokenizer)
-                violations["total"] += v["total"]
-                violations["viorated"] += v["viorated"]
+            with tracing.span("infer.batch"):
+                if tokenizer is None:  # GANs, ICVT, the retriever: one call on the batch
+                    layout = (sampler or gen).sample(batch, rng)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                else:
+                    cond, _ = gen.build_condition(batch, rng, task=args.cond)
+                    generator = torch.Generator(device=dev).manual_seed(
+                        seed * 2**32 + len(results))
+                    with torch.inference_mode():
+                        if sampler is not None:
+                            layout, seq = sampler.sample(cond, generator, return_tokens=True)
+                        else:
+                            layout, seq = gen.sample(cond, cfg.sampling, generator,
+                                                     return_tokens=True, **extra)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    v = calculate_violation(cond, seq, layout, tokenizer)
+                    violations["total"] += v["total"]
+                    violations["viorated"] += v["viorated"]
             t_total += time.perf_counter() - t0
             n_total += layout.label.shape[0]
             results.extend(layout_to_records(layout, batch.get("id")))

@@ -42,6 +42,12 @@ gallery's rows are split over the gallery axis (`Retriever.shard_gallery`),
 as JAX's cli.train does; a gs that does not divide the world size W is
 refused.  Otherwise every rank is on the data axis.  Rank 0 writes the
 job dir's files and the gallery cache first, then the other ranks read them.
+
+`--trace` turns the port's spans and counters on for the run
+(`utils.tracing`; each step of `Trainer.fit` is the root span `train.step`)
+and writes their summary to `trace_summary.json` in the job dir.  A
+`train.profile_steps=` chrome trace carries the same spans whether or not
+`--trace` is given.
 """
 
 from __future__ import annotations
@@ -52,6 +58,8 @@ import os
 
 import numpy as np
 import torch.distributed as dist
+
+from ralf_tpu_torch.utils import tracing
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,6 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="permit kmeans-preset tokenizers to downgrade to the linear vocabulary")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
+    p.add_argument("--trace", action="store_true",
+                   help=f"record the port's spans and counters; their summary goes to "
+                        f"{tracing.SUMMARY_FILE} in the job dir")
     p.add_argument("overrides", nargs="*")
     return p
 
@@ -100,7 +111,11 @@ def main(argv=None) -> str:
     if distributed:
         dev, made_group = pmesh.init_distributed(dev)
     try:
-        return _train(args, cfg, dev, distributed)
+        with tracing.traced(args.trace):
+            job_dir = _train(args, cfg, dev, distributed)
+            if args.trace:
+                tracing.write_summary(job_dir)
+        return job_dir
     finally:
         if made_group:
             dist.destroy_process_group()

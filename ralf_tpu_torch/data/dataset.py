@@ -23,6 +23,7 @@ import numpy as np
 
 from ralf_tpu_torch.core.layout import Layout
 from ralf_tpu_torch.data.transforms import compose
+from ralf_tpu_torch.utils import tracing
 
 IMAGE_H, IMAGE_W = 350, 240  # the reference canvas (H x W)
 PKU_LABELS = ("logo", "text", "underlay")
@@ -350,7 +351,8 @@ class BatchLoader:
 
         threading.Thread(target=producer, daemon=True).start()
         while True:
-            item = q.get()
+            with tracing.span("data.loader_wait"):
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, _ProducerError):

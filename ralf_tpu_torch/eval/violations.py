@@ -25,28 +25,30 @@ from ralf_tpu_torch.core.relationships import (
     detect_size_relation,
 )
 from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer
+from ralf_tpu_torch.utils import tracing
 
 
 def calculate_violation(cond: Condition, seq, layout: Optional[Layout],
                         tokenizer: LayoutSequenceTokenizer) -> dict[str, int]:
     """seq: the generated tokens [B, 5S] (no BOS), a tensor or an array."""
-    task = normalize_task(cond.task)
-    if task in ("uncond", "partial", "gt"):
-        return {"total": 1, "viorated": 0}
-    if task == "relation":
-        assert layout is not None
-        return calculate_relation_violation(cond, layout)
-    off = 1 if tokenizer.has_bos_eos else 0
-    ctok = np.asarray(cond.seq)[:, off:]
-    known = np.asarray(cond.seq_mask)[:, off:] & (ctok != tokenizer.pad_id) & (ctok != MASK_ID)
-    if "mask" in tokenizer.config.special_tokens:
-        known &= ctok != tokenizer.name_to_id("mask")
-    if tokenizer.has_bos_eos:
-        known &= ctok != tokenizer.eos_id
-    if task == "refinement":
-        known &= (np.arange(ctok.shape[1]) % tokenizer.N_var_per_element == 0)[None, :]
-    seq = np.asarray(seq.cpu() if hasattr(seq, "cpu") else seq)
-    return {"total": int(known.sum()), "viorated": int((seq[known] != ctok[known]).sum())}
+    with tracing.span("eval.violations"):
+        task = normalize_task(cond.task)
+        if task in ("uncond", "partial", "gt"):
+            return {"total": 1, "viorated": 0}
+        if task == "relation":
+            assert layout is not None
+            return calculate_relation_violation(cond, layout)
+        off = 1 if tokenizer.has_bos_eos else 0
+        ctok = np.asarray(cond.seq)[:, off:]
+        known = np.asarray(cond.seq_mask)[:, off:] & (ctok != tokenizer.pad_id) & (ctok != MASK_ID)
+        if "mask" in tokenizer.config.special_tokens:
+            known &= ctok != tokenizer.name_to_id("mask")
+        if tokenizer.has_bos_eos:
+            known &= ctok != tokenizer.eos_id
+        if task == "refinement":
+            known &= (np.arange(ctok.shape[1]) % tokenizer.N_var_per_element == 0)[None, :]
+        seq = np.asarray(seq.cpu() if hasattr(seq, "cpu") else seq)
+        return {"total": int(known.sum()), "viorated": int((seq[known] != ctok[known]).sum())}
 
 
 def calculate_relation_violation(cond: Condition, layout: Layout) -> dict[str, int]:

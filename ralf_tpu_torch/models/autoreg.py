@@ -41,6 +41,7 @@ from ralf_tpu_torch.models.resnet import ImageEncoder
 from ralf_tpu_torch.ops.decode_loop import ar_decode
 from ralf_tpu_torch.ops.relation_decode import build_relation_tensors, relation_aware_decode
 from ralf_tpu_torch.parallel import rows
+from ralf_tpu_torch.utils import tracing
 from ralf_tpu_torch.utils.device import resolve_device
 
 
@@ -142,12 +143,15 @@ class AutoregGenerator:
         return device_image(cond.image, self.device)
 
     def _constraint(self, cond: Condition) -> tuple[torch.Tensor, torch.Tensor]:
+        tracing.count_h2d(cond.const_seq)
+        tracing.count_h2d(cond.const_mask)
         return (torch.as_tensor(cond.const_seq, device=self.device).long(),
                 torch.as_tensor(cond.const_mask, device=self.device))
 
     @torch.inference_mode()
     def encode_memory(self, cond: Condition) -> torch.Tensor:
-        return self.core.encode_memory(self._image(cond), *self._constraint(cond))
+        with tracing.span("gen.encode", device=self.device.type == "cuda"):
+            return self.core.encode_memory(self._image(cond), *self._constraint(cond))
 
     def preprocess(self, batch: dict, rng: np.random.Generator) -> tuple[dict, dict]:
         """Training-side: the condition and the teacher-forced decoder
@@ -178,10 +182,11 @@ class AutoregGenerator:
             w = np.asarray(self.MULTITASK_WEIGHTS)
             task = rng.choice(self.MULTITASK_CHOICES, p=w / w.sum())
         task = self.task if task is None else normalize_task(task)
-        cond, target = get_condition(batch["layout"], batch["image"], task, self.tokenizer, rng,
-                                     ids=batch.get("id"), retrieved=batch.get("retrieved"),
-                                     relationships=self.relationships_table)
-        cond.const_seq, cond.const_mask = build_constraint_sequence(cond, self.vocab, rng)
+        with tracing.span("gen.condition"):
+            cond, target = get_condition(batch["layout"], batch["image"], task, self.tokenizer,
+                                         rng, ids=batch.get("id"), retrieved=batch.get("retrieved"),
+                                         relationships=self.relationships_table)
+            cond.const_seq, cond.const_mask = build_constraint_sequence(cond, self.vocab, rng)
         return cond, target
 
     @torch.inference_mode()
@@ -190,9 +195,11 @@ class AutoregGenerator:
                self_quant: bool = False, q8_mxu: bool = False) -> torch.Tensor:
         """The KV-cached constrained decode -> tokens [B, 5S] on the device."""
         tok = self.tokenizer
+        forced = np.asarray(forced)
+        tracing.count_h2d(forced)
         return ar_decode(
             self.core.decoder, memory, None, self.token_mask,
-            torch.as_tensor(np.asarray(forced), device=self.device),
+            torch.as_tensor(forced, device=self.device),
             tok.max_token_length, tok.bos_id, tok.pad_id, sampling, generator,
             kv_quant=kv_quant, self_quant=self_quant, q8_mxu=q8_mxu,
         )

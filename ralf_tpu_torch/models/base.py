@@ -30,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ralf_tpu_torch.utils import tracing
+
 _DTYPE_NAMES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                 "float16": torch.float16}
 
@@ -99,7 +101,9 @@ def compute_dtype(t: torch.Tensor) -> torch.dtype:
 
 
 def device_image(image: Any, device: torch.device) -> torch.Tensor:
-    """A condition's canvases [B, H, W, 4] (numpy or tensor) on `device`."""
+    """A condition's canvases [B, H, W, 4] (numpy or tensor) on `device`
+    (traced: their host bytes counted, `utils.tracing.count_h2d`)."""
+    tracing.count_h2d(image)
     if not isinstance(image, torch.Tensor):
         image = torch.from_numpy(np.asarray(image))
     return image.to(device)

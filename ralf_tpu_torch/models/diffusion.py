@@ -67,6 +67,7 @@ from ralf_tpu_torch.models.ralf import RETRIEVED_KEYS, retrieved_tensors
 from ralf_tpu_torch.models.resnet import ImageEncoder
 from ralf_tpu_torch.ops.relation_costs import update_logits_for_relation
 from ralf_tpu_torch.parallel import rows
+from ralf_tpu_torch.utils import tracing
 from ralf_tpu_torch.utils.device import resolve_device
 
 LOG_EPS = float(np.log(1e-30))
@@ -323,24 +324,31 @@ class MaskAndReplaceDiffusion:
         pad_disable_mask: Optional[torch.Tensor] = None,  # [B, L] bool
         relation_edges: Optional[tuple] = None,  # (edge_idx [B, E, 2], edge_attr [B, E])
     ) -> torch.Tensor:
-        """One reverse step at timestep t for the whole batch -> log one-hot z."""
-        B = log_z.shape[0]
-        t_b = torch.full((B,), t, dtype=torch.long, device=log_z.device)
-        log_x_recon = self.predict_start(logits_fn(log_onehot_to_index(log_z), t_b))
-        model_log_prob = self.q_posterior(log_x_recon, log_z, t)
-        if strong_seq is not None:
-            model_log_prob = torch.where(strong_mask[:, :, None],
-                                         index_to_log_onehot(strong_seq, self.V), model_log_prob)
-        if weak_logits is not None:
-            model_log_prob = torch.where(weak_mask, model_log_prob + weak_logits, model_log_prob)
-        if relation_edges is not None and t >= 10:  # below 10 its gate is 0: the identity
-            model_log_prob = update_logits_for_relation(
-                model_log_prob, t_b, *relation_edges, self.tokenizer)
-        if pad_disable_mask is not None:
-            is_pad = torch.arange(self.V, device=log_z.device) == self.tokenizer.pad_id
-            model_log_prob = torch.where(pad_disable_mask[:, :, None] & is_pad, LOG_EPS,
-                                         model_log_prob)
-        return index_to_log_onehot(sample(model_log_prob, sampling, generator), self.V)
+        """One reverse step at timestep t for the whole batch -> log one-hot z.
+        Traced: the decoder's prediction of x_0 is the span
+        `zoo.denoise.decoder`, the posterior through the sampled one-hot
+        `zoo.denoise.posterior` (both with device time on the card)."""
+        B, on_card = log_z.shape[0], log_z.is_cuda
+        with tracing.span("zoo.denoise.decoder", device=on_card):
+            t_b = torch.full((B,), t, dtype=torch.long, device=log_z.device)
+            log_x_recon = self.predict_start(logits_fn(log_onehot_to_index(log_z), t_b))
+        with tracing.span("zoo.denoise.posterior", device=on_card):
+            model_log_prob = self.q_posterior(log_x_recon, log_z, t)
+            if strong_seq is not None:
+                model_log_prob = torch.where(strong_mask[:, :, None],
+                                             index_to_log_onehot(strong_seq, self.V),
+                                             model_log_prob)
+            if weak_logits is not None:
+                model_log_prob = torch.where(weak_mask, model_log_prob + weak_logits,
+                                             model_log_prob)
+            if relation_edges is not None and t >= 10:  # below 10 its gate is 0: the identity
+                model_log_prob = update_logits_for_relation(
+                    model_log_prob, t_b, *relation_edges, self.tokenizer)
+            if pad_disable_mask is not None:
+                is_pad = torch.arange(self.V, device=log_z.device) == self.tokenizer.pad_id
+                model_log_prob = torch.where(pad_disable_mask[:, :, None] & is_pad, LOG_EPS,
+                                             model_log_prob)
+            return index_to_log_onehot(sample(model_log_prob, sampling, generator), self.V)
 
 
 # ---- the timestep-conditioned decoder -------------------------------------------
@@ -558,9 +566,10 @@ class LayoutDMGenerator:
         """(condition, target layout) of `task` (default the generator's); the
         RA variant's neighbours ride on the condition."""
         task = self.task if task is None else normalize_task(task)
-        return get_condition(batch["layout"], batch["image"], task, self.tokenizer, rng,
-                             ids=batch.get("id"), retrieved=batch.get("retrieved"),
-                             relationships=getattr(self, "relationships_table", None))
+        with tracing.span("gen.condition"):
+            return get_condition(batch["layout"], batch["image"], task, self.tokenizer, rng,
+                                 ids=batch.get("id"), retrieved=batch.get("retrieved"),
+                                 relationships=getattr(self, "relationships_table", None))
 
     def sample(self, cond: Condition, sampling: SamplingConfig,
                generator: Optional[torch.Generator] = None, return_tokens: bool = False):
@@ -574,8 +583,15 @@ class LayoutDMGenerator:
                        generator: Optional[torch.Generator] = None) -> dict:
         """The conditioning tensors on the device: absent conditioning is an
         absent key.  use_seq_dist's element counts come from a numpy rng
-        seeded by the generator's seed."""
+        seeded by the generator's seed.  Traced, the host bytes handed over
+        are counted (`utils.tracing.count_h2d`)."""
         tok, dev = self.tokenizer, self.device
+
+        def put(x) -> torch.Tensor:
+            x = np.asarray(x)
+            tracing.count_h2d(x)
+            return torch.as_tensor(x, device=dev)
+
         V, L = tok.N_total, tok.max_token_length
         image = device_image(cond.image, dev)
         B = image.shape[0]
@@ -585,27 +601,25 @@ class LayoutDMGenerator:
         all_mask[:, :, -1] = 0.0
         prepared = {"image": image, "z0": all_mask}
         if cond.seq is not None:
-            seq = torch.as_tensor(np.asarray(cond.seq), device=dev).long()
+            seq = put(cond.seq).long()
             prepared["z0"] = index_to_log_onehot(seq, V)
             prepared["strong_seq"] = seq
-            prepared["strong_mask"] = torch.as_tensor(np.asarray(cond.seq_mask), device=dev).bool()
+            prepared["strong_mask"] = put(cond.seq_mask).bool()
         elif self.use_seq_dist and task == "uncond":
             rng = np.random.default_rng(None if generator is None else generator.initial_seed())
             n = self.seq_dist.sample(rng, B)  # positions past 5 n are pinned to PAD
             beyond = np.arange(L)[None, :] >= n[:, None] * tok.N_var_per_element
-            prepared["strong_seq"] = torch.as_tensor(np.where(beyond, tok.pad_id, 0), device=dev)
-            prepared["strong_mask"] = torch.as_tensor(beyond, device=dev)
+            prepared["strong_seq"] = put(np.where(beyond, tok.pad_id, 0))
+            prepared["strong_mask"] = put(beyond)
         if task == "refinement":
             prepared["weak_logits"], prepared["weak_mask"] = self._refinement_weak_logits(cond)
         if task == "relation" and cond.edges is not None:
-            prepared["edge_indexes"] = torch.as_tensor(
-                np.asarray(cond.edges["edge_indexes"]), device=dev).long()
-            prepared["edge_attributes"] = torch.as_tensor(
-                np.asarray(cond.edges["edge_attributes"]), device=dev).long()
+            prepared["edge_indexes"] = put(cond.edges["edge_indexes"]).long()
+            prepared["edge_attributes"] = put(cond.edges["edge_attributes"]).long()
         if task in ("c", "cwh", "refinement", "relation") and cond.seq is not None:
             attr = np.arange(L) % tok.N_var_per_element
-            prepared["pad_disable"] = torch.as_tensor(
-                (attr[None, :] != 0) & (np.asarray(cond.seq) != tok.pad_id), device=dev)
+            prepared["pad_disable"] = put((attr[None, :] != 0)
+                                          & (np.asarray(cond.seq) != tok.pad_id))
         if self.with_retrieval:
             if cond.retrieved is None:
                 raise ValueError("RA-LayoutDM needs the retrieved layouts on the condition")
@@ -618,8 +632,10 @@ class LayoutDMGenerator:
                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Encode, then the denoising loop over t = T - 1, ..., 0 -> tokens [B, L].  Under
         no_grad rather than inference_mode: the relation update takes a
-        gradient (`ops.relation_costs`)."""
-        memory = self.core.encode_memory(prepared["image"], prepared.get("retrieved"))
+        gradient (`ops.relation_costs`).  Traced: the spans `gen.encode` (with
+        device time on the card) and `zoo.denoise` over the loop."""
+        with tracing.span("gen.encode", device=self.device.type == "cuda"):
+            memory = self.core.encode_memory(prepared["image"], prepared.get("retrieved"))
         edges = None
         if "edge_indexes" in prepared:
             edges = (prepared["edge_indexes"], prepared["edge_attributes"])
@@ -628,12 +644,13 @@ class LayoutDMGenerator:
             return self.core.decoder(x_t, memory, t)
 
         log_z = prepared["z0"]
-        for t in range(self.num_timesteps - 1, -1, -1):
-            log_z = self.diffusion.sample_single_step(
-                log_z, logits_fn, t, sampling, generator,
-                prepared.get("strong_seq"), prepared.get("strong_mask"),
-                prepared.get("weak_mask"), prepared.get("weak_logits"),
-                prepared.get("pad_disable"), edges)
+        with tracing.span("zoo.denoise"):
+            for t in range(self.num_timesteps - 1, -1, -1):
+                log_z = self.diffusion.sample_single_step(
+                    log_z, logits_fn, t, sampling, generator,
+                    prepared.get("strong_seq"), prepared.get("strong_mask"),
+                    prepared.get("weak_mask"), prepared.get("weak_logits"),
+                    prepared.get("pad_disable"), edges)
         return log_onehot_to_index(log_z)
 
     def _refinement_weak_logits(self, cond: Condition) -> tuple[torch.Tensor, torch.Tensor]:
@@ -649,7 +666,10 @@ class LayoutDMGenerator:
             centers = tok.bucketizers[key].centers
             ii, jj = np.meshgrid(centers, centers, indexing="ij")
             table[off : off + N, off : off + N] = np.abs(ii - jj) < REFINE_OFFSET_RATIO
-        seq = torch.as_tensor(np.asarray(cond.seq), device=self.device).long()
-        weak_logits = torch.as_tensor(table, device=self.device)[seq] * REFINE_LAMBDA
-        known = torch.as_tensor(np.asarray(cond.seq_mask), device=self.device).bool()
+        host = (np.asarray(cond.seq), table, np.asarray(cond.seq_mask))
+        for x in host:
+            tracing.count_h2d(x)
+        seq, table, known = (torch.as_tensor(x, device=self.device) for x in host)
+        seq, known = seq.long(), known.bool()
+        weak_logits = table[seq] * REFINE_LAMBDA
         return weak_logits, (~known)[:, :, None].expand_as(weak_logits)

@@ -55,19 +55,23 @@ from ralf_tpu_torch.models.fidnet import FIDNetV3
 from ralf_tpu_torch.models.nn import TokenDecoder, TransformerEncoder, layer_norm
 from ralf_tpu_torch.models.positional import PositionalEncoding1D
 from ralf_tpu_torch.models.resnet import ImageEncoder
+from ralf_tpu_torch.utils import tracing
 
 RETRIEVED_KEYS = ("label", "center_x", "center_y", "width", "height", "mask")
 
 
 def retrieved_tensors(retrieved: dict, device) -> dict:
     """Host retrieval arrays {key: [B, K, S]} -> tensors on `device` (label
-    int64, mask bool, geometry fp32), with the features [B, K, 256] when given."""
+    int64, mask bool, geometry fp32), with the features [B, K, 256] when given
+    (traced: their host bytes counted, `utils.tracing.count_h2d`)."""
     dtypes = {"label": torch.int64, "mask": torch.bool}
-    out = {k: torch.as_tensor(np.asarray(retrieved[k]), device=device).to(
-        dtypes.get(k, torch.float32)) for k in RETRIEVED_KEYS}
+    host = {k: np.asarray(retrieved[k]) for k in RETRIEVED_KEYS}
     if retrieved.get("feats") is not None:
-        out["feats"] = torch.as_tensor(np.asarray(retrieved["feats"], np.float32), device=device)
-    return out
+        host["feats"] = np.asarray(retrieved["feats"], np.float32)
+    for v in host.values():
+        tracing.count_h2d(v)
+    return {k: torch.as_tensor(v, device=device).to(dtypes.get(k, torch.float32))
+            for k, v in host.items()}
 
 
 class ViTFeedForward(nn.Module):
@@ -254,6 +258,7 @@ class RALFGenerator(AutoregGenerator):
     def encode_memory(self, cond: Condition) -> torch.Tensor:
         """[B, 2M + K + Lc, D] in the final architecture (the fusion sets the
         first part); Lc, the constraint length, depends on the task."""
-        return self.core.encode_memory(self._image(cond),
-                                       retrieved_tensors(cond.retrieved, self.device),
-                                       *self._constraint(cond))
+        with tracing.span("gen.encode", device=self.device.type == "cuda"):
+            return self.core.encode_memory(self._image(cond),
+                                           retrieved_tensors(cond.retrieved, self.device),
+                                           *self._constraint(cond))

@@ -18,6 +18,7 @@ import numpy as np
 
 from ralf_tpu_torch.data.dataset import BatchLoader
 from ralf_tpu_torch.retrieval.retriever import Retriever
+from ralf_tpu_torch.utils import tracing
 
 
 class RetrievalAugmentedLoader:
@@ -46,13 +47,14 @@ class RetrievalAugmentedLoader:
     def __iter__(self) -> Iterator[dict]:
         n_gallery = self.retriever.features.shape[0]
         for batch in self.loader:
-            idx = batch["indices"]
-            if self.random_retrieval:
-                nbrs = self._rng.integers(0, n_gallery, size=(len(idx), self.top_k))
-            else:
-                nbrs = self.table[idx][:, : self.top_k]
-            batch["retrieved"] = self.retriever.gather_neighbors(nbrs, self.loader.use_native)
-            if self.feats_table is not None:
-                batch["retrieved"]["feats"] = self.feats_table[nbrs]
-            batch["retrieved_indices"] = nbrs
+            with tracing.span("data.retrieval"):
+                idx = batch["indices"]
+                if self.random_retrieval:
+                    nbrs = self._rng.integers(0, n_gallery, size=(len(idx), self.top_k))
+                else:
+                    nbrs = self.table[idx][:, : self.top_k]
+                batch["retrieved"] = self.retriever.gather_neighbors(nbrs, self.loader.use_native)
+                if self.feats_table is not None:
+                    batch["retrieved"]["feats"] = self.feats_table[nbrs]
+                batch["retrieved_indices"] = nbrs
             yield batch

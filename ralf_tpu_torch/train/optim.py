@@ -40,6 +40,7 @@ import re
 import torch
 from torch import nn
 
+from ralf_tpu_torch.utils import tracing
 from ralf_tpu_torch.utils.weights import flax_names
 
 TRUNK_KEY = "trunk"  # a segment of the image backbone's param path
@@ -118,12 +119,13 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.clip_max_norm and self.clip_max_norm > 0:
-            grads = [p.grad for p in self.params]
-            frozen = [p.grad for p in self.frozen if p.grad is not None]
-            norm = global_norm(grads + frozen)
-            # stays on the device: no read-back in the step
-            torch._foreach_mul_(grads, torch.clamp(norm.new_tensor(self.clip_max_norm) / norm,
-                                                   max=1.0))
+            with tracing.span("train.clip"):
+                grads = [p.grad for p in self.params]
+                frozen = [p.grad for p in self.frozen if p.grad is not None]
+                norm = global_norm(grads + frozen)
+                # stays on the device: no read-back in the step
+                torch._foreach_mul_(grads, torch.clamp(
+                    norm.new_tensor(self.clip_max_norm) / norm, max=1.0))
         self.opt.step()
 
     def state_dict(self) -> dict:

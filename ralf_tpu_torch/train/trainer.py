@@ -69,6 +69,7 @@ from ralf_tpu_torch.parallel import mesh as pmesh
 from ralf_tpu_torch.parallel.rows import row_shard
 from ralf_tpu_torch.train.optim import Optimizer
 from ralf_tpu_torch.train.schedulers import build_scheduler
+from ralf_tpu_torch.utils import tracing
 from ralf_tpu_torch.utils.weights import (
     export_params,
     load_jax_params,
@@ -182,10 +183,11 @@ class Trainer:
         state.module.train()
         self._dropout.manual_seed(step_seed(self.cfg.seed, state.step))
         inputs, targets, shard = self.shard(inputs, targets)
-        with shard, autocast(self.gen.cfg, self.gen.device):
+        with tracing.span("train.forward"), shard, autocast(self.gen.cfg, self.gen.device):
             loss, aux = self.gen.loss(inputs, targets)
-        state.optimizer.zero_grad()
-        loss.backward()
+        with tracing.span("train.backward"):
+            state.optimizer.zero_grad()
+            loss.backward()
         metrics = {**{k: v.detach().clone() for k, v in aux.items()},
                    "loss": loss.detach().clone()}
         self.sync(metrics, state.module)
@@ -244,8 +246,9 @@ class Trainer:
                     continue  # trained before the resume point
                 if prof and epoch == 1 and i == prof[0] and self.is_main:
                     profiler = self._start_profile()
-                inputs, targets = self.gen.preprocess(batch, rng)
-                metrics = self.train_step(state, inputs, targets)
+                with tracing.span("train.step"):
+                    inputs, targets = self.gen.preprocess(batch, rng)
+                    metrics = self.train_step(state, inputs, targets)
                 losses.append(metrics["loss"])
                 global_step += 1
                 if profiler is not None and i == prof[1]:
