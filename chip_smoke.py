@@ -24,7 +24,10 @@ Run from the repository root.  Phases, each of which must pass:
               recomputes, in bf16 and fp32; and batched_lsa, the exact assignment
               of the GANs' matching (no Pallas counterpart: JAX's is XLA
               while-loops), equal to its plain version at B=32 and 128, n=10,
-              on random and tie-heavy costs
+              on random and tie-heavy costs; and K10, the cross-attention with
+              S != M (no Pallas counterpart: JAX's is XLA einsums), at the
+              denoising decoder's shape in the benchmark's requests of 1024
+              canvases and this script's of 128, with and without a key mask
   4. check    the full-width RALF in fp32 on the card against the same weights on
               the CPU (plain versions): gallery features, encode_memory, greedy
               tokens of every decode configuration (shared memory through K2, K3
@@ -92,10 +95,12 @@ Run from the repository root.  Phases, each of which must pass:
               tokens in place, finite layouts,
               distinct uncond outputs, exactly 6 K1 launches a MaskGIT request (the
               image encoder), 306 a LayoutDM or VQDiffusion one (6 more a denoising
-              step, 50 steps) and 310 a RA-LayoutDM one (FIDNet's 4), ms per request,
+              step, 50 steps) and 310 a RA-LayoutDM one (FIDNet's 4), and K10 6 a
+              step of each (the decoder's cross-attention: MaskGIT 60, the
+              diffusion presets 300), ms per request,
               one layoutdm request profiled; then cli.inference --cond c on a
               layoutdm job dir (64 test canvases, one batch; no violated
-              constraint, K1 306) and cli.evaluate on its pickle on the card (K1 8)
+              constraint, K1 306, K10 300) and cli.evaluate on its pickle on the card (K1 8)
   10. baselines CGL-GAN, DS-GAN (each also with retrieval), ICVT and the
               retriever at their presets' full width (random weights from seed
               0): each in fp32 on the card against the CPU on 8 canvases (the
@@ -278,6 +283,9 @@ KERNELS = {  # name: (id, the TPU kernel it replaces, source), in the order of t
     # replaces no Pallas kernel: JAX's exact assignment is XLA while-loops
     "batched_lsa": ("LSA", "ralf_tpu/ops/assignment.py:99",
                     "ralf_tpu_torch/ops/csrc/assignment.cu"),
+    # replaces no Pallas kernel: JAX's cross-attention with S != M is XLA einsums
+    "cross_attention": ("K10", "ralf_tpu/models/nn.py MultiHeadAttention (einsums)",
+                        "ralf_tpu_torch/ops/csrc/cross_attention.cu"),
 }
 LIBRARY = {  # what library_ms times: one PyTorch call, or for K5 and K6 an unfused sequence
     "encoder_attention": "F.scaled_dot_product_attention",
@@ -287,6 +295,7 @@ LIBRARY = {  # what library_ms times: one PyTorch call, or for K5 and K6 an unfu
     "decode_attention": "F.scaled_dot_product_attention on k_t.transpose(-1, -2)",
     "stream_sum": "torch.sum(x, dims, dtype=torch.float32)",
     "batched_lsa": "none (scipy's linear_sum_assignment runs on the host)",
+    "cross_attention": "F.scaled_dot_product_attention on the heads' views",
 }
 # the main path's case of each kernel; else bfloat16
 MAIN_DTYPE = {"stream_sum": "int8", "batched_lsa": "int32"}
@@ -339,6 +348,11 @@ K1_PADDED_MASKED_SHAPES = ((TRAIN_BATCH, 10, 8, 200),)
 # and baselines phases' counts: 50 denoising steps of 6)
 ZOO_TRAIN = {"maskgit": (0, 6, 6), "layoutdm": (0, 12, 306), "vqdiffusion": (0, 12, 306),
              "layoutdm_ra": (4, 16, 310), "icvt": (0, 12, 6)}
+# the same phase's exact K10 launches of a validation batch (the decoder's 6
+# cross-attentions over the memory; ICVT's attention pooling of its GA encoder) and of
+# cli.inference on one batch (`k10_request`'s); a train step takes none (train mode)
+ZOO_TRAIN_K10 = {"maskgit": (6, 60), "layoutdm": (6, 300), "vqdiffusion": (6, 300),
+                 "layoutdm_ra": (6, 300), "icvt": (1, 0)}
 ZOO_STEP_BATCH = 4  # the one-step check's canvases
 # the presets whose Trainer.fit runs at the training size: ICVT (the clip over its frozen
 # embedding's gradient, the GA encoder's K1). The other four's fits took 78 s and more of
@@ -354,6 +368,11 @@ ZOO_TRAIN_FIT = ("icvt",)
 # generator step
 GAN_TRAIN = {"cglgan": (4, 6, 6), "cglgan_ra": (8, 10, 10), "dsgan": (0, 0, 0),
              "dsgan_ra": (4, 4, 4)}
+# exact K10 launches of a discriminator step and of cli.inference on one batch: CGL-GAN's
+# generator decoder (6 layers) in eval mode under no_grad; a generator step takes none
+# (the discriminator's decoder runs with grad on: the einsum path)
+GAN_TRAIN_K10 = {"cglgan": 6, "cglgan_ra": 6, "dsgan": 0, "dsgan_ra": 0}
+RALF_K10_EVAL = 6  # a RALF validation batch: the teacher-forced decoder's 6 cross-attentions
 GAN_STEP_BATCH = 4  # the one-step check's canvases
 # the presets whose fit_gan runs at the training size in fp32: DS-GAN (its discriminator,
 # the LSTM); CGL-GAN-RA's (its discriminator, retrieval) runs in the bf16_train phase
@@ -449,12 +468,13 @@ def bound(nbytes: float, ops: float, op_type: str) -> tuple[float, str]:
 def counters():
     """The launch counter of every kernel wrapper, by kernel id."""
     from ralf_tpu_torch.ops import assignment as asg
+    from ralf_tpu_torch.ops import cross_attention as xa
     from ralf_tpu_torch.ops import decode_attention as da
     from ralf_tpu_torch.ops import encoder_attention as ea
     from ralf_tpu_torch.ops import encoder_ffn as ef
     from ralf_tpu_torch.ops import stream_sum as ss
 
-    return {kid: next(getattr(m, n) for m in (ea, ef, da, ss, asg) if hasattr(m, n))
+    return {kid: next(getattr(m, n) for m in (ea, ef, da, ss, asg, xa) if hasattr(m, n))
             for n, (kid, _, _) in KERNELS.items()}
 
 
@@ -666,6 +686,7 @@ def kernel_cases(torch, dev):
     import torch.nn.functional as F
 
     from ralf_tpu_torch.ops import assignment as asg
+    from ralf_tpu_torch.ops import cross_attention as xa
     from ralf_tpu_torch.ops import decode_attention as da
     from ralf_tpu_torch.ops import encoder_attention as ea
     from ralf_tpu_torch.ops import encoder_ffn as ef
@@ -831,6 +852,37 @@ def kernel_cases(torch, dev):
                 2 * B * S * E * 3 * E + 4 * B * S * S * E, dn,
                 2**-8 * v_max if dtype == torch.bfloat16 else 0.0,
             ))
+        # K10: the denoising decoder's cross-attention in the benchmark's requests of
+        # 1024 canvases (the main row), in this script's of 128, and with a key bias
+        for B, keys in ((1024, False), (128, False), (128, True)):
+            S, M, E, H = 50, 330, 256, 8
+            Dh = E // H
+            q = torch.randn(B, S, E, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(B, M, E, generator=g, device=dev).to(dtype) for _ in range(2))
+            kb = None
+            if keys:
+                keep = torch.rand(B, M, generator=g, device=dev) > 0.3
+                keep[::3] = False
+                kb = torch.where(keep, 0.0, -1e9).float()
+
+            def sdpa(q=q, k=k, v=v, kb=kb, H=H, Dh=Dh):
+                heads = [t.view(t.shape[0], t.shape[1], H, Dh).transpose(1, 2) for t in (q, k, v)]
+                mask = None if kb is None else kb[:, None, None, :].to(q.dtype)
+                return F.scaled_dot_product_attention(*heads, attn_mask=mask, scale=Dh**-0.5)
+
+            # bf16: p rounded before normalisation (online softmax) where the plain
+            # version rounds it after: <= 2^-8 max_j |v_j| of the (row, head)
+            v_max = v.float().reshape(B, M, H, Dh).abs().amax(dim=(1, 3))
+            v_max = v_max[:, None, :, None].expand(B, 1, H, Dh).reshape(B, 1, E)
+            cases.append((
+                "cross_attention", f"B={B} S={S} M={M} H={H} Dh={Dh} key_mask={keys}", dn,
+                lambda q=q, k=k, v=v, kb=kb, H=H, Dh=Dh: xa.cross_attention(q, k, v, H, kb,
+                                                                             Dh**-0.5),
+                lambda q=q, k=k, v=v, kb=kb, H=H, Dh=Dh: xa.cross_attention_plain(q, k, v, H, kb,
+                                                                                   Dh**-0.5),
+                sdpa, (2 * B * S * E + 2 * B * M * E) * isz + (4 * B * M if keys else 0),
+                4 * B * S * M * E, dn, 2**-8 * v_max if dtype == torch.bfloat16 else 0.0,
+            ))
     # the exact assignment: random costs first (the main row), then ties in every
     # row (small integers) with one row of all equal costs, exactly equal to the plain
     # version; the bound counts the Dijkstra steps these costs take
@@ -885,6 +937,7 @@ def run_kernel_checks(torch, dev, fails: Failures, cases=None) -> dict:
                    "decode_shared_attention_q8mxu": " + ps",
                    "fused_ffn": " + rtol*(|ref| + |tail|)",
                    "encoder_self_attention": " + 2^-8*max|v| in bf16",
+                   "cross_attention": " + 2^-8*max|v| in bf16",
                    "stream_sum": " + 1e-5*sum|x|"}
     for name, label, dn, kern, plain, lib, nbytes, ops, op_type, extra in (
             kernel_cases(torch, dev) if cases is None else cases):
@@ -1551,6 +1604,23 @@ def zoo_k1(gen) -> int:
     return gen.cfg.num_encoder_layers + denoise + (4 if getattr(gen, "with_retrieval", False) else 0)
 
 
+def k10_request(gen) -> int:
+    """K10 launches of one sampling request: the decoder's cross-attention over
+    the image memory at each layer and step (the diffusion models' denoising
+    steps, MaskGIT's unmasking steps, CGL-GAN's one pass); none for RALF and
+    autoreg (K2 decodes), DS-GAN, ICVT (its own concat cross-attention) and
+    the retriever."""
+    from ralf_tpu_torch.models.cgl_gan import CGLGANGenerator
+    from ralf_tpu_torch.models.dsgan import DSGANGenerator
+    from ralf_tpu_torch.models.maskgit import MaskGITGenerator
+
+    if hasattr(gen, "diffusion") or isinstance(gen, MaskGITGenerator):
+        return gen.cfg.num_decoder_layers * gen.num_timesteps
+    if isinstance(gen, CGLGANGenerator) and not isinstance(gen, DSGANGenerator):
+        return gen.cfg.num_decoder_layers
+    return 0
+
+
 def run_zoo(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
     """MaskGIT, LayoutDM, VQDiffusion and RA-LayoutDM on the card: the fp32
     check against the CPU, requests of ZOO_BATCH canvases in bf16 with exact
@@ -1574,6 +1644,7 @@ def run_zoo(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
         for exp, tasks in ZOO_SERVE.items():
             cfg, gen = zoo_generator(exp, tmp, "cuda", ("model.dtype=bfloat16", *overrides))
             tok, L, k1 = gen.tokenizer, gen.tokenizer.max_token_length, zoo_k1(gen)
+            k10 = k10_request(gen)
             batches = zoo_batches(gen, cfg, ZOO_REQUESTS, ZOO_BATCH, GALLERY)
             token_mask = torch.as_tensor(tok.token_mask, device=gen.device)
             pos = torch.arange(L, device=gen.device)[None, :]
@@ -1604,9 +1675,10 @@ def run_zoo(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
                     kept = bool((toks[known] == given[known]).all())
                 finite = all(bool(torch.isfinite(layout.geo(k)).all())
                              for k in ("center_x", "center_y", "width", "height"))
-                fails.check(n == want(K1=k1) and legal and kept and finite
+                fails.check(n == want(K1=k1, K10=k10) and legal and kept and finite
                             and tuple(toks.shape) == (ZOO_BATCH, L),
-                            f"zoo {exp} {task} request {i}: launches {n} (want K1 {k1}), tokens "
+                            f"zoo {exp} {task} request {i}: launches {n} (want K1 {k1}, K10 "
+                            f"{k10}), tokens "
                             f"legal={legal}, given tokens in place={kept}, layouts finite="
                             f"{finite} ({int(layout.mask.sum())} elements)")
                 print(f"  zoo {exp} {task} request {i}: {dt * 1e3:.1f} ms, "
@@ -1629,7 +1701,7 @@ def run_zoo(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
                                  ("model.dtype=bfloat16", *overrides))
         cfg.save(job)
         save_params_npz(os.path.join(job, "ckpt_final.npz"), *export_params(gen.core))
-        k1 = zoo_k1(gen)
+        k1, k10 = zoo_k1(gen), k10_request(gen)
         del gen
         out_dir = os.path.join(job, "out_c")
         argv = ["--job-dir", job, "--cond", "c", "--num-seeds", "1", "--batch-size",
@@ -1639,9 +1711,9 @@ def run_zoo(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
             records = pickle.load(f)["results"]
         with open(os.path.join(out_dir, "test_0_violation.csv")) as f:
             total, violated, rate = list(csv.reader(f))[1]
-        fails.check(n == want(K1=k1) and len(records) == CLI_BATCH and float(rate) == 0.0
-                    and int(total) > 0,
-                    f"zoo cli.inference layoutdm --cond c: launches {n} (want K1 {k1}), "
+        fails.check(n == want(K1=k1, K10=k10) and len(records) == CLI_BATCH
+                    and float(rate) == 0.0 and int(total) > 0,
+                    f"zoo cli.inference layoutdm --cond c: launches {n} (want K1 {k1}, K10 {k10}), "
                     f"{len(records)} records, violations {violated}/{total}, "
                     f"{summary['ms_per_sample'][0]:.3f} ms per sample ({card})")
         argv = ["--input-dir", out_dir, "--job-dir", job, "--device", "cuda",
@@ -1762,7 +1834,7 @@ def run_baselines(torch, fails: Failures, smi: list, checks, overrides=()) -> di
 
         for exp, tasks in BASELINE_SERVE.items():
             cfg, gen = zoo_generator(exp, tmp, "cuda", ("model.dtype=bfloat16", *overrides))
-            k1 = baseline_k1(gen)
+            k1, k10 = baseline_k1(gen), k10_request(gen)
             batches = zoo_batches(gen, cfg, BASELINE_REQUESTS, BASELINE_BATCH, GALLERY)
 
             def request(batch, task, seed):
@@ -1783,10 +1855,11 @@ def run_baselines(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                 legal = bool(((geo >= 0) & (geo <= 1)).all()) and bool(
                     (layout.label[layout.mask] < cfg.dataset.num_labels).all())
                 dh_ok = exp != "icvt" or widths == [25] * k1
-                fails.check(n == want(K1=k1) and legal and dh_ok
+                fails.check(n == want(K1=k1, K10=k10) and legal and dh_ok
                             and tuple(layout.mask.shape) == (BASELINE_BATCH,
                                                              cfg.dataset.max_seq_length),
-                            f"baselines {exp} {task} request {i}: launches {n} (want K1 {k1}), "
+                            f"baselines {exp} {task} request {i}: launches {n} (want K1 {k1}, "
+                            f"K10 {k10}), "
                             f"K1 head widths {sorted(set(widths))}, layouts legal={legal} "
                             f"({int(layout.mask.sum())} elements)")
                 print(f"  baselines {exp} {task} request {i}: {dt * 1e3:.1f} ms, "
@@ -1808,7 +1881,7 @@ def run_baselines(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                         "--cache-dir", f"{tmp}/cache", *overrides]
                 with contextlib.redirect_stdout(io.StringIO()):
                     cli_train.main(argv)
-                k1 = 0
+                k1 = k10 = 0
                 fails.check(sorted(os.listdir(job)) == ["config.json"],
                             f"baselines cli.train --experiment retriever writes {os.listdir(job)}")
             else:
@@ -1816,7 +1889,7 @@ def run_baselines(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                                                                  *overrides))
                 cfg.save(job)
                 save_params_npz(os.path.join(job, "ckpt_final.npz"), *export_params(gen.core))
-                k1 = baseline_k1(gen)
+                k1, k10 = baseline_k1(gen), k10_request(gen)
                 del gen
             out_dirs[exp] = os.path.join(job, "out")
             argv = ["--job-dir", job, "--num-seeds", str(CLI_SEEDS), "--batch-size",
@@ -1831,10 +1904,10 @@ def run_baselines(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                                                                   "width", "height") for x in r[k]]
             legal = all(0.0 <= x <= 1.0 for x in coords) and len(coords) > 0
             dh_ok = exp != "icvt" or set(widths) == {25}
-            fails.check(n == want(K1=k1 * CLI_SEEDS) and legal and dh_ok
+            fails.check(n == want(K1=k1 * CLI_SEEDS, K10=k10 * CLI_SEEDS) and legal and dh_ok
                         and [len(r) for r in records] == [CLI_BATCH] * CLI_SEEDS,
                         f"baselines cli.inference {exp}: launches {n} (want K1 "
-                        f"{k1 * CLI_SEEDS}), records {[len(r) for r in records]}, coordinates "
+                        f"{k1 * CLI_SEEDS}, K10 {k10 * CLI_SEEDS}), records {[len(r) for r in records]}, coordinates "
                         f"in [0, 1]={legal}, " + ", ".join(
                             f"seed {s} {ms:.3f} ms per sample" for s, ms in
                             summary["ms_per_sample"].items()) + f" ({card})")
@@ -2071,12 +2144,12 @@ def _leaves(tree: dict, prefix: str = ""):
 
 
 def run_fit(torch, fails: Failures, counted: LaunchCounter, label: str, gen, cfg, loaders,
-            val_size: int, k1_step: int, k1_eval: int, card: str):
+            val_size: int, k1_step: int, k1_eval: int, card: str, k10_eval: int = 0):
     """Trainer.fit of `gen` (cfg.train: one epoch, a step checkpoint every
     TRAIN_STEPS) for TRAIN_STEPS steps over `loaders()`, then as many more
     resumed from its step checkpoint, each train step and validation batch
     timed and its launches read: exactly k1_step K1 launches a step and
-    k1_eval a validation batch, finite losses, the resume's steps and meta;
+    k1_eval K1 and k10_eval K10 a validation batch, finite losses, the resume's steps and meta;
     it prints ms per step, samples/s, ms between step starts, validation ms
     a batch and peak memory, then profiles one more step.  Returns (the
     trainer, its state, {"ms", "samples_per_s", "peak_gib"} and the
@@ -2122,12 +2195,15 @@ def run_fit(torch, fails: Failures, counted: LaunchCounter, label: str, gen, cfg
     fails.check(all(r["n"] == want(K1=k1_step) for r in steps) and len(steps) == 2 * TRAIN_STEPS,
                 f"{label}: {len(steps)} train steps, launches per step "
                 f"{sorted({str(r['n']) for r in steps})} (want K1 {k1_step})")
-    fails.check(all(r["n"] == want(K1=k1_eval) for r in evals) and len(evals) == sum(n_val),
+    fails.check(all(r["n"] == want(K1=k1_eval, K10=k10_eval) for r in evals)
+                and len(evals) == sum(n_val),
                 f"{label}: {len(evals)} validation batches ({n_val} in the two calls), launches "
-                f"per batch {sorted({str(r['n']) for r in evals})} (want K1 {k1_eval})")
-    fails.check([n1, n2] == [want(K1=k1_step * TRAIN_STEPS + k1_eval * v) for v in n_val],
+                f"per batch {sorted({str(r['n']) for r in evals})} (want K1 {k1_eval}, K10 "
+                f"{k10_eval})")
+    fails.check([n1, n2] == [want(K1=k1_step * TRAIN_STEPS + k1_eval * v, K10=k10_eval * v)
+                             for v in n_val],
                 f"{label}: launches a call {n1}, {n2} (want {k1_step} x {TRAIN_STEPS} steps + "
-                f"{k1_eval} x {n_val} validation batches)")
+                f"K1 {k1_eval} and K10 {k10_eval} x {n_val} validation batches)")
     losses = [r["loss"] for r in steps + evals]
     fails.check(all(math.isfinite(x) for x in losses),
                 f"{label}: every loss finite ({', '.join(f'{x:.4f}' for x in losses)})")
@@ -2216,7 +2292,8 @@ def run_train(torch, tok, fails: Failures, smi: list, checks, overrides=()) -> d
         # K1: FIDNet's 4 layers over the B*K = 512 retrieved layouts a step, and in
         # eval mode the 6 + 6 encoder self-attentions too
         trainer, state, FIT_FIGURES["fp32"] = run_fit(
-            torch, fails, counted, "fit", gen, cfg, loaders, len(val_ds), 4, 4 + 6 + 6, card)
+            torch, fails, counted, "fit", gen, cfg, loaders, len(val_ds), 4, 4 + 6 + 6, card,
+            RALF_K10_EVAL)
         del trainer, state, gen
         torch.cuda.empty_cache()
 
@@ -2231,7 +2308,7 @@ def run_train(torch, tok, fails: Failures, smi: list, checks, overrides=()) -> d
         t_call = time.perf_counter() - t_call
         files = [f for f in ("config.json", "metrics.jsonl", "ckpt_final.npz", "ckpt_final_opt.pt",
                              "ckpt_best.npz") if os.path.exists(os.path.join(job, f))]
-        expect = want(K1=2 * 4 + 2 * 16)  # 2 steps, 2 validation batches of 8
+        expect = want(K1=2 * 4 + 2 * 16, K10=2 * RALF_K10_EVAL)  # 2 steps, 2 validation batches
         fails.check(n == expect and len(files) == 5,
                     f"cli.train --debug: launches {n} (want {expect}); wrote {files}; {t_call:.1f} s")
         out_dir = os.path.join(job, "out_c")
@@ -2318,6 +2395,7 @@ def run_zoo_train(torch, fails: Failures, smi: list, checks, overrides=()) -> di
         return {**dict.fromkeys(counted.totals, 0), **launches}
 
     for preset, (k1_step, k1_eval, k1_infer) in ZOO_TRAIN.items():
+        k10_eval, k10_infer = ZOO_TRAIN_K10[preset]
         t = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             checks.run("zoo_step_check", tmp=tmp, preset=preset, overrides=overrides)
@@ -2352,7 +2430,7 @@ def run_zoo_train(torch, fails: Failures, smi: list, checks, overrides=()) -> di
 
                 trainer, state, _ = run_fit(torch, fails, counted, f"zoo_train {preset} fit",
                                             gen, cfg, loaders, len(val_ds), k1_step, k1_eval,
-                                            card)
+                                            card, k10_eval)
                 del trainer, state, gen
                 torch.cuda.empty_cache()
             t_fit = time.perf_counter() - t
@@ -2369,7 +2447,8 @@ def run_zoo_train(torch, fails: Failures, smi: list, checks, overrides=()) -> di
             files = [f for f in ("config.json", "metrics.jsonl", "ckpt_final.npz",
                                  "ckpt_final_opt.pt", "ckpt_best.npz")
                      if os.path.exists(os.path.join(job, f))]
-            expect = want(K1=2 * k1_step + 2 * k1_eval)  # 2 steps, 2 validation batches of 8
+            # 2 steps, 2 validation batches of 8
+            expect = want(K1=2 * k1_step + 2 * k1_eval, K10=2 * k10_eval)
             fails.check(n == expect and len(files) == 5,
                         f"zoo_train {preset} cli.train --debug: launches {n} (want {expect}); "
                         f"wrote {files}")
@@ -2392,10 +2471,11 @@ def run_zoo_train(torch, fails: Failures, smi: list, checks, overrides=()) -> di
             # VQDiffusion replaces over the whole vocabulary: two steps' weights may
             # leave no whole element (the zoo phase's note), so it may decode none
             decoded = bool(coords) or preset == "vqdiffusion"
-            fails.check(n == want(K1=k1_infer) and len(records) == 16 and clean and decoded
-                        and all(0 <= v <= 1 for v in coords),
+            fails.check(n == want(K1=k1_infer, K10=k10_infer) and len(records) == 16 and clean
+                        and decoded and all(0 <= v <= 1 for v in coords),
                         f"zoo_train {preset} cli.inference on the trained checkpoint (fp32, "
-                        f"--cond {cond}): launches {n} (want K1 {k1_infer}), {len(records)} "
+                        f"--cond {cond}): launches {n} (want K1 {k1_infer}, K10 {k10_infer}), "
+                        f"{len(records)} "
                         f"records, {len(coords) // 4} elements with coordinates in [0, 1], "
                         f"violations {violations}, {summary['ms_per_sample'][0]:.3f} ms per "
                         f"sample")
@@ -2459,8 +2539,8 @@ def run_gan_fit(torch, fails: Failures, counted: LaunchCounter, preset: str, tmp
     variants' neighbours from it) for TRAIN_STEPS GAN steps with adv_weight
     forced to 1 (the first epoch's ramp gives 0), each generator and
     discriminator step timed and its launches read: exactly k1_gen K1
-    launches and one batched_lsa a generator step, k1_dis K1 a
-    discriminator step, finite losses; it prints ms per GAN step (and each
+    launches and one batched_lsa a generator step, k1_dis K1 and
+    GAN_TRAIN_K10's K10 a discriminator step, finite losses; it prints ms per GAN step (and each
     step apart), samples/s, peak memory, then profiles one more GAN step."""
     from ralf_tpu_torch.config import build_datasets
     from ralf_tpu_torch.data.dataset import BatchLoader
@@ -2471,6 +2551,7 @@ def run_gan_fit(torch, fails: Failures, counted: LaunchCounter, preset: str, tmp
     def want(**launches):
         return {**dict.fromkeys(counted.totals, 0), **launches}
 
+    k10_dis = GAN_TRAIN_K10[preset]
     cfg, gen = zoo_generator(preset, tmp, "cuda", (f"train.job_dir={tmp}/fit_{preset}",
                                                     "train.epochs=1", *overrides))
     label = f"{'bf16_train' if gen.cfg.dtype == torch.bfloat16 else 'gan_train'} {preset} fit"
@@ -2508,11 +2589,13 @@ def run_gan_fit(torch, fails: Failures, counted: LaunchCounter, preset: str, tmp
     gens, diss = records["gen"], records["dis"]
     fails.check(len(gens) == len(diss) == TRAIN_STEPS
                 and all(r["n"] == want(K1=k1_gen, LSA=1) for r in gens)
-                and all(r["n"] == want(K1=k1_dis) for r in diss)
-                and n == want(K1=(k1_gen + k1_dis) * TRAIN_STEPS, LSA=TRAIN_STEPS),
+                and all(r["n"] == want(K1=k1_dis, K10=k10_dis) for r in diss)
+                and n == want(K1=(k1_gen + k1_dis) * TRAIN_STEPS, LSA=TRAIN_STEPS,
+                              K10=k10_dis * TRAIN_STEPS),
                 f"{label}: {len(gens)} GAN steps, launches per generator step "
                 f"{sorted({str(r['n']) for r in gens})} (want K1 {k1_gen}, LSA 1), per "
-                f"discriminator step {sorted({str(r['n']) for r in diss})} (want K1 {k1_dis}); "
+                f"discriminator step {sorted({str(r['n']) for r in diss})} (want K1 {k1_dis}, "
+                f"K10 {k10_dis}); "
                 f"a call {n}")
     losses = [r["loss"] for r in gens + diss]
     with open(os.path.join(cfg.train.job_dir, "metrics.jsonl")) as f:
@@ -2576,7 +2659,7 @@ def run_gan_train(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                     os.path.join(tmp, "cli_cache"), *overrides]
             _, n = counted(lambda: cli_train.main(argv))
             files = sorted(os.listdir(job))
-            expect = want(K1=2 * (k1_gen + k1_dis), LSA=2)
+            expect = want(K1=2 * (k1_gen + k1_dis), LSA=2, K10=2 * GAN_TRAIN_K10[preset])
             fails.check(n == expect and files == [
                 "ckpt_final.npz", "ckpt_final_dis.npz", "ckpt_final_dis_opt.pt",
                 "ckpt_final_opt.pt", "config.json", "metrics.jsonl"],
@@ -2592,10 +2675,12 @@ def run_gan_train(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                 total, violated, rate = list(csv.reader(f))[1]
             coords = [v for r in records for k in ("center_x", "center_y", "width", "height")
                       for v in r[k]]
-            fails.check(n == want(K1=k1_infer) and len(records) == 16 and float(rate) == 0.0
-                        and all(0 <= v <= 1 for v in coords),
+            k10 = GAN_TRAIN_K10[preset]
+            fails.check(n == want(K1=k1_infer, K10=k10) and len(records) == 16
+                        and float(rate) == 0.0 and all(0 <= v <= 1 for v in coords),
                         f"gan_train {preset} cli.inference on the trained checkpoint (fp32, "
-                        f"--cond c): launches {n} (want K1 {k1_infer}), {len(records)} records, "
+                        f"--cond c): launches {n} (want K1 {k1_infer}, K10 {k10}), "
+                        f"{len(records)} records, "
                         f"{len(coords) // 4} elements with coordinates in [0, 1], violations "
                         f"{violated}/{total}, {summary['ms_per_sample'][0]:.3f} ms per sample")
         torch.cuda.empty_cache()
@@ -2783,7 +2868,7 @@ def run_bf16_train(torch, tok, fails: Failures, smi: list, checks, overrides=())
 
         trainer, state, FIT_FIGURES["bf16"] = run_fit(
             torch, fails, counted, "bf16_train fit", gen, cfg, loaders, len(val_ds), 4,
-            4 + 6 + 6, card)
+            4 + 6 + 6, card, RALF_K10_EVAL)
         low = [n for n, t in list(gen.core.named_parameters()) + list(gen.core.named_buffers())
                if t.is_floating_point() and t.dtype != torch.float32]
         moments = {t.dtype for s in state.optimizer.opt.state.values() for k, t in s.items()
@@ -2814,9 +2899,11 @@ def run_bf16_train(torch, tok, fails: Failures, smi: list, checks, overrides=())
         # the entry points: cli.train --debug model.dtype=bfloat16, then
         # cli.inference on its checkpoint (bf16, the job's dtype), one batch of 16
         L = tok.max_token_length
-        runs = {"ralf": (want(K1=2 * 4 + 2 * 16), want(K1=4 + 12, K2=6 * L)),
-                "cglgan": (want(K1=2 * sum(GAN_TRAIN["cglgan"][:2]), LSA=2),
-                           want(K1=GAN_TRAIN["cglgan"][2]))}
+        runs = {"ralf": (want(K1=2 * 4 + 2 * 16, K10=2 * RALF_K10_EVAL),
+                         want(K1=4 + 12, K2=6 * L)),
+                "cglgan": (want(K1=2 * sum(GAN_TRAIN["cglgan"][:2]), LSA=2,
+                                K10=2 * GAN_TRAIN_K10["cglgan"]),
+                           want(K1=GAN_TRAIN["cglgan"][2], K10=GAN_TRAIN_K10["cglgan"]))}
         for preset, (expect_train, expect_infer) in runs.items():
             job = os.path.join(tmp, f"cli_{preset}")
             argv = ["--experiment", preset, "--synthetic", "--debug", "--batch-size",

@@ -18,8 +18,10 @@ user fixed, adds the refinement prior, moves the log-probabilities down
 the relation costs' gradient (`ops.relation_costs`, from t = 10 up) and
 forbids PAD where the element count is known, then samples.  This math
 is plain torch: in JAX it is XLA, not a Pallas kernel.  The decoder's
-self-attention (S = L, no bias) takes K1 at every step, 6 per step; the
-image encoder's takes K1 too.
+self-attention (S = L, no bias) takes K1 at every step, 6 per step, and
+its cross-attention over the memory K10, 6 per step, over K and V that
+`cross_kv` projects once before the loop; the image encoder's
+self-attention takes K1 too.
 
 `q_pred`'s t - 1 = -1 reads row T of the cumulative tables, the identity:
 JAX wraps the index with `(t + T + 1) % (T + 1)` and so does the port,
@@ -404,12 +406,15 @@ class DiffusionDecoderLayer(nn.Module):
         self.LayerNorm_0 = layer_norm(d_model)
         self.FeedForward_0 = FeedForward(d_model, dim_feedforward, dropout)
 
-    def forward(self, x: torch.Tensor, memory: torch.Tensor,
-                timestep: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, timestep: torch.Tensor,
+                cross: Optional[tuple] = None) -> torch.Tensor:
+        """`cross`: this layer's (k, v) over the memory from `cross_kv`, which
+        the cross-attention then reads instead of projecting the memory."""
         h = self.AdaLayerNorm_0(x, timestep)
         x = x + self.MultiHeadAttention_0(h, h)  # S == M, no bias: K1 in eval mode
         h = self.AdaLayerNorm_1(x, timestep)
-        x = x + self.MultiHeadAttention_1(h, memory)
+        k, v = self.MultiHeadAttention_1.project_kv(memory) if cross is None else cross
+        x = x + self.MultiHeadAttention_1.attend(h, k, v)  # S != M: K10 in eval mode on the card
         return x + self.FeedForward_0(self.LayerNorm_0(x))
 
 
@@ -436,13 +441,23 @@ class DiffusionDecoderCore(nn.Module):
         self.LayerNorm_0 = layer_norm(d_model)
         self.Dense_0 = nn.Linear(d_model, vocab_size, bias=False)
 
-    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
-                timestep: torch.Tensor) -> torch.Tensor:
+    def layers(self) -> list[DiffusionDecoderLayer]:
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def cross_kv(self, memory: torch.Tensor) -> list[tuple]:
+        """Each layer's cross-attention (k, v) [B, M, H, Dh] over the memory:
+        the projections of a denoising loop, made once for all its steps."""
+        return [layer.MultiHeadAttention_1.project_kv(memory) for layer in self.layers()]
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor, timestep: torch.Tensor,
+                cross: Optional[list] = None) -> torch.Tensor:
+        """Logits [B, L, V]; with `cross` (`cross_kv(memory)`) the layers read
+        the projected K and V instead of projecting the memory again."""
         pos = (self.ElemAttrPositionalEncoding1D_0 if self.pos_emb == "elem_attr"
                else self.PositionalEncoding1D_0)
         h = pos(self.Embed_0(tgt))
-        for i in range(self.num_layers):
-            h = getattr(self, f"layer_{i}")(h, memory, timestep)
+        for i, layer in enumerate(self.layers()):
+            h = layer(h, memory, timestep, None if cross is None else cross[i])
         return self.Dense_0(self.LayerNorm_0(h))
 
 
@@ -632,19 +647,22 @@ class LayoutDMGenerator:
                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Encode, then the denoising loop over t = T - 1, ..., 0 -> tokens [B, L].  Under
         no_grad rather than inference_mode: the relation update takes a
-        gradient (`ops.relation_costs`).  Traced: the spans `gen.encode` (with
-        device time on the card) and `zoo.denoise` over the loop."""
+        gradient (`ops.relation_costs`).  The decoder's cross-attention K and
+        V are projected once, before the loop (`DiffusionDecoderCore.cross_kv`).
+        Traced: the spans `gen.encode` (with device time on the card) and
+        `zoo.denoise` over the projection and the loop."""
         with tracing.span("gen.encode", device=self.device.type == "cuda"):
             memory = self.core.encode_memory(prepared["image"], prepared.get("retrieved"))
         edges = None
         if "edge_indexes" in prepared:
             edges = (prepared["edge_indexes"], prepared["edge_attributes"])
-
-        def logits_fn(x_t, t):
-            return self.core.decoder(x_t, memory, t)
-
         log_z = prepared["z0"]
         with tracing.span("zoo.denoise"):
+            cross = self.core.decoder.cross_kv(memory)
+
+            def logits_fn(x_t, t):
+                return self.core.decoder(x_t, memory, t, cross)
+
             for t in range(self.num_timesteps - 1, -1, -1):
                 log_z = self.diffusion.sample_single_step(
                     log_z, logits_fn, t, sampling, generator,

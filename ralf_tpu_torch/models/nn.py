@@ -15,6 +15,11 @@ Kernels on the sample path (each wrapper runs its plain version on CPU
 tensors):
   * `MultiHeadAttention.attend` -> K1 `ops.encoder_attention` for
     same-length self-attention with no bias or a key-padding bias;
+  * `MultiHeadAttention.attend` -> K10 `ops.cross_attention` for
+    cross-attention (S != M) on the card with grad off, no bias or a
+    key-padding bias and a head width up to 64; the other eval-mode calls
+    with S != M take the einsum path and count `attn.cross.plain`
+    (`utils.tracing`);
   * with `use_qkv_folded`, self-attention (`q_in is kv_in`) with no bias
     or a key-padding bias -> K6 `ops.encoder_self_attention`, the
     projections folded into the kernel (`_self_attend_folded`);
@@ -27,8 +32,8 @@ tensors):
     cross K/V of `cross_kv(shared=False)`);
   * `attend_t_any` over the int8 (k, v, k_scale, v_scale) caches -> K8
     `ops.decode_attention_q8`.
-Each of them takes the bias-free case only; a bias takes the einsum path.
-K1, K6 and K5 are taken in eval mode only, as JAX takes them only when
+The others take the bias-free case only; a bias takes the einsum path.
+K1, K6, K5 and K10 are taken in eval mode only, as JAX takes them only when
 `deterministic`: a module in train mode runs the einsum path even at
 dropout 0.  `use_qkv_folded` and `use_pallas` are the JAX modules' fields
 of the same names and, as there, off by default: set them on a built
@@ -63,8 +68,11 @@ from ralf_tpu_torch.ops.decode_attention import (
     quantize_kv,
     quantize_shared_memory,
 )
+from ralf_tpu_torch.ops.cross_attention import MAX_HEAD_DIM as CROSS_MAX_HEAD_DIM
+from ralf_tpu_torch.ops.cross_attention import cross_attention
 from ralf_tpu_torch.ops.encoder_attention import encoder_attention, encoder_self_attention
 from ralf_tpu_torch.ops.encoder_ffn import fused_ffn
+from ralf_tpu_torch.utils import tracing
 
 NEG_INF = -1e9
 LN_EPS = 1e-6  # flax LayerNorm's default epsilon (torch's is 1e-5)
@@ -94,6 +102,12 @@ def keep_to_bias(keep: torch.Tensor) -> torch.Tensor:
 def causal_bias(S: int, device=None) -> torch.Tensor:
     i = torch.arange(S, device=device)
     return keep_to_bias(i[None, :] <= i[:, None])
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether `t` lies on a CUDA card, where K10 runs (a CPU test patches
+    it to follow the dispatch with the plain version)."""
+    return t.is_cuda
 
 
 def quantize_per_token(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -139,18 +153,28 @@ class MultiHeadAttention(nn.Module):
 
     def attend(self, q_in: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """q_in [B, S, D], k/v [B, M, H, Dh], bias broadcastable to [B, H, S, M]."""
+        """q_in [B, S, D], k/v [B, M, H, Dh], bias broadcastable to [B, H, S, M].
+        In eval mode with no bias or a key-only one: K1 for S == M; K10 for
+        S != M on the card with grad off and a head width up to 64."""
         B, S = q_in.shape[:2]
         M = k.shape[1]
         key_only = bias is not None and bias.dim() == 4 and bias.shape[1:3] == (1, 1)
-        if not self.training and S == M and (bias is None or key_only):
-            key_bias = None if bias is None else bias[:, 0, 0, :].float().expand(B, M)
+        fused = not self.training and (bias is None or key_only)
+        if S != M and fused:  # K10 is forward only, on the card, heads up to 64 wide
+            fused = (on_card(q_in) and not torch.is_grad_enabled()
+                     and self.head_dim <= CROSS_MAX_HEAD_DIM)
+        if S != M and not self.training and not fused:
+            tracing.count("attn.cross.plain")
+        if fused:
+            key_bias = None if bias is None else bias[:, 0, 0, :].float().expand(B, M).contiguous()
             dt = compute_dtype(q_in)
-            out = encoder_attention(
-                (self.q_proj(q_in) * self.head_dim**-0.5).to(dt),
-                k.reshape(B, M, self.d_model).to(dt), v.reshape(B, M, self.d_model).to(dt),
-                self.nhead, None if key_bias is None else key_bias.contiguous(),
-            )
+            k, v = k.reshape(B, M, self.d_model).to(dt), v.reshape(B, M, self.d_model).to(dt)
+            if S != M:  # K10 applies the scale to its fp32 logits
+                out = cross_attention(self.q_proj(q_in).to(dt), k, v, self.nhead, key_bias,
+                                      self.head_dim**-0.5)
+            else:
+                out = encoder_attention((self.q_proj(q_in) * self.head_dim**-0.5).to(dt), k, v,
+                                        self.nhead, key_bias)
             return self.out_proj(out)
         q = self._split(self.q_proj(q_in))
         q = q * torch.tensor(self.head_dim, dtype=q.dtype) ** -0.5

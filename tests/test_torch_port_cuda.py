@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K9 and the exact assignment against their
+"""The port's CUDA kernels K1-K10 and the exact assignment against their
 plain PyTorch versions, on the card.
 
 The kernels have no CPU mode, so every test here needs a CUDA card and skips
@@ -19,7 +19,9 @@ tail, and then the sum.  K6 in bf16 adds 2^-8 * max_j |v_j|: its q, k, v
 are rounded after fp32 sums in another order than the plain version's.
 K8 is held to the fp32 or bf16 tolerance of its output dtype: it keeps p in
 fp32, and only the order of its sums differs (an online softmax over 4
-warps' slices against the plain version's one softmax).  The assignment
+warps' slices against the plain version's one softmax).  K10 in bf16 adds
+2^-8 * max_j |v_j| of its (batch row, head): its online softmax rounds the
+unnormalised p to bf16 where the plain version rounds the normalised p.  The assignment
 kernel equals its plain version exactly: the same fp32 operations in the
 same order, and the same first-index tie rule.
 """
@@ -32,6 +34,7 @@ import torch
 from ralf_tpu_torch.models import nn as tnn
 from ralf_tpu_torch.ops import _build
 from ralf_tpu_torch.ops import assignment as asg
+from ralf_tpu_torch.ops import cross_attention as xa
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
 from ralf_tpu_torch.ops import encoder_ffn as ef
@@ -51,7 +54,7 @@ def dev():
     # the sessions that followed
     da._lib()
     for mod, name in ((ea, "encoder_attention"), (ef, "encoder_ffn"), (ss, "stream_sum"),
-                      (asg, "assignment")):
+                      (asg, "assignment"), (xa, "cross_attention")):
         _build.library(name, mod._SIGNATURES)
     return torch.device("cuda")
 
@@ -667,7 +670,7 @@ def test_decode_attention_q8_takes_caches_at_any_alignment(dev, shift):
 
 
 def test_kernel_wrappers_refuse_inputs_that_need_a_gradient(dev):
-    """K2-K4 and K7-K9 are forward only, as their Pallas calls are (no VJP):
+    """K2-K4 and K7-K10 are forward only, as their Pallas calls are (no VJP):
     on CUDA tensors each wrapper raises when grad is enabled and an input
     requires grad, instead of returning a tensor with no grad_fn; under
     no_grad it launches.  K1, K5 and K6 carry gradients instead (below)."""
@@ -681,6 +684,7 @@ def test_kernel_wrappers_refuse_inputs_that_need_a_gradient(dev):
         (lambda a: da.decode_attention(a, k_t, k_t), qh),
         (lambda a: da.decode_attention_q8(a, *da.quantize_kv(k_t, k_t)), qh),
         (ss.stream_sum, torch.randn(3, 16, device=dev)),
+        (lambda a: xa.cross_attention(a, mem, mem, 8), qt),
     )
     for call, arg in calls:
         leaf = arg.clone().requires_grad_()
@@ -827,6 +831,156 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         ss.stream_sum(torch.zeros(4, 8, dtype=torch.float64, device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         ss.stream_sum(torch.zeros(8, 4, device=dev).t())
+    mem = torch.randn(2, 33, 256, device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        xa.cross_attention(x, mem, mem, 2)  # Dh=128: K10 takes head widths up to 64
+    with pytest.raises(ValueError, match=r"\[B, M, E\]"):
+        xa.cross_attention(x, mem[:1].contiguous(), mem[:1].contiguous(), 8)
+    with pytest.raises(TypeError):
+        xa.cross_attention(x, mem.bfloat16(), mem.bfloat16(), 8)
+    with pytest.raises(ValueError, match="key_bias"):
+        xa.cross_attention(x, mem, mem, 8, torch.zeros(2, 20, device=dev))
+
+
+# ---- K10: cross-attention over a memory of another length ---------------------
+
+
+def _k10_extra(v, nhead, dtype):
+    """K10's bf16 allowance: 2^-8 of the largest |v| of each (batch row, head)."""
+    if dtype != torch.bfloat16:
+        return 0.0
+    B, M, E = v.shape
+    vmax = v.float().reshape(B, M, nhead, E // nhead).abs().amax(dim=(1, 3))
+    return 2**-8 * vmax[:, None, :, None].expand(B, 1, nhead, E // nhead).reshape(B, 1, E)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,M,E,H,mask", [
+    (64, 50, 330, 256, 8, False),   # the denoising decoder's cross-attention: 5 tiles + 10 keys
+    (64, 50, 330, 256, 8, True),    # with a key bias, row 0 masking every key
+    (3, 50, 1, 256, 8, False),      # one key
+    (3, 50, 7, 256, 8, True),       # one partial tile
+    (2, 50, 64, 256, 8, False),     # exactly one tile
+    (2, 50, 65, 256, 8, True),      # one key past a tile
+    (2, 17, 700, 256, 8, True),     # past the ring's 3 stages
+    (2, 130, 330, 256, 8, False),   # three query blocks, the last ragged
+    (3, 50, 330, 256, 4, True),     # Dh=64
+    (2, 10, 330, 200, 8, True),     # Dh=25: padded to 32, copied element by element
+    (2, 51, 96, 256, 16, False),    # Dh=16: padded to 32
+])
+def test_cross_attention_kernel_matches_plain(dev, dtype, B, S, M, E, H, mask):
+    g = torch.Generator(device=dev).manual_seed(M + S)
+    q = torch.randn(B, S, E, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, M, E, generator=g, device=dev).to(dtype) for _ in range(2))
+    bias = None
+    if mask:
+        keep = torch.rand(B, M, generator=g, device=dev) > 0.3
+        keep[:, 0] = True
+        keep[0] = False  # a row with no kept key: the mean of V
+        bias = torch.where(keep, 0.0, -1e9).float()
+    scale = (E // H) ** -0.5
+    n = xa.cross_attention.launches
+    out = xa.cross_attention(q, k, v, H, bias, scale)
+    assert xa.cross_attention.launches == n + 1
+    _close(out, xa.cross_attention_plain(q, k, v, H, bias, scale), dtype,
+           extra=_k10_extra(v, H, dtype))
+    if mask:
+        mean = v[0].float().mean(0).expand(S, -1)
+        _close(out[0], mean.to(dtype), dtype, extra=_k10_extra(v[:1], H, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_takes_operands_off_a_16_byte_boundary(dev, dtype):
+    """q, k and v that start 2 elements into their storage: the bf16 kernel
+    copies them element by element instead of by cp.async."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, S, M, E, H = 3, 50, 330, 256, 8
+    q, k, v = (torch.randn(B * n * E + 2, generator=g, device=dev).to(dtype)[2:]
+               .view(B, n, E) for n in (S, M, M))
+    out = xa.cross_attention(q, k, v, H, None, 32**-0.5)
+    _close(out, xa.cross_attention_plain(q, k, v, H, None, 32**-0.5), dtype,
+           extra=_k10_extra(v, H, dtype))
+
+
+def test_cross_attention_in_bf16_keeps_the_logits_in_fp32(dev):
+    """Logits that bf16 cannot hold apart (1000 + 0.25 j, from bf16 inputs
+    that hold them exactly): K10 keeps them in fp32 and is within its
+    tolerance of the plain version, whose logits are fp32 too; the einsum
+    path, rounding the logits to bf16 (steps of 4 there) first, is not."""
+    B, S, M, E, H = 2, 16, 40, 32, 1
+    q = torch.zeros(B, S, E, device=dev)
+    q[..., :2] = 1.0
+    k = torch.zeros(B, M, E, device=dev)
+    k[..., 0] = 1000.0
+    k[..., 1] = 0.25 * torch.arange(M, device=dev)
+    v = torch.randn(B, M, E, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    ref = xa.cross_attention_plain(q, k, v, H)
+    _close(xa.cross_attention(q, k, v, H), ref, torch.bfloat16, extra=_k10_extra(v, H,
+                                                                                  torch.bfloat16))
+    logits = torch.einsum("bsd,bmd->bsm", q, k).float()  # the einsum path: bf16 logits
+    einsum = torch.einsum("bsm,bmd->bsd", torch.softmax(logits, -1).bfloat16(), v)
+    assert float((einsum.float() - ref.float()).abs().max()) > 0.05
+
+
+def _layoutdm_bf16(dev):
+    from ralf_tpu_torch.config import build_config, build_datasets, build_generator, build_tokenizer
+    from ralf_tpu_torch.data.dataset import BatchLoader
+
+    cfg = build_config("layoutdm", ["model.dtype=bfloat16", "synthetic_data=true",
+                                    "allow_linear_fallback=true"])  # a test split of 64
+    tok = build_tokenizer(cfg)
+    _, _, test = build_datasets(cfg)
+    loader = BatchLoader(test, 64, shuffle=False, transforms=cfg.transforms, use_native=False)
+    return build_generator(cfg, tok, device="cuda"), next(iter(loader))
+
+
+def test_layoutdm_request_runs_its_cross_attention_through_k10(dev, monkeypatch):
+    """A LayoutDM request at the preset's sizes (bf16, 64 canvases): exactly
+    300 K10 launches (6 layers x 50 steps), K1's 306 as before, no
+    `attn.cross.plain`.  Its greedy chain against the einsum path's: from
+    each of K10's states the einsum path's log-probabilities (the card's
+    cross-attention sent to the einsum path, `on_card` patched false) put
+    K10's next state within 2^-5 of their best, bf16's round-off of
+    log-probabilities near 1 (K10's logits, fp32 where the einsum path's are
+    bf16, move the sampled chain by such ties only)."""
+    import numpy as np
+
+    from ralf_tpu_torch.core.sampling import SamplingConfig
+    from ralf_tpu_torch.models import diffusion as tdiff
+    from ralf_tpu_torch.utils import tracing
+
+    gen, batch = _layoutdm_bf16(dev)
+    greedy = SamplingConfig(name="deterministic", temperature=0.0)
+    cond, _ = gen.build_condition(batch, np.random.default_rng(0), task="uncond")
+    inner = tdiff.sample
+    picks, gaps = [], []
+
+    def chosen(lp, sampling, generator=None):  # K10's chain: record each pick
+        picks.append(inner(lp, sampling, generator))
+        return picks[-1]
+
+    monkeypatch.setattr(tdiff, "sample", chosen)
+    ea.encoder_attention.launches = xa.cross_attention.launches = 0
+    with tracing.traced():
+        toks = gen.sample(cond, greedy, return_tokens=True)[1]
+        plain = tracing.counters().get("attn.cross.plain", 0)
+    assert (xa.cross_attention.launches, ea.encoder_attention.launches, plain) == (300, 306, 0)
+
+    def followed(lp, sampling, generator=None):  # the einsum path along K10's chain
+        pick = picks[len(gaps)]
+        gaps.append((lp.amax(-1) - lp.gather(-1, pick[..., None])[..., 0]).float())
+        return pick
+
+    monkeypatch.setattr(tdiff, "sample", followed)
+    monkeypatch.setattr(tnn, "on_card", lambda t: False)
+    n = xa.cross_attention.launches
+    assert torch.equal(gen.sample(cond, greedy, return_tokens=True)[1], toks)
+    assert xa.cross_attention.launches == n and len(gaps) == 50
+    worst = float(torch.stack(gaps).max())
+    print(f"K10 against the einsum path: widest gap {worst:.3e}, "
+          f"{int((torch.stack(gaps) > 0).sum())} positions off the einsum path's best")
+    assert worst <= 2**-5
 
 
 # ---- the evaluation metrics and the CLIs on the card --------------------------

@@ -1,7 +1,8 @@
 """LayoutDM, VQDiffusion and RA-LayoutDM in the port against the JAX
 package: the schedules and transition tables, the log-space diffusion
 math, one reverse step with each of its terms, the relation costs and
-their gradient step, the timestep-conditioned decoder, the cores with and
+their gradient step, the timestep-conditioned decoder (and its
+cross-attention K and V projected once a request), the cores with and
 without retrieval, deterministic samples under every task, and
 `cli.inference` end to end.
 
@@ -42,8 +43,10 @@ from ralf_tpu_torch.cli import inference as tinf
 from ralf_tpu_torch.core import sampling as tsamp
 from ralf_tpu_torch.data import dataset as tdata
 from ralf_tpu_torch.models import diffusion as tdiff
+from ralf_tpu_torch.models import nn as tnn
 from ralf_tpu_torch.models import positional as tpos
 from ralf_tpu_torch.ops import relation_costs as trc
+from ralf_tpu_torch.utils import tracing
 from ralf_tpu_torch.utils.weights import load_jax_params
 
 torch.set_num_threads(2)
@@ -323,6 +326,73 @@ def test_cores_match_jax(models, exp):
     with torch.no_grad():
         got = tg.core.decoder(_t(seq).long(), _t(want_mem), _t(t).long())
     _close(got.numpy(), np.asarray(want))
+
+
+def _decoder_core(pos_emb, seed=0):
+    torch.manual_seed(seed)
+    return tdiff.DiffusionDecoderCore(37, d_model=32, nhead=4, num_layers=3, dim_feedforward=64,
+                                      dropout=0.0, max_timestep=T_STEPS, pos_emb=pos_emb)
+
+
+@pytest.mark.parametrize("route", ["einsum", "kernel"])
+@pytest.mark.parametrize("pos_emb", ["elem_attr", "layout"])
+def test_decoder_cross_kv_is_the_projection(monkeypatch, pos_emb, route):
+    """The decoder over K and V projected once (`cross_kv`) equals the decoder
+    projecting the memory at each call, bit for bit: the same GEMMs on the
+    same inputs.  "kernel": K10's dispatch stood in on the CPU (`on_card`
+    patched true), its plain version running."""
+    if route == "kernel":
+        monkeypatch.setattr(tnn, "on_card", lambda t: True)
+    core = _decoder_core(pos_emb).eval()
+    g = torch.Generator().manual_seed(1)
+    tgt = torch.randint(0, 37, (3, 10), generator=g)
+    memory = torch.randn(3, 12, 32, generator=g)
+    t = torch.tensor([0, 5, T_STEPS - 1])
+    with torch.no_grad(), tracing.traced():
+        want = core(tgt, memory, t)
+        got = core(tgt, memory, t, core.cross_kv(memory))
+        plain = tracing.counters().get("attn.cross.plain", 0)
+    assert torch.equal(got, want)
+    assert plain == (0 if route == "kernel" else 2 * core.num_layers)
+
+
+def test_decoder_train_mode_takes_no_kernel(monkeypatch):
+    """A train-mode forward never reaches K10, even where it would on the
+    card, and counts no `attn.cross.plain`; its gradients are the einsum
+    path's exactly."""
+    g = torch.Generator().manual_seed(2)
+    tgt = torch.randint(0, 37, (3, 10), generator=g)
+    memory = torch.randn(3, 12, 32, generator=g)
+    t = torch.tensor([1, 4, 9])
+    grads = []
+    for stood_in in (False, True):
+        if stood_in:
+            monkeypatch.setattr(tnn, "on_card", lambda t: True)
+            monkeypatch.setattr(tnn, "cross_attention", lambda *a: pytest.fail("K10 in train mode"))
+        core = _decoder_core("elem_attr").train()
+        mem = memory.clone().requires_grad_()
+        with tracing.traced():
+            core(tgt, mem, t).square().sum().backward()
+            assert "attn.cross.plain" not in tracing.counters()
+        grads.append([mem.grad] + [p.grad for p in core.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def test_sampling_projects_the_memory_once(models):
+    """A request's denoising loop projects each layer's cross-attention K and
+    V once, before its T steps, not at every step."""
+    _, tg, _, (_, tb) = models["layoutdm"]
+    tc, _ = tg.build_condition(tb, np.random.default_rng(0), task="uncond")
+    calls = []
+    hooks = [layer.MultiHeadAttention_1.k_proj.register_forward_hook(
+        lambda *a, i=i: calls.append(i)) for i, layer in enumerate(tg.core.decoder.layers())]
+    try:
+        with torch.inference_mode():
+            tg.sample(tc, TGREEDY, torch.Generator().manual_seed(3))
+    finally:
+        for h in hooks:
+            h.remove()
+    assert calls == list(range(tg.core.decoder.num_layers))
 
 
 # ---- sampling ---------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The port's kernels K1-K9 against the JAX package's Pallas kernels.
+"""The port's kernels K1-K9 against the JAX package's Pallas kernels, and
+K10's plain version and dispatch against the einsum path it replaces.
 
 On the CPU each wrapper of `ralf_tpu_torch.ops` runs its plain PyTorch
 version; here that version is held against the Pallas kernel run with
@@ -32,10 +33,13 @@ from ralf_tpu.ops.pallas.encoder_attention import (
     fused_encoder_self_attention,
 )
 from ralf_tpu.ops.pallas.encoder_ffn import fused_ffn as jax_fused_ffn
+from ralf_tpu_torch.models import nn as tnn
+from ralf_tpu_torch.ops import cross_attention as xa
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
 from ralf_tpu_torch.ops import encoder_ffn as ef
 from ralf_tpu_torch.ops import stream_sum as ss
+from ralf_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 TOL = dict(atol=1e-5, rtol=1e-5)  # fp32 on both sides; only the summation order differs
@@ -481,3 +485,77 @@ def test_plain_versions_carry_the_gradients_of_the_jax_kernels():
         for a in leaves:
             if a.requires_grad:
                 assert bool(torch.isfinite(a.grad).all()) and float(a.grad.abs().max()) > 0
+
+
+# ---- K10: cross-attention over a memory of another length (no Pallas kernel) ----
+
+
+def _cross_inputs(seed, B, S, M, E=256, nhead=8, bias=False):
+    """A module in eval mode, q_in [B, S, E], its k, v [B, M, H, Dh] and a
+    key-padding bias [B, 1, 1, M] (every row keeps a key; row 1 none)."""
+    torch.manual_seed(seed)
+    mha = tnn.MultiHeadAttention(E, nhead).eval()
+    g = torch.Generator().manual_seed(seed)
+    q_in = torch.randn(B, S, E, generator=g)
+    k, v = mha.project_kv(torch.randn(B, M, E, generator=g))
+    key_bias = None
+    if bias:
+        keep = torch.rand(B, M, generator=g) > 0.3
+        keep[:, 0] = True
+        keep[1] = False
+        key_bias = tnn.keep_to_bias(keep)[:, None, None, :]
+    return mha, q_in, k, v, key_bias
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("M", [1, 7, 330, 700])
+def test_cross_attention_plain_matches_einsum_path(M, bias):
+    """K10's plain version is the einsum path's function in fp32: the module's
+    projections around it against `attend` on the CPU (the einsum path),
+    with and without a key bias, a row of which masks every key."""
+    B, S = 3, 50
+    mha, q_in, k, v, kb = _cross_inputs(M, B, S, M, bias=bias)
+    with torch.no_grad():
+        want = mha.attend(q_in, k, v, kb)
+        out = xa.cross_attention(mha.q_proj(q_in), k.reshape(B, M, -1), v.reshape(B, M, -1), 8,
+                                 None if kb is None else kb[:, 0, 0, :].contiguous(),
+                                 mha.head_dim**-0.5)
+        got = mha.out_proj(out)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("case", ["kernel", "key_bias", "grad", "head_width", "structured_bias",
+                                  "train"])
+def test_cross_attention_dispatch(monkeypatch, case):
+    """`attend` sends an S != M call to K10 only in eval mode on the card with
+    grad off, no bias or a key-only one and a head width up to 64; an
+    eval-mode call it does not send counts `attn.cross.plain`, a train-mode
+    call nothing.  The card is stood in for: `on_card` patched true and the
+    kernel recorded, running its plain version."""
+    calls = []
+
+    def recorded(*args):
+        calls.append(args)
+        return xa.cross_attention_plain(*args)
+
+    monkeypatch.setattr(tnn, "on_card", lambda t: True)
+    monkeypatch.setattr(tnn, "cross_attention", recorded)
+    E, nhead = (256, 2) if case == "head_width" else (256, 8)  # Dh=128 past the kernel's 64
+    mha, q_in, k, v, kb = _cross_inputs(5, 2, 10, 33, E, nhead, bias=case == "key_bias")
+    if case == "structured_bias":
+        kb = torch.zeros(2, 1, 10, 33)
+    if case == "train":
+        mha.train()
+        mha.attn_drop.p = 0.0
+    want = None
+    with torch.no_grad():
+        want = mha.out_proj(xa.cross_attention_plain(
+            mha.q_proj(q_in), k.reshape(2, 33, E), v.reshape(2, 33, E), nhead,
+            None if kb is None or kb.shape[2] != 1 else kb[:, 0, 0, :], mha.head_dim**-0.5))
+    with tracing.traced(), torch.set_grad_enabled(case == "grad"):
+        got = mha.attend(q_in, k, v, kb)
+        plain = tracing.counters().get("attn.cross.plain", 0)
+    takes = case in ("kernel", "key_bias")
+    assert len(calls) == int(takes)
+    assert plain == (0 if takes or case == "train" else 1)
+    np.testing.assert_allclose(got.detach().numpy(), want.numpy(), **TOL)
