@@ -10,7 +10,7 @@ Run from the repository root.  Phases, each of which must pass:
 
   1. device   the card's name and power limit; TF32 off for matmuls and convolutions
   2. build    nvcc builds every kernel of ralf_tpu_torch/ops/csrc (sm_90a), in parallel
-  3. kernels  each kernel (K1-K9) against its plain PyTorch version at the
+  3. kernels  each kernel (K1-K11) against its plain PyTorch version at the
               paths' shapes (K1 also at ICVT's E=200, Dh=25: its image encoder,
               and its GA encoder at S=10 with a key mask), in bf16 and
               fp32 (K9 on the probe's int8 slab and its views), with its
@@ -27,7 +27,12 @@ Run from the repository root.  Phases, each of which must pass:
               on random and tie-heavy costs; and K10, the cross-attention with
               S != M (no Pallas counterpart: JAX's is XLA einsums), at the
               denoising decoder's shape in the benchmark's requests of 1024
-              canvases and this script's of 128, with and without a key mask
+              canvases and this script's of 128, with and without a key mask;
+              and K11, ResNet's eval-mode BatchNorm with its residual add and
+              ReLU in one pass (no Pallas counterpart: XLA fuses it), at the
+              largest call of the benchmark's requests (layer1's last
+              BatchNorm with its residual) and the stem's, beside the unfused
+              sequence the port ran before it
   4. check    the full-width RALF in fp32 on the card against the same weights on
               the CPU (plain versions): gallery features, encode_memory, greedy
               tokens of every decode configuration (shared memory through K2, K3
@@ -227,6 +232,14 @@ host-bound on one thread and the checks mostly CPU work, so the two run side by 
 A check's output is printed, and its failures counted, at the end (`Checks.wait`);
 the worker's K1 shapes join K1_LAUNCHED.
 
+Every launch count above reads K11 as well (eval-mode BatchNorm, residual add and
+ReLU in one pass): one a BatchNorm of each image encoder's ResNet forward in eval mode
+with grad off (53 for ResNet50, 20 for ResNet18; `k11_forward`), so a request, a
+validation batch, a GAN's discriminator step (the generator's prediction) and each
+cli.inference batch take it, a train step and a GAN's generator step none; the towers
+phase's InceptionV3 94 a forward, the preprocess phase's nets none (their maps are NCHW
+on the card: K11_TOWER, K11_PREPROCESS); the towers and preprocess phases count them too.
+
 Every configuration is chosen here explicitly (q8_mxu is an argument of the
 package's decodes); no environment variable selects a kernel, so that each
 kernel keeps a path of its own.
@@ -286,6 +299,9 @@ KERNELS = {  # name: (id, the TPU kernel it replaces, source), in the order of t
     # replaces no Pallas kernel: JAX's cross-attention with S != M is XLA einsums
     "cross_attention": ("K10", "ralf_tpu/models/nn.py MultiHeadAttention (einsums)",
                         "ralf_tpu_torch/ops/csrc/cross_attention.cu"),
+    # replaces no Pallas kernel: XLA fuses the JAX package's BatchNorm, residual add and ReLU
+    "batchnorm_act": ("K11", "ralf_tpu/models/resnet.py BatchNorm (XLA)",
+                      "ralf_tpu_torch/ops/csrc/batchnorm_act.cu"),
 }
 LIBRARY = {  # what library_ms times: one PyTorch call, or for K5 and K6 an unfused sequence
     "encoder_attention": "F.scaled_dot_product_attention",
@@ -296,6 +312,7 @@ LIBRARY = {  # what library_ms times: one PyTorch call, or for K5 and K6 an unfu
     "stream_sum": "torch.sum(x, dims, dtype=torch.float32)",
     "batched_lsa": "none (scipy's linear_sum_assignment runs on the host)",
     "cross_attention": "F.scaled_dot_product_attention on the heads' views",
+    "batchnorm_act": "sequence: models.resnet.eval_plain (scale and shift, x * s + t, + r, relu)",
 }
 # the main path's case of each kernel; else bfloat16
 MAIN_DTYPE = {"stream_sum": "int8", "batched_lsa": "int32"}
@@ -373,6 +390,19 @@ GAN_TRAIN = {"cglgan": (4, 6, 6), "cglgan_ra": (8, 10, 10), "dsgan": (0, 0, 0),
 # (the discriminator's decoder runs with grad on: the einsum path)
 GAN_TRAIN_K10 = {"cglgan": 6, "cglgan_ra": 6, "dsgan": 0, "dsgan_ra": 0}
 RALF_K10_EVAL = 6  # a RALF validation batch: the teacher-forced decoder's 6 cross-attentions
+# K11 launches of one forward in eval mode with grad off on the card, one a BatchNorm that
+# K11 takes: a ResNet trunk by its blocks a stage (ResNet50: the stem, 16 blocks x 3 and 4
+# downsamples; ResNet18: 1 + 8 x 2 + 3), the image encoder of every generator (`k11_forward`);
+# a tower's (InceptionV3's 94 BasicConvs; the other towers hold no BatchNorm); the dataset
+# build's nets none: their maps reach every BatchNorm NCHW-contiguous on the card (ISNet and
+# BASNet from their inputs on, LaMa from its reflect padding on), so they take the plain
+# path (`bn.eval.plain`). A train step takes none (train mode); a GAN's generator step none
+# (the discriminator runs in eval mode with grad on), its discriminator step the generator's
+# prediction in eval mode
+K11_TRUNK = {(3, 4, 6, 3): 53, (2, 2, 2, 2): 20}
+K11_TOWER = {"inception": 94}
+K11_PREPROCESS = {"isnet": 0, "basnet": 0, "lama": 0}
+K11_R50 = K11_TRUNK[(3, 4, 6, 3)]  # every preset's image encoder (GeneratorConfig.backbone)
 GAN_STEP_BATCH = 4  # the one-step check's canvases
 # the presets whose fit_gan runs at the training size in fp32: DS-GAN (its discriminator,
 # the LSTM); CGL-GAN-RA's (its discriminator, retrieval) runs in the bf16_train phase
@@ -468,14 +498,28 @@ def bound(nbytes: float, ops: float, op_type: str) -> tuple[float, str]:
 def counters():
     """The launch counter of every kernel wrapper, by kernel id."""
     from ralf_tpu_torch.ops import assignment as asg
+    from ralf_tpu_torch.ops import batchnorm_act as bna
     from ralf_tpu_torch.ops import cross_attention as xa
     from ralf_tpu_torch.ops import decode_attention as da
     from ralf_tpu_torch.ops import encoder_attention as ea
     from ralf_tpu_torch.ops import encoder_ffn as ef
     from ralf_tpu_torch.ops import stream_sum as ss
 
-    return {kid: next(getattr(m, n) for m in (ea, ef, da, ss, asg, xa) if hasattr(m, n))
+    return {kid: next(getattr(m, n) for m in (ea, ef, da, ss, asg, xa, bna) if hasattr(m, n))
             for n, (kid, _, _) in KERNELS.items()}
+
+
+def k11_forward(gen) -> int:
+    """K11 launches of one eval-mode forward of the generator's image
+    encoder with grad off on the card: K11_TRUNK of each ResNet trunk its
+    model holds (the generator's alone: a GAN's discriminator is apart);
+    none for the retriever."""
+    from ralf_tpu_torch.models.resnet import ResNetTrunk
+
+    core = getattr(gen, "core", None)
+    if core is None:
+        return 0
+    return sum(K11_TRUNK[tuple(m.depths)] for m in core.modules() if isinstance(m, ResNetTrunk))
 
 
 class LaunchCounter:
@@ -685,7 +729,9 @@ def kernel_cases(torch, dev):
     the test that explains each element outside the tolerance)."""
     import torch.nn.functional as F
 
+    from ralf_tpu_torch.models import resnet
     from ralf_tpu_torch.ops import assignment as asg
+    from ralf_tpu_torch.ops import batchnorm_act as bna
     from ralf_tpu_torch.ops import cross_attention as xa
     from ralf_tpu_torch.ops import decode_attention as da
     from ralf_tpu_torch.ops import encoder_attention as ea
@@ -882,6 +928,27 @@ def kernel_cases(torch, dev):
                                                                                    Dh**-0.5),
                 sdpa, (2 * B * S * E + 2 * B * M * E) * isz + (4 * B * M if keys else 0),
                 4 * B * S * M * E, dn, 2**-8 * v_max if dtype == torch.bfloat16 else 0.0,
+            ))
+        # K11: ResNet50's largest BatchNorm call in the benchmark's requests of 1024
+        # canvases at 350x240 (layer1's bn3 with its residual and ReLU: the main row),
+        # then the stem's (ReLU, no residual); fp32 at this script's batch of 128
+        for (C, H, W), residual in (((256, 88, 60), True), ((64, 175, 120), False)):
+            B = 1024 if dtype == torch.bfloat16 else 128
+            x, r = (torch.randn(B, H, W, C, generator=g, device=dev).to(dtype)
+                    .permute(0, 3, 1, 2) for _ in range(2))
+            r = r if residual else None
+            w, b, m = (torch.randn(C, generator=g, device=dev) for _ in range(3))
+            params = (1 + 0.2 * w, 0.2 * b, 0.3 * m, 0.5 + torch.rand(C, generator=g, device=dev))
+            params = tuple(t.to(dtype) for t in params)
+            n = x.numel()
+            cases.append((
+                "batchnorm_act", f"[{B}, {C}, {H}, {W}] residual={residual} relu=True", dn,
+                lambda x=x, r=r, p=params: bna.batchnorm_act(x, *p, 1e-5, r, True),
+                lambda x=x, r=r, p=params: bna.batchnorm_act_plain(x, *p, 1e-5, r, True),
+                # the module's plain path: the unfused eval sequence the card ran before K11
+                lambda x=x, r=r, p=params: resnet.eval_plain(x, *p, 1e-5, r, True),
+                (3 if residual else 2) * n * isz + 4 * C * isz,
+                (3 if residual else 2) * n, "float32", 0.0,
             ))
     # the exact assignment: random costs first (the main row), then ties in every
     # row (small integers) with one row of all equal costs, exactly equal to the plain
@@ -1126,6 +1193,7 @@ def run_slice(torch, tok, fails: Failures) -> dict:
     sampling = SamplingConfig(name="top_p", top_p=0.9, temperature=1.0)
     L = tok.max_token_length
     counted = LaunchCounter()
+    k11 = k11_forward(gen)  # the image encoder's BatchNorms, once a request
 
     def check_request(label, cond, toks, layout, n, expect):
         """Forced tokens in place, legal tokens, finite layouts, and exactly the
@@ -1173,8 +1241,8 @@ def run_slice(torch, tok, fails: Failures) -> dict:
         profile_request(torch, label, lambda: request(batches[0], 7))
 
     # the two uncond configurations
-    uncond_requests("cli-default", False, False, {"K1": 12, "K2": 300})
-    uncond_requests("bench", True, True, {"K1": 12, "K3": 300})
+    uncond_requests("cli-default", False, False, {"K1": 12, "K2": 300, "K11": k11})
+    uncond_requests("bench", True, True, {"K1": 12, "K3": 300, "K11": k11})
 
     # one request per task, kv_quant + self_quant + q8_mxu (K4), through sample()
     for i, task in enumerate(TASKS):
@@ -1191,7 +1259,7 @@ def run_slice(torch, tok, fails: Failures) -> dict:
         (cond, layout, toks, dt), n = counted(sample_task)
         steps = RETRIES * L if task == "relation" else L  # the retry decode: R attempts per element
         check_request(f"task {task} (constraint length {cond.const_seq.shape[1]})", cond, toks,
-                      layout, n, {"K1": 12, "K4": 6 * steps})
+                      layout, n, {"K1": 12, "K4": 6 * steps, "K11": k11})
         v = calculate_violation(cond, toks, layout, tok)
         print(f"  task {task}: {dt * 1e3:.1f} ms, {BATCH / dt:.1f} layouts/s; violations "
               f"{v['viorated']}/{v['total']} = {v['viorated'] / v['total']:.4f}", flush=True)
@@ -1213,7 +1281,7 @@ def run_slice(torch, tok, fails: Failures) -> dict:
 
         (cond, toks, dt), n = counted(per_layer)
         check_request(f"per-layer cross K/V kv_quant={kvq}", cond, toks, tok.decode(toks), n,
-                      {"K1": 12, kernel: 300})
+                      {"K1": 12, kernel: 300, "K11": k11})
         print(f"  per-layer kv_quant={kvq}: {dt * 1e3:.1f} ms, {BATCH / dt:.1f} layouts/s", flush=True)
         if kvq:  # K8's share of a per-layer int8 request's device time
             profile_request(torch, "per-layer int8 (K8)", per_layer)
@@ -1227,11 +1295,12 @@ def run_slice(torch, tok, fails: Failures) -> dict:
                                 return_tokens=True)
 
     (cond, layout, toks), n = counted(autoreg)
-    check_request("autoreg uncond", cond, toks, layout, n, {"K1": 12, "K2": 300})
+    check_request("autoreg uncond", cond, toks, layout, n,
+                  {"K1": 12, "K2": 300, "K11": k11_forward(ar)})
 
     # the fused encoder: K6 for the 6 + 6 self-attentions, K5 for the image
     # encoder's 6 FFNs (the uncond constraint, Lc = 4, stays under S >= 16)
-    fused = {"K5": 6, "K6": 12, "K2": 300}
+    fused = {"K5": 6, "K6": 12, "K2": 300, "K11": k11}
     set_fused_encoder(gen.core, True)
     uncond_requests("fused-encoder", False, False, fused)
     set_fused_encoder(ar.core, True)
@@ -1404,11 +1473,14 @@ def run_cli(torch, fails: Failures, smi: list, tmp: str, overrides=tuple(CLI_CON
           f"{gen.cfg.dim_feedforward}, {gen.cfg.backbone}, {gen.image_hw}, top-{gen.top_k}, "
           f"{gen.cfg.dtype}; splits {len(train_ds)} / {n_test}", flush=True)
     # two seeds: the second times the configuration warm; K1 4 for FIDNet's
-    # gallery table, then per seed 12 for the encoders and 6 * L decode steps
-    per_call = {"K1": 4 + CLI_SEEDS * 12, "decode": CLI_SEEDS * 6 * L}
-    runs = {"c": (["--cond", "c"], want(K1=per_call["K1"], K2=per_call["decode"])),
+    # gallery table, then per seed 12 for the encoders and 6 * L decode steps, and
+    # the image encoder's K11 (the test split is one batch)
+    k11 = k11_forward(gen)
+    per_call = {"K1": 4 + CLI_SEEDS * 12, "decode": CLI_SEEDS * 6 * L, "K11": CLI_SEEDS * k11}
+    runs = {"c": (["--cond", "c"], want(K1=per_call["K1"], K2=per_call["decode"],
+                                        K11=per_call["K11"])),
             "uncond-int8": (["--cond", "uncond", "--kv-quant", "--self-quant"],
-                            want(K1=per_call["K1"], K3=per_call["decode"]))}
+                            want(K1=per_call["K1"], K3=per_call["decode"], K11=per_call["K11"]))}
     for label, (extra, expect) in runs.items():
         out_dir = os.path.join(job, f"out_{label}")
         argv = ["--job-dir", job, "--num-seeds", str(CLI_SEEDS), "--batch-size",
@@ -1456,7 +1528,8 @@ def run_cli(torch, fails: Failures, smi: list, tmp: str, overrides=tuple(CLI_CON
     (layout, toks), n = counted(single)
     finite = all(bool(torch.isfinite(layout.geo(k)).all())
                  for k in ("center_x", "center_y", "width", "height"))
-    fails.check(n == want(K1=4 + 12, K2=6 * L) and tuple(toks.shape) == (1, L) and finite,
+    fails.check(n == want(K1=4 + 12, K2=6 * L, K11=k11) and tuple(toks.shape) == (1, L)
+                and finite,
                 f"cli single canvas: launches {n}, tokens {tuple(toks.shape)}, "
                 f"{int(layout.mask.sum())} elements, finite={finite}")
 
@@ -1644,7 +1717,7 @@ def run_zoo(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
         for exp, tasks in ZOO_SERVE.items():
             cfg, gen = zoo_generator(exp, tmp, "cuda", ("model.dtype=bfloat16", *overrides))
             tok, L, k1 = gen.tokenizer, gen.tokenizer.max_token_length, zoo_k1(gen)
-            k10 = k10_request(gen)
+            k10, k11 = k10_request(gen), k11_forward(gen)
             batches = zoo_batches(gen, cfg, ZOO_REQUESTS, ZOO_BATCH, GALLERY)
             token_mask = torch.as_tensor(tok.token_mask, device=gen.device)
             pos = torch.arange(L, device=gen.device)[None, :]
@@ -1675,10 +1748,10 @@ def run_zoo(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
                     kept = bool((toks[known] == given[known]).all())
                 finite = all(bool(torch.isfinite(layout.geo(k)).all())
                              for k in ("center_x", "center_y", "width", "height"))
-                fails.check(n == want(K1=k1, K10=k10) and legal and kept and finite
+                fails.check(n == want(K1=k1, K10=k10, K11=k11) and legal and kept and finite
                             and tuple(toks.shape) == (ZOO_BATCH, L),
                             f"zoo {exp} {task} request {i}: launches {n} (want K1 {k1}, K10 "
-                            f"{k10}), tokens "
+                            f"{k10}, K11 {k11}), tokens "
                             f"legal={legal}, given tokens in place={kept}, layouts finite="
                             f"{finite} ({int(layout.mask.sum())} elements)")
                 print(f"  zoo {exp} {task} request {i}: {dt * 1e3:.1f} ms, "
@@ -1701,7 +1774,7 @@ def run_zoo(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
                                  ("model.dtype=bfloat16", *overrides))
         cfg.save(job)
         save_params_npz(os.path.join(job, "ckpt_final.npz"), *export_params(gen.core))
-        k1, k10 = zoo_k1(gen), k10_request(gen)
+        k1, k10, k11 = zoo_k1(gen), k10_request(gen), k11_forward(gen)
         del gen
         out_dir = os.path.join(job, "out_c")
         argv = ["--job-dir", job, "--cond", "c", "--num-seeds", "1", "--batch-size",
@@ -1711,9 +1784,10 @@ def run_zoo(torch, fails: Failures, smi: list, checks, overrides=()) -> dict:
             records = pickle.load(f)["results"]
         with open(os.path.join(out_dir, "test_0_violation.csv")) as f:
             total, violated, rate = list(csv.reader(f))[1]
-        fails.check(n == want(K1=k1, K10=k10) and len(records) == CLI_BATCH
+        fails.check(n == want(K1=k1, K10=k10, K11=k11) and len(records) == CLI_BATCH
                     and float(rate) == 0.0 and int(total) > 0,
-                    f"zoo cli.inference layoutdm --cond c: launches {n} (want K1 {k1}, K10 {k10}), "
+                    f"zoo cli.inference layoutdm --cond c: launches {n} (want K1 {k1}, K10 {k10}, "
+                    f"K11 {k11}), "
                     f"{len(records)} records, violations {violated}/{total}, "
                     f"{summary['ms_per_sample'][0]:.3f} ms per sample ({card})")
         argv = ["--input-dir", out_dir, "--job-dir", job, "--device", "cuda",
@@ -1834,7 +1908,7 @@ def run_baselines(torch, fails: Failures, smi: list, checks, overrides=()) -> di
 
         for exp, tasks in BASELINE_SERVE.items():
             cfg, gen = zoo_generator(exp, tmp, "cuda", ("model.dtype=bfloat16", *overrides))
-            k1, k10 = baseline_k1(gen), k10_request(gen)
+            k1, k10, k11 = baseline_k1(gen), k10_request(gen), k11_forward(gen)
             batches = zoo_batches(gen, cfg, BASELINE_REQUESTS, BASELINE_BATCH, GALLERY)
 
             def request(batch, task, seed):
@@ -1855,11 +1929,11 @@ def run_baselines(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                 legal = bool(((geo >= 0) & (geo <= 1)).all()) and bool(
                     (layout.label[layout.mask] < cfg.dataset.num_labels).all())
                 dh_ok = exp != "icvt" or widths == [25] * k1
-                fails.check(n == want(K1=k1, K10=k10) and legal and dh_ok
+                fails.check(n == want(K1=k1, K10=k10, K11=k11) and legal and dh_ok
                             and tuple(layout.mask.shape) == (BASELINE_BATCH,
                                                              cfg.dataset.max_seq_length),
                             f"baselines {exp} {task} request {i}: launches {n} (want K1 {k1}, "
-                            f"K10 {k10}), "
+                            f"K10 {k10}, K11 {k11}), "
                             f"K1 head widths {sorted(set(widths))}, layouts legal={legal} "
                             f"({int(layout.mask.sum())} elements)")
                 print(f"  baselines {exp} {task} request {i}: {dt * 1e3:.1f} ms, "
@@ -1881,7 +1955,7 @@ def run_baselines(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                         "--cache-dir", f"{tmp}/cache", *overrides]
                 with contextlib.redirect_stdout(io.StringIO()):
                     cli_train.main(argv)
-                k1 = k10 = 0
+                k1 = k10 = k11 = 0
                 fails.check(sorted(os.listdir(job)) == ["config.json"],
                             f"baselines cli.train --experiment retriever writes {os.listdir(job)}")
             else:
@@ -1889,7 +1963,7 @@ def run_baselines(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                                                                  *overrides))
                 cfg.save(job)
                 save_params_npz(os.path.join(job, "ckpt_final.npz"), *export_params(gen.core))
-                k1, k10 = baseline_k1(gen), k10_request(gen)
+                k1, k10, k11 = baseline_k1(gen), k10_request(gen), k11_forward(gen)
                 del gen
             out_dirs[exp] = os.path.join(job, "out")
             argv = ["--job-dir", job, "--num-seeds", str(CLI_SEEDS), "--batch-size",
@@ -1904,10 +1978,12 @@ def run_baselines(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                                                                   "width", "height") for x in r[k]]
             legal = all(0.0 <= x <= 1.0 for x in coords) and len(coords) > 0
             dh_ok = exp != "icvt" or set(widths) == {25}
-            fails.check(n == want(K1=k1 * CLI_SEEDS, K10=k10 * CLI_SEEDS) and legal and dh_ok
+            fails.check(n == want(K1=k1 * CLI_SEEDS, K10=k10 * CLI_SEEDS, K11=k11 * CLI_SEEDS)
+                        and legal and dh_ok
                         and [len(r) for r in records] == [CLI_BATCH] * CLI_SEEDS,
                         f"baselines cli.inference {exp}: launches {n} (want K1 "
-                        f"{k1 * CLI_SEEDS}, K10 {k10 * CLI_SEEDS}), records {[len(r) for r in records]}, coordinates "
+                        f"{k1 * CLI_SEEDS}, K10 {k10 * CLI_SEEDS}, K11 {k11 * CLI_SEEDS}), "
+                        f"records {[len(r) for r in records]}, coordinates "
                         f"in [0, 1]={legal}, " + ", ".join(
                             f"seed {s} {ms:.3f} ms per sample" for s, ms in
                             summary["ms_per_sample"].items()) + f" ({card})")
@@ -2144,12 +2220,14 @@ def _leaves(tree: dict, prefix: str = ""):
 
 
 def run_fit(torch, fails: Failures, counted: LaunchCounter, label: str, gen, cfg, loaders,
-            val_size: int, k1_step: int, k1_eval: int, card: str, k10_eval: int = 0):
+            val_size: int, k1_step: int, k1_eval: int, card: str, k10_eval: int = 0,
+            k11_eval: int = 0):
     """Trainer.fit of `gen` (cfg.train: one epoch, a step checkpoint every
     TRAIN_STEPS) for TRAIN_STEPS steps over `loaders()`, then as many more
     resumed from its step checkpoint, each train step and validation batch
     timed and its launches read: exactly k1_step K1 launches a step and
-    k1_eval K1 and k10_eval K10 a validation batch, finite losses, the resume's steps and meta;
+    k1_eval K1, k10_eval K10 and k11_eval K11 a validation batch (none in a
+    train step), finite losses, the resume's steps and meta;
     it prints ms per step, samples/s, ms between step starts, validation ms
     a batch and peak memory, then profiles one more step.  Returns (the
     trainer, its state, {"ms", "samples_per_s", "peak_gib"} and the
@@ -2195,15 +2273,15 @@ def run_fit(torch, fails: Failures, counted: LaunchCounter, label: str, gen, cfg
     fails.check(all(r["n"] == want(K1=k1_step) for r in steps) and len(steps) == 2 * TRAIN_STEPS,
                 f"{label}: {len(steps)} train steps, launches per step "
                 f"{sorted({str(r['n']) for r in steps})} (want K1 {k1_step})")
-    fails.check(all(r["n"] == want(K1=k1_eval, K10=k10_eval) for r in evals)
+    fails.check(all(r["n"] == want(K1=k1_eval, K10=k10_eval, K11=k11_eval) for r in evals)
                 and len(evals) == sum(n_val),
                 f"{label}: {len(evals)} validation batches ({n_val} in the two calls), launches "
                 f"per batch {sorted({str(r['n']) for r in evals})} (want K1 {k1_eval}, K10 "
-                f"{k10_eval})")
-    fails.check([n1, n2] == [want(K1=k1_step * TRAIN_STEPS + k1_eval * v, K10=k10_eval * v)
-                             for v in n_val],
+                f"{k10_eval}, K11 {k11_eval})")
+    fails.check([n1, n2] == [want(K1=k1_step * TRAIN_STEPS + k1_eval * v, K10=k10_eval * v,
+                                  K11=k11_eval * v) for v in n_val],
                 f"{label}: launches a call {n1}, {n2} (want {k1_step} x {TRAIN_STEPS} steps + "
-                f"K1 {k1_eval} and K10 {k10_eval} x {n_val} validation batches)")
+                f"K1 {k1_eval}, K10 {k10_eval} and K11 {k11_eval} x {n_val} validation batches)")
     losses = [r["loss"] for r in steps + evals]
     fails.check(all(math.isfinite(x) for x in losses),
                 f"{label}: every loss finite ({', '.join(f'{x:.4f}' for x in losses)})")
@@ -2293,7 +2371,7 @@ def run_train(torch, tok, fails: Failures, smi: list, checks, overrides=()) -> d
         # eval mode the 6 + 6 encoder self-attentions too
         trainer, state, FIT_FIGURES["fp32"] = run_fit(
             torch, fails, counted, "fit", gen, cfg, loaders, len(val_ds), 4, 4 + 6 + 6, card,
-            RALF_K10_EVAL)
+            RALF_K10_EVAL, K11_R50)
         del trainer, state, gen
         torch.cuda.empty_cache()
 
@@ -2308,7 +2386,8 @@ def run_train(torch, tok, fails: Failures, smi: list, checks, overrides=()) -> d
         t_call = time.perf_counter() - t_call
         files = [f for f in ("config.json", "metrics.jsonl", "ckpt_final.npz", "ckpt_final_opt.pt",
                              "ckpt_best.npz") if os.path.exists(os.path.join(job, f))]
-        expect = want(K1=2 * 4 + 2 * 16, K10=2 * RALF_K10_EVAL)  # 2 steps, 2 validation batches
+        # 2 steps, 2 validation batches
+        expect = want(K1=2 * 4 + 2 * 16, K10=2 * RALF_K10_EVAL, K11=2 * K11_R50)
         fails.check(n == expect and len(files) == 5,
                     f"cli.train --debug: launches {n} (want {expect}); wrote {files}; {t_call:.1f} s")
         out_dir = os.path.join(job, "out_c")
@@ -2316,7 +2395,7 @@ def run_train(torch, tok, fails: Failures, smi: list, checks, overrides=()) -> d
                 "--out-dir", out_dir]
         summary, n = counted(lambda: inference.main(argv))
         L = tok.max_token_length
-        expect = want(K1=4 + 12, K2=6 * L)  # FIDNet's gallery table; one batch of 16
+        expect = want(K1=4 + 12, K2=6 * L, K11=K11_R50)  # FIDNet's gallery table; one batch of 16
         with open(os.path.join(out_dir, "test_0.pkl"), "rb") as f:
             records_c = pickle.load(f)["results"]
         with open(os.path.join(out_dir, "test_0_violation.csv")) as f:
@@ -2430,7 +2509,7 @@ def run_zoo_train(torch, fails: Failures, smi: list, checks, overrides=()) -> di
 
                 trainer, state, _ = run_fit(torch, fails, counted, f"zoo_train {preset} fit",
                                             gen, cfg, loaders, len(val_ds), k1_step, k1_eval,
-                                            card, k10_eval)
+                                            card, k10_eval, K11_R50)
                 del trainer, state, gen
                 torch.cuda.empty_cache()
             t_fit = time.perf_counter() - t
@@ -2448,7 +2527,7 @@ def run_zoo_train(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                                  "ckpt_final_opt.pt", "ckpt_best.npz")
                      if os.path.exists(os.path.join(job, f))]
             # 2 steps, 2 validation batches of 8
-            expect = want(K1=2 * k1_step + 2 * k1_eval, K10=2 * k10_eval)
+            expect = want(K1=2 * k1_step + 2 * k1_eval, K10=2 * k10_eval, K11=2 * K11_R50)
             fails.check(n == expect and len(files) == 5,
                         f"zoo_train {preset} cli.train --debug: launches {n} (want {expect}); "
                         f"wrote {files}")
@@ -2471,10 +2550,11 @@ def run_zoo_train(torch, fails: Failures, smi: list, checks, overrides=()) -> di
             # VQDiffusion replaces over the whole vocabulary: two steps' weights may
             # leave no whole element (the zoo phase's note), so it may decode none
             decoded = bool(coords) or preset == "vqdiffusion"
-            fails.check(n == want(K1=k1_infer, K10=k10_infer) and len(records) == 16 and clean
-                        and decoded and all(0 <= v <= 1 for v in coords),
+            fails.check(n == want(K1=k1_infer, K10=k10_infer, K11=K11_R50) and len(records) == 16
+                        and clean and decoded and all(0 <= v <= 1 for v in coords),
                         f"zoo_train {preset} cli.inference on the trained checkpoint (fp32, "
-                        f"--cond {cond}): launches {n} (want K1 {k1_infer}, K10 {k10_infer}), "
+                        f"--cond {cond}): launches {n} (want K1 {k1_infer}, K10 {k10_infer}, "
+                        f"K11 {K11_R50}), "
                         f"{len(records)} "
                         f"records, {len(coords) // 4} elements with coordinates in [0, 1], "
                         f"violations {violations}, {summary['ms_per_sample'][0]:.3f} ms per "
@@ -2540,7 +2620,7 @@ def run_gan_fit(torch, fails: Failures, counted: LaunchCounter, preset: str, tmp
     forced to 1 (the first epoch's ramp gives 0), each generator and
     discriminator step timed and its launches read: exactly k1_gen K1
     launches and one batched_lsa a generator step, k1_dis K1 and
-    GAN_TRAIN_K10's K10 a discriminator step, finite losses; it prints ms per GAN step (and each
+    GAN_TRAIN_K10's K10 and the generator's K11 a discriminator step, finite losses; it prints ms per GAN step (and each
     step apart), samples/s, peak memory, then profiles one more GAN step."""
     from ralf_tpu_torch.config import build_datasets
     from ralf_tpu_torch.data.dataset import BatchLoader
@@ -2555,6 +2635,7 @@ def run_gan_fit(torch, fails: Failures, counted: LaunchCounter, preset: str, tmp
     cfg, gen = zoo_generator(preset, tmp, "cuda", (f"train.job_dir={tmp}/fit_{preset}",
                                                     "train.epochs=1", *overrides))
     label = f"{'bf16_train' if gen.cfg.dtype == torch.bfloat16 else 'gan_train'} {preset} fit"
+    k11_dis = k11_forward(gen)  # the generator's prediction in eval mode under no_grad
     train_ds = build_datasets(cfg)[0]
     loader = BatchLoader(train_ds, TRAIN_BATCH, transforms=cfg.transforms, seed=cfg.train.seed)
     if gen.with_retrieval:
@@ -2589,13 +2670,13 @@ def run_gan_fit(torch, fails: Failures, counted: LaunchCounter, preset: str, tmp
     gens, diss = records["gen"], records["dis"]
     fails.check(len(gens) == len(diss) == TRAIN_STEPS
                 and all(r["n"] == want(K1=k1_gen, LSA=1) for r in gens)
-                and all(r["n"] == want(K1=k1_dis, K10=k10_dis) for r in diss)
+                and all(r["n"] == want(K1=k1_dis, K10=k10_dis, K11=k11_dis) for r in diss)
                 and n == want(K1=(k1_gen + k1_dis) * TRAIN_STEPS, LSA=TRAIN_STEPS,
-                              K10=k10_dis * TRAIN_STEPS),
+                              K10=k10_dis * TRAIN_STEPS, K11=k11_dis * TRAIN_STEPS),
                 f"{label}: {len(gens)} GAN steps, launches per generator step "
                 f"{sorted({str(r['n']) for r in gens})} (want K1 {k1_gen}, LSA 1), per "
                 f"discriminator step {sorted({str(r['n']) for r in diss})} (want K1 {k1_dis}, "
-                f"K10 {k10_dis}); "
+                f"K10 {k10_dis}, K11 {k11_dis}); "
                 f"a call {n}")
     losses = [r["loss"] for r in gens + diss]
     with open(os.path.join(cfg.train.job_dir, "metrics.jsonl")) as f:
@@ -2659,7 +2740,8 @@ def run_gan_train(torch, fails: Failures, smi: list, checks, overrides=()) -> di
                     os.path.join(tmp, "cli_cache"), *overrides]
             _, n = counted(lambda: cli_train.main(argv))
             files = sorted(os.listdir(job))
-            expect = want(K1=2 * (k1_gen + k1_dis), LSA=2, K10=2 * GAN_TRAIN_K10[preset])
+            expect = want(K1=2 * (k1_gen + k1_dis), LSA=2, K10=2 * GAN_TRAIN_K10[preset],
+                          K11=2 * K11_R50)
             fails.check(n == expect and files == [
                 "ckpt_final.npz", "ckpt_final_dis.npz", "ckpt_final_dis_opt.pt",
                 "ckpt_final_opt.pt", "config.json", "metrics.jsonl"],
@@ -2676,10 +2758,11 @@ def run_gan_train(torch, fails: Failures, smi: list, checks, overrides=()) -> di
             coords = [v for r in records for k in ("center_x", "center_y", "width", "height")
                       for v in r[k]]
             k10 = GAN_TRAIN_K10[preset]
-            fails.check(n == want(K1=k1_infer, K10=k10) and len(records) == 16
+            fails.check(n == want(K1=k1_infer, K10=k10, K11=K11_R50) and len(records) == 16
                         and float(rate) == 0.0 and all(0 <= v <= 1 for v in coords),
                         f"gan_train {preset} cli.inference on the trained checkpoint (fp32, "
-                        f"--cond c): launches {n} (want K1 {k1_infer}, K10 {k10}), "
+                        f"--cond c): launches {n} (want K1 {k1_infer}, K10 {k10}, K11 "
+                        f"{K11_R50}), "
                         f"{len(records)} records, "
                         f"{len(coords) // 4} elements with coordinates in [0, 1], violations "
                         f"{violated}/{total}, {summary['ms_per_sample'][0]:.3f} ms per sample")
@@ -2868,7 +2951,7 @@ def run_bf16_train(torch, tok, fails: Failures, smi: list, checks, overrides=())
 
         trainer, state, FIT_FIGURES["bf16"] = run_fit(
             torch, fails, counted, "bf16_train fit", gen, cfg, loaders, len(val_ds), 4,
-            4 + 6 + 6, card, RALF_K10_EVAL)
+            4 + 6 + 6, card, RALF_K10_EVAL, K11_R50)
         low = [n for n, t in list(gen.core.named_parameters()) + list(gen.core.named_buffers())
                if t.is_floating_point() and t.dtype != torch.float32]
         moments = {t.dtype for s in state.optimizer.opt.state.values() for k, t in s.items()
@@ -2899,11 +2982,12 @@ def run_bf16_train(torch, tok, fails: Failures, smi: list, checks, overrides=())
         # the entry points: cli.train --debug model.dtype=bfloat16, then
         # cli.inference on its checkpoint (bf16, the job's dtype), one batch of 16
         L = tok.max_token_length
-        runs = {"ralf": (want(K1=2 * 4 + 2 * 16, K10=2 * RALF_K10_EVAL),
-                         want(K1=4 + 12, K2=6 * L)),
+        runs = {"ralf": (want(K1=2 * 4 + 2 * 16, K10=2 * RALF_K10_EVAL, K11=2 * K11_R50),
+                         want(K1=4 + 12, K2=6 * L, K11=K11_R50)),
                 "cglgan": (want(K1=2 * sum(GAN_TRAIN["cglgan"][:2]), LSA=2,
-                                K10=2 * GAN_TRAIN_K10["cglgan"]),
-                           want(K1=GAN_TRAIN["cglgan"][2], K10=GAN_TRAIN_K10["cglgan"]))}
+                                K10=2 * GAN_TRAIN_K10["cglgan"], K11=2 * K11_R50),
+                           want(K1=GAN_TRAIN["cglgan"][2], K10=GAN_TRAIN_K10["cglgan"],
+                                K11=K11_R50))}
         for preset, (expect_train, expect_infer) in runs.items():
             job = os.path.join(tmp, f"cli_{preset}")
             argv = ["--experiment", preset, "--synthetic", "--debug", "--batch-size",
@@ -3009,7 +3093,7 @@ def run_fusion(torch, tok, fails: Failures, smi: list, checks) -> dict:
 
         request(99)  # warm-up, outside the counted run
         (cond, mem, toks, dt), n = counted(lambda: request(0))
-        want = {**dict.fromkeys(counted.count, 0), "K1": k1, "K2": 6 * L}
+        want = {**dict.fromkeys(counted.count, 0), "K1": k1, "K2": 6 * L, "K11": k11_forward(gen)}
         forced = torch.as_tensor(build_forced_tokens(cond, tok), device=toks.device)
         forced_ok = bool((toks[forced >= 0] == forced[forced >= 0]).all())
         legal = bool(gen.token_mask[torch.arange(L, device=toks.device)[None, :], toks].all())
@@ -3327,10 +3411,11 @@ def mesh_world2(torch, fails: Failures, card: str, ranks: list, counted: LaunchC
                 f"{int(equal_rows[ties].sum())} of them equal")
     for r, rank in enumerate(ranks):
         ok = (rank["program"] == {} and rank["request"] == {"all_gather": 1}
-              and rank["launches"]["K1"] == 12 and rank["launches"]["K2"] == 6 * want.shape[1])
+              and rank["launches"]["K1"] == 12 and rank["launches"]["K2"] == 6 * want.shape[1]
+              and rank["launches"]["K11"] == K11_R50)
         fails.check(ok, f"mesh: rank {r}: a request's collectives {rank['request']}, in the "
                         f"program {rank['program']}; launches {rank['launches']} (want K1 12, K2 "
-                        f"{6 * want.shape[1]} at {len(toks) // MESH_WORLD} rows)")
+                        f"{6 * want.shape[1]}, K11 {K11_R50} at {len(toks) // MESH_WORLD} rows)")
         for k, v in rank["launches"].items():
             counted.totals[k] += v
         K1_LAUNCHED.update(rank["k1"])
@@ -3466,18 +3551,20 @@ def cpu_image_metrics(cli_job: str) -> tuple[dict, dict, float]:
     return scores, n, time.perf_counter() - t
 
 
-def run_towers(torch, fails: Failures, smi: list, cpu) -> None:
+def run_towers(torch, fails: Failures, smi: list, cpu) -> dict:
     """Each feature tower at full size in fp32 (TF32 off): the card against
     the same random weights on the CPU on TOWER_CHECK canvases, within
-    TOWER_TOL of the largest magnitude, and ms per batch of TOWER_BATCH
-    350x240 canvases on the card (the resize included).  `cpu` is the
-    future of `cpu_tower_outputs(TOWERS)`, which the worker computes while
-    the card runs the phases before this one."""
+    TOWER_TOL of the largest magnitude, with exactly K11_TOWER's K11
+    launches, and ms per batch of TOWER_BATCH 350x240 canvases on the card
+    (the resize included).  `cpu` is the future of
+    `cpu_tower_outputs(TOWERS)`, which the worker computes while the card
+    runs the phases before this one.  Returns the counted launches."""
     from ralf_tpu_torch.models.towers import TOWER_SPECS, build_feature_fn
     from ralf_tpu_torch.retrieval.lpips import make_lpips_fns
 
     t0 = time.perf_counter()
     card = smi[0] if smi else torch.cuda.get_device_name(0)
+    counted = LaunchCounter()
     canvases = tower_canvases()
     on_card = torch.from_numpy(canvases).cuda()
     cpu_out, cpu_s = cpu.result()
@@ -3487,15 +3574,18 @@ def run_towers(torch, fails: Failures, smi: list, cpu) -> None:
         for kind in TOWERS:
             fn = (make_lpips_fns(empty, device="cuda")[0] if kind == "lpips_alex"
                   else build_feature_fn(kind, empty, "cuda"))
-            res = fn(canvases[:TOWER_CHECK])
+            res, n = counted(lambda: fn(canvases[:TOWER_CHECK]))
             out = [t.float().cpu() for t in (res if isinstance(res, list) else [res])]
             ref = [torch.from_numpy(a) for a in cpu_out[kind]]
             errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-8))
                     for a, b in zip(out, ref)]
             finite = all(bool(torch.isfinite(a).all()) for a in out)
-            fails.check(finite and len(out) == len(ref) and max(errs) < TOWER_TOL,
+            k11 = K11_TOWER.get(kind, 0)
+            fails.check(finite and len(out) == len(ref) and max(errs) < TOWER_TOL
+                        and n == {**dict.fromkeys(n, 0), "K11": k11},
                         f"towers {kind}: card vs CPU relative max error {max(errs):.3e} (tol "
-                        f"{TOWER_TOL}), outputs {[tuple(a.shape) for a in out]}")
+                        f"{TOWER_TOL}), outputs {[tuple(a.shape) for a in out]}, launches {n} "
+                        f"(want K11 {k11})")
             ms = time_ms(lambda: fn(on_card), iters=5, warmup=2)
             size = 224 if kind == "lpips_alex" else TOWER_SPECS[kind][1]
             print(f"  towers {kind}: {ms:.2f} ms per batch of {TOWER_BATCH} (350x240 -> "
@@ -3503,6 +3593,7 @@ def run_towers(torch, fails: Failures, smi: list, cpu) -> None:
             del fn
             torch.cuda.empty_cache()
     print(f"  towers phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted.totals
 
 
 def run_builders(torch, fails: Failures, smi: list, cli_job: str, cpu_eval) -> dict:
@@ -3601,8 +3692,12 @@ def run_builders(torch, fails: Failures, smi: list, cli_job: str, cpu_eval) -> d
             with contextlib.redirect_stdout(io.StringIO()):
                 scores[label], n = counted(lambda: evaluate.main(argv))
             t = time.perf_counter() - t
-            fails.check(n == {**none, "K1": 4 * (1 + CLI_SEEDS)},
-                        f"builders cli.evaluate {label}: launches {n}")
+            # --image-metrics: InceptionV3 over the real and the fake canvases of each
+            # seed's pickle (one chunk of CLI_BATCH)
+            k11 = 2 * CLI_SEEDS * K11_TOWER["inception"] if extra else 0
+            fails.check(n == {**none, "K1": 4 * (1 + CLI_SEEDS), "K11": k11},
+                        f"builders cli.evaluate {label}: launches {n} (want K1 "
+                        f"{4 * (1 + CLI_SEEDS)}, K11 {k11})")
             print(f"  builders cli.evaluate {label}: {t:.2f} s ({card})", flush=True)
         t = time.perf_counter()
         cpu, n, cpu_s = cpu_eval.result()
@@ -3658,11 +3753,10 @@ def random_layouts(n: int, rng: np.random.Generator, max_elements: int = 10):
                             "height": rng.uniform(0.03, 0.2, shape) * mask, "mask": mask})
 
 
-def measure_batch(torch, label: str, run, card: str, unit: str, n: int) -> dict:
+def measure_batch(torch, label: str, run, card: str, unit: str, n: int) -> None:
     """ms per call of `run` on the card (median of PREPROCESS_TIMED after a
     warm-up), n / that as items/s, peak memory of one call, and one call
-    under torch.profiler (device ms, busy share, launches); printed and
-    returned."""
+    under torch.profiler (device ms, busy share, launches); printed."""
     run()
     torch.cuda.synchronize()
     ms = time_ms(run, iters=PREPROCESS_TIMED, warmup=0)
@@ -3670,10 +3764,9 @@ def measure_batch(torch, label: str, run, card: str, unit: str, n: int) -> dict:
     run()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    prof = profile_request(torch, f"preprocess {label}", run)
+    profile_request(torch, f"preprocess {label}", run)
     print(f"  preprocess {label}: {ms:.2f} ms per batch of {n} {unit}, {1e3 * n / ms:.2f} "
           f"{unit}/s, peak memory {peak:.3f} GiB (fp32; {card})", flush=True)
-    return {"ms": ms, "per_s": 1e3 * n / ms, "peak_gib": peak, **prof}
 
 
 def run_preprocess(torch, fails: Failures, smi: list) -> dict:
@@ -3684,10 +3777,10 @@ def run_preprocess(torch, fails: Failures, smi: list) -> dict:
     LaMa (BIG_LAMA) through
     `inpaint` on LAMA_BATCH canvases of PKU's raw LAMA_HW with masks from
     `box_union_mask`, its weights written as TorchScript first; each with ms
-    per batch, items/s, peak memory and one profiled batch, and one canvas
+    per batch, items/s, peak memory and one profiled batch, one canvas
     card against CPU (the raw maps within SALIENCY_TOL, with their range
-    printed; LaMa at LAMA_CHECK_HW within LAMA_TOL).  Returns the figures by
-    net."""
+    printed; LaMa at LAMA_CHECK_HW within LAMA_TOL), and K11_PREPROCESS's
+    K11 launches a forward.  Returns the counted launches."""
     import copy
 
     from ralf_tpu_torch.cli import saliency
@@ -3697,8 +3790,12 @@ def run_preprocess(torch, fails: Failures, smi: list) -> dict:
 
     t0 = time.perf_counter()
     card = smi[0] if smi else torch.cuda.get_device_name(0)
+    counted = LaunchCounter()
     rng = np.random.default_rng(0)
-    figures = {}
+
+    def want(**launches):
+        return {**dict.fromkeys(counted.totals, 0), **launches}
+
     for model in ("isnet", "basnet"):
         size = saliency.SIZES[model]
         cpu_net = saliency.build_net(model, device="cpu")
@@ -3706,21 +3803,24 @@ def run_preprocess(torch, fails: Failures, smi: list) -> dict:
         card_net = copy.deepcopy(cpu_net).cuda()
         imgs = rng.random((SALIENCY_BATCH, size, size, 3), dtype=np.float32)
         # one canvas, card against CPU, on the raw maps (the min-max would amplify noise)
+        card_map, n = counted(lambda: saliency.raw_maps(card_net, model, imgs[:1]))
         one = {"cpu": saliency.raw_maps(cpu_net, model, imgs[:1]).numpy()[0],
-               "cuda": saliency.raw_maps(card_net, model, imgs[:1]).cpu().numpy()[0]}
+               "cuda": card_map.cpu().numpy()[0]}
         err = float(np.abs(one["cuda"] - one["cpu"]).max())
         span = float(one["cpu"].max() - one["cpu"].min())
         maps = saliency.saliency_maps(card_net, model, imgs)
+        k11 = K11_PREPROCESS[model]
         fails.check(err < SALIENCY_TOL and span > SALIENCY_RANGE and maps.shape == (
             SALIENCY_BATCH, size, size) and bool(np.isfinite(maps).all())
-                    and maps.min() >= 0 and maps.max() <= 1,
-                    f"preprocess {model}: raw map card vs CPU max_abs_err {err:.3e} (tol "
+                    and maps.min() >= 0 and maps.max() <= 1 and n == want(K11=k11),
+                    f"preprocess {model}: launches {n} (want K11 {k11}); "
+                    f"raw map card vs CPU max_abs_err {err:.3e} (tol "
                     f"{SALIENCY_TOL}) at {size}^2, the CPU map's range {one['cpu'].min():.4f}-"
                     f"{one['cpu'].max():.4f} ({span:.4f}, least {SALIENCY_RANGE}); normalised "
                     f"maps {maps.shape} in [{maps.min():.3f}, {maps.max():.3f}]")
-        figures[model] = measure_batch(torch, f"{model} ({size}^2)",
-                                       lambda: saliency.saliency_maps(card_net, model, imgs),
-                                       card, "images", SALIENCY_BATCH)
+        measure_batch(torch, f"{model} ({size}^2)",
+                      lambda: saliency.saliency_maps(card_net, model, imgs), card, "images",
+                      SALIENCY_BATCH)
         del cpu_net, card_net
         torch.cuda.empty_cache()
 
@@ -3736,13 +3836,15 @@ def run_preprocess(torch, fails: Failures, smi: list) -> dict:
         torch.jit.trace(gen, example, check_trace=False).save(path)
         del gen
         t = time.perf_counter()
-        out = inpaint(images, masks, path, batch_size=LAMA_BATCH)
+        out, n = counted(lambda: inpaint(images, masks, path, batch_size=LAMA_BATCH))
         t = time.perf_counter() - t
         keep = masks == 0
+        k11 = K11_PREPROCESS["lama"]  # one batch: one forward
         fails.check(out.shape == (LAMA_BATCH, H, W, 3) and bool(np.isfinite(out).all())
-                    and out.min() >= 0 and out.max() <= 1
+                    and out.min() >= 0 and out.max() <= 1 and n == want(K11=k11)
                     and bool(np.allclose(out[keep], images[keep] / 255.0, atol=1e-6)),
-                    f"preprocess lama: inpaint of {LAMA_BATCH} canvases {H}x{W} (masks cover "
+                    f"preprocess lama: launches {n} (want K11 {k11}); "
+                    f"inpaint of {LAMA_BATCH} canvases {H}x{W} (masks cover "
                     f"{100 * (~keep).mean():.1f}%) -> {out.shape} in [{out.min():.3f}, "
                     f"{out.max():.3f}], unmasked pixels kept; the call {t:.2f} s (load, pad to "
                     f"8, run, crop)")
@@ -3767,12 +3869,12 @@ def run_preprocess(torch, fails: Failures, smi: list) -> dict:
             with torch.inference_mode():
                 return gen(x, m)
 
-        figures["lama"] = measure_batch(torch, f"lama ({H}x{W} padded to {x.shape[2]}x"
-                                        f"{x.shape[3]})", batch, card, "images", LAMA_BATCH)
+        measure_batch(torch, f"lama ({H}x{W} padded to {x.shape[2]}x{x.shape[3]})", batch,
+                      card, "images", LAMA_BATCH)
         del gen, x, m
         torch.cuda.empty_cache()
     print(f"  preprocess phase {time.perf_counter() - t0:.1f} s", flush=True)
-    return figures
+    return counted.totals
 
 
 def main() -> int:
@@ -3824,12 +3926,14 @@ def main() -> int:
             for kid, n in run_fusion(torch, tok, fails, smi, checks).items():
                 launches[kid] += n
             launches["K9"] += run_stream(torch, fails)
-            run_towers(torch, fails, smi, towers_cpu)
+            for kid, n in run_towers(torch, fails, smi, towers_cpu).items():
+                launches[kid] += n
             for kid, n in run_fid_train(torch, fails, smi, cli_job).items():
                 launches[kid] += n
             for kid, n in run_builders(torch, fails, smi, cli_job, cpu_eval).items():
                 launches[kid] += n
-        run_preprocess(torch, fails, smi)
+        for kid, n in run_preprocess(torch, fails, smi).items():
+            launches[kid] += n
         for kid, n in run_zoo(torch, fails, smi, checks).items():
             launches[kid] += n
         for kid, n in run_baselines(torch, fails, smi, checks).items():

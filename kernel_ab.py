@@ -14,6 +14,9 @@ launch), and the device time alone of the kernel and of the library call,
 from torch.profiler over 30 calls.  The turns run other, this, this, other,
 and the table pairs the cases that both trees have by label and dtype.
 To compare a variant as well, run the script once more with it as DIR.
+A kernel that only this tree has (K11: `--names batchnorm_act`, at the
+benchmark's two largest BatchNorm calls beside the unfused eval path it
+replaced) gets rows from this tree's turns alone.
 It prints the card's name and power limit first and exits non-zero
 without CUDA.
 

@@ -6,7 +6,10 @@ float in [0, 1] or uint8 0..255 (normalized here).  Inside, the NHWC tensor
 is viewed as NCHW, which is PyTorch's channels_last layout, so no copy is
 made.  BatchNorm follows flax's `nn.BatchNorm(momentum=0.9)`: in eval mode
 the running statistics, folded into a per-channel scale and shift; in train
-mode the batch's (ROADMAP.md Queue C).
+mode the batch's (ROADMAP.md Queue C).  Each block hands its residual add and
+its ReLUs to the BatchNorm before them, which in eval mode on the card with
+grad off runs all three as one pass (K11, `ops.batchnorm_act`): one launch a
+BatchNorm, 53 a ResNet50 forward and 20 a ResNet18 one.
 
 Two heads, as in JAX.  `fpn_style="ralf"` (RALF and autoreg):
 
@@ -30,14 +33,19 @@ antialiasing acts only when it shrinks a map).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ralf_tpu_torch.models.base import compute_dtype
-from ralf_tpu_torch.models.nn import TransformerEncoder
+from ralf_tpu_torch.models.nn import TransformerEncoder, on_card
 from ralf_tpu_torch.models.positional import PositionEmbeddingSine2D
+from ralf_tpu_torch.ops import batchnorm_act as bn_act
+from ralf_tpu_torch.ops.batchnorm_act import batchnorm_act
 from ralf_tpu_torch.parallel import rows
+from ralf_tpu_torch.utils import tracing
 
 BN_EPS = 1e-5
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -45,10 +53,31 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 BN_MOMENTUM = 0.9  # flax's convention: ra = 0.9 ra + 0.1 batch (torch's momentum 0.1)
 
 
-class BatchNorm(nn.Module):
-    """BatchNorm over NCHW with flax's semantics.
+def eval_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               running_mean: torch.Tensor, running_var: torch.Tensor, eps: float,
+               residual: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
+    """The eval-mode BatchNorm's plain path, then the optional residual add
+    and ReLU: the scale and shift worked in fp32 and cast to x's dtype, then
+    x * scale + shift, + residual and relu, each rounded to x's dtype (the
+    JAX package's order).  The CPU's path, and the card's for what K11 does
+    not take."""
+    scale = weight.float() * torch.rsqrt(running_var.float() + eps)
+    shift = bias.float() - running_mean.float() * scale
+    y = x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+    y = y if residual is None else y + residual
+    return F.relu(y) if relu else y
 
-    eval: x * (w / sqrt(ra_var + eps)) + (b - ra_mean * that).
+
+class BatchNorm(nn.Module):
+    """BatchNorm over NCHW with flax's semantics, then the optional residual
+    add and ReLU of the block: relu?(bn(x) (+ residual)).
+
+    eval: x * (w / sqrt(ra_var + eps)) + (b - ra_mean * that).  With grad off
+    and x (and residual) on the card in a layout K11 takes (`bn_act.takes`:
+    channels_last, fp32 or bf16, C a multiple of 8), one K11 launch computes
+    it all in fp32 with one rounding; otherwise `eval_plain` rounds to x's
+    dtype after the scale, the shift, the residual add, and the call counts
+    `bn.eval.plain` (`utils.tracing`).
     train: the batch's mean and BIASED variance, E[x^2] - E[x]^2 clipped at
     0 (flax's fast variance), in fp32; y = (x - mean) * (rsqrt(var + eps) w)
     + b; and the running statistics move to momentum * ra + (1 - momentum)
@@ -69,12 +98,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return self._train_forward(x)
-        scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-        shift = self.bias.float() - self.running_mean.float() * scale
-        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                relu: bool = False) -> torch.Tensor:
+        if not self.training:
+            params = (self.weight, self.bias, self.running_mean, self.running_var)
+            if (not torch.is_grad_enabled() and on_card(x)
+                    and bn_act.takes(x, residual, params)):
+                return batchnorm_act(x, *params, self.eps, residual, relu)
+            tracing.count("bn.eval.plain")
+            return eval_plain(x, *params, self.eps, residual, relu)
+        y = self._train_forward(x)
+        y = y if residual is None else y + residual
+        return F.relu(y) if relu else y
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -113,11 +148,10 @@ class Bottleneck(nn.Module):
             self.down_conv, self.down_bn = conv(cin, cout, 1, stride), BatchNorm(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = self.bn1(self.conv1(x), relu=True)
+        y = self.conv3(self.bn2(self.conv2(y), relu=True))
         residual = self.down_bn(self.down_conv(x)) if self.has_down else x
-        return F.relu(y + residual)
+        return self.bn3(y, residual, relu=True)
 
 
 class BasicBlock(nn.Module):
@@ -132,10 +166,9 @@ class BasicBlock(nn.Module):
             self.down_conv, self.down_bn = conv(cin, features, 1, stride), BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+        y = self.conv2(self.bn1(self.conv1(x), relu=True))
         residual = self.down_bn(self.down_conv(x)) if self.has_down else x
-        return F.relu(y + residual)
+        return self.bn2(y, residual, relu=True)
 
 
 _STAGES = {
@@ -162,8 +195,7 @@ class ResNetTrunk(nn.Module):
         self.out_channels = (_WIDTHS[2] * block.expansion, _WIDTHS[3] * block.expansion)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.max_pool2d(y, 3, stride=2, padding=1)
+        y = F.max_pool2d(self.bn1(self.conv1(x), relu=True), 3, stride=2, padding=1)
         taps = []
         for stage, n_blocks in enumerate(self.depths):
             for b in range(n_blocks):

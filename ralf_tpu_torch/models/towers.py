@@ -157,7 +157,8 @@ class AlexNetFeatures(nn.Module):
 
 
 class BasicConv(nn.Module):
-    """Conv (no bias) -> BatchNorm (eps 1e-3, running statistics) -> ReLU."""
+    """Conv (no bias) -> BatchNorm (eps 1e-3, running statistics) -> ReLU, the
+    last two one K11 pass where the BatchNorm takes it (`resnet.BatchNorm`)."""
 
     def __init__(self, cin: int, cout: int, kernel, stride: int = 1, padding=0) -> None:
         super().__init__()
@@ -165,7 +166,7 @@ class BasicConv(nn.Module):
         self.bn = BatchNorm(cout, eps=1e-3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+        return self.bn(self.conv(x), relu=True)
 
 
 def _avg3(x: torch.Tensor) -> torch.Tensor:

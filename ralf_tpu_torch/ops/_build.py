@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("encoder_attention", "encoder_ffn", "decode_attention", "stream_sum", "assignment",
-           "cross_attention")
+           "cross_attention", "batchnorm_act")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -28,8 +28,10 @@ The spans (README.md lists where each lives): `gen.condition`,
 `data.loader_wait`, `data.retrieval`, `train.forward`, `train.backward`,
 `train.clip`, and the roots `infer.batch` and `train.step`.  The counters:
 `h2d.pageable_bytes` and `h2d.pinned_bytes` (`count_h2d`, the request path's
-host-to-device copies) and `attn.cross.plain` (an eval-mode cross-attention
-with S != M that K10 does not take: `models.nn.MultiHeadAttention.attend`).
+host-to-device copies), `attn.cross.plain` (an eval-mode cross-attention
+with S != M that K10 does not take: `models.nn.MultiHeadAttention.attend`)
+and `bn.eval.plain` (an eval-mode BatchNorm that K11 does not take:
+`models.resnet.BatchNorm`).
 `counters()` adds the port's existing counters read where they live: each
 kernel wrapper's `.launches` (`launches.<wrapper>`) and
 `parallel.mesh.COLLECTIVES` (`collectives.<kind>`).
@@ -70,6 +72,7 @@ LAUNCH_COUNTERS = (
     ("ralf_tpu_torch.ops.assignment", "batched_lsa"),
     ("ralf_tpu_torch.ops.stream_sum", "stream_sum"),
     ("ralf_tpu_torch.ops.cross_attention", "cross_attention"),
+    ("ralf_tpu_torch.ops.batchnorm_act", "batchnorm_act"),
 )
 
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K10 and the exact assignment against their
+"""The port's CUDA kernels K1-K11 and the exact assignment against their
 plain PyTorch versions, on the card.
 
 The kernels have no CPU mode, so every test here needs a CUDA card and skips
@@ -23,7 +23,10 @@ warps' slices against the plain version's one softmax).  K10 in bf16 adds
 2^-8 * max_j |v_j| of its (batch row, head): its online softmax rounds the
 unnormalised p to bf16 where the plain version rounds the normalised p.  The assignment
 kernel equals its plain version exactly: the same fp32 operations in the
-same order, and the same first-index tie rule.
+same order, and the same first-index tie rule.  K11 is held to the plain
+tolerances: its plain version is the same fp32 formula rounded once, and
+only its fused multiply-add differs (one fp32 rounding fewer), which can
+move a bf16 output by one rounding.
 """
 
 import itertools
@@ -34,6 +37,7 @@ import torch
 from ralf_tpu_torch.models import nn as tnn
 from ralf_tpu_torch.ops import _build
 from ralf_tpu_torch.ops import assignment as asg
+from ralf_tpu_torch.ops import batchnorm_act as bna
 from ralf_tpu_torch.ops import cross_attention as xa
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
@@ -54,7 +58,7 @@ def dev():
     # the sessions that followed
     da._lib()
     for mod, name in ((ea, "encoder_attention"), (ef, "encoder_ffn"), (ss, "stream_sum"),
-                      (asg, "assignment"), (xa, "cross_attention")):
+                      (asg, "assignment"), (xa, "cross_attention"), (bna, "batchnorm_act")):
         _build.library(name, mod._SIGNATURES)
     return torch.device("cuda")
 
@@ -981,6 +985,211 @@ def test_layoutdm_request_runs_its_cross_attention_through_k10(dev, monkeypatch)
     print(f"K10 against the einsum path: widest gap {worst:.3e}, "
           f"{int((torch.stack(gaps) > 0).sum())} positions off the einsum path's best")
     assert worst <= 2**-5
+
+
+# ---- K11: eval-mode BatchNorm, residual add and ReLU in one pass ------------------
+
+
+def _bn_params(C, dtype, dev, seed):
+    """weight, bias, running_mean, running_var [C] of a trained-looking
+    BatchNorm, in `dtype`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w, b, m = (torch.randn(C, generator=g, device=dev) for _ in range(3))
+    v = 0.5 + torch.rand(C, generator=g, device=dev)
+    return tuple(t.to(dtype) for t in (1 + 0.2 * w, 0.2 * b, 0.3 * m, v))
+
+
+def _nhwc(shape, dtype, dev, seed):
+    N, C, H, W = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(N, H, W, C, generator=g, device=dev).to(dtype).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual,relu", [(False, False), (False, True), (True, False),
+                                           (True, True)])
+@pytest.mark.parametrize("shape", [
+    (2, 64, 175, 120),   # the stem at 350x240
+    (2, 64, 88, 60),     # layer1's bn1, bn2 (ResNet50); ResNet18's layer1
+    (2, 256, 88, 60),    # layer1's bn3 and downsample
+    (2, 128, 44, 30),    # layer2's bn1, bn2; ResNet18's layer2
+    (2, 512, 44, 30),
+    (2, 256, 22, 15),    # ResNet18's layer3
+    (2, 1024, 22, 15),
+    (2, 512, 11, 8),     # ResNet18's layer4
+    (2, 2048, 11, 8),
+    (3, 72, 5, 7),       # 9 vectors of bf16 a pixel: the channel group wraps unevenly
+    (1, 8, 3, 5),        # one vector a pixel; 120 elements, a ragged part of one stride
+])
+def test_batchnorm_act_kernel_matches_plain(dev, dtype, residual, relu, shape):
+    x = _nhwc(shape, dtype, dev, shape[1])
+    r = _nhwc(shape, dtype, dev, shape[1] + 1) if residual else None
+    params = _bn_params(shape[1], dtype, dev, 3)
+    n = bna.batchnorm_act.launches
+    out = bna.batchnorm_act(x, *params, 1e-5, r, relu)
+    assert bna.batchnorm_act.launches == n + 1
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    _close(out, bna.batchnorm_act_plain(x, *params, 1e-5, r, relu), dtype)
+
+
+def test_batchnorm_act_reads_parameters_of_any_stored_dtype(dev):
+    """bf16 activations with fp32 weight and bias and bf16 statistics (a
+    module whose buffers were cast apart from its parameters)."""
+    x, r = (_nhwc((2, 256, 9, 7), torch.bfloat16, dev, s) for s in (1, 2))
+    w, b, m, v = _bn_params(256, torch.float32, dev, 4)
+    params = (w, b, m.bfloat16(), v.bfloat16())
+    _close(bna.batchnorm_act(x, *params, 1e-3, r, True),
+           bna.batchnorm_act_plain(x, *params, 1e-3, r, True), torch.bfloat16)
+
+
+def test_batchnorm_act_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x = _nhwc((2, 16, 5, 3), torch.float32, dev, 1)
+    params = _bn_params(16, torch.float32, dev, 2)
+    with pytest.raises(ValueError, match="channels_last"):
+        bna.batchnorm_act(x.contiguous(), *params, 1e-5)  # NCHW storage
+    with pytest.raises(ValueError, match="channels_last"):
+        bna.batchnorm_act(x[:, :12], *_bn_params(12, torch.float32, dev, 2), 1e-5)
+    with pytest.raises(ValueError, match="channels_last"):
+        bna.batchnorm_act(x, *params, 1e-5, x.contiguous())  # an NCHW residual
+    with pytest.raises(ValueError, match="channels_last"):
+        bna.batchnorm_act(x, *params[:3], params[3][:8].contiguous(), 1e-5)
+    with pytest.raises(TypeError):
+        bna.batchnorm_act(x.half(), *params, 1e-5)
+    off = torch.empty(2 * 16 * 5 * 3 + 2, device=dev)[2:].view(2, 5, 3, 16).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        bna.batchnorm_act(off, *params, 1e-5)  # 8 bytes past a 16-byte boundary
+    with pytest.raises(RuntimeError, match="forward only"):
+        bna.batchnorm_act(x.requires_grad_(), *params, 1e-5)
+
+
+def _trained_looking_bn(module, seed):
+    """BatchNorm statistics and affine parameters such as a trained ResNet's
+    (each bottleneck's last BatchNorm small, so that the residual stream
+    keeps its scale over 16 blocks in eval mode)."""
+    from ralf_tpu_torch.models.resnet import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    for name, m in module.named_modules():
+        if isinstance(m, BatchNorm):
+            C = m.weight.shape[0]
+            with torch.no_grad():
+                m.weight.copy_((0.25 if name.endswith("bn3") else 1.0)
+                               * (1 + 0.05 * torch.randn(C, generator=g)))
+                m.bias.copy_(0.02 * torch.randn(C, generator=g))
+                m.running_mean.copy_(0.05 * torch.randn(C, generator=g))
+                m.running_var.copy_(1 + 0.1 * torch.randn(C, generator=g).abs())
+    return module
+
+
+@pytest.mark.parametrize("backbone,launches", [("resnet50", 53), ("resnet18", 20)])
+def test_resnet_encoder_through_k11_against_the_plain_path(dev, monkeypatch, backbone, launches):
+    """The ResNet-FPN encoder at 350x240 (batch 2, uint8 canvases) in eval
+    mode under inference_mode: one K11 launch a BatchNorm (ResNet50 53,
+    ResNet18 20), no `bn.eval.plain`.  Against the plain path (`on_card`
+    patched false) on the same card and weights: in fp32 the two differ by
+    K11's fused multiply-add alone (one rounding of 2^-24 a BatchNorm fewer),
+    which the layers after carry: held to 1e-4 of the map's largest
+    magnitude.  In bf16 the plain path rounds three times a BatchNorm where
+    K11 rounds once, so K11's map is held to be no further from the fp32
+    forward (normwise) than 1.25 times the plain path's."""
+    import copy
+
+    from ralf_tpu_torch.models import resnet
+    from ralf_tpu_torch.utils import tracing
+
+    enc32 = _trained_looking_bn(resnet.ResNetFPNEncoder(backbone, 256, "cgl"), 5).to(dev).eval()
+    g = torch.Generator().manual_seed(6)
+    img = torch.randint(0, 256, (2, 350, 240, 4), generator=g, dtype=torch.uint8).to(dev)
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        enc = enc32 if dtype == torch.float32 else copy.deepcopy(enc32).to(dtype)
+        for route in ("kernel", "plain"):
+            if route == "plain":
+                monkeypatch.setattr(resnet, "on_card", lambda t: False)
+            n = bna.batchnorm_act.launches
+            with torch.inference_mode(), tracing.traced(), \
+                    torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                outs[dtype, route] = enc(img).float()
+                plain = tracing.counters().get("bn.eval.plain", 0)
+            want = (launches, 0) if route == "kernel" else (0, launches)
+            assert (bna.batchnorm_act.launches - n, plain) == want
+            monkeypatch.undo()
+    ref = outs[torch.float32, "plain"]
+    err = (outs[torch.float32, "kernel"] - ref).abs().max()
+    assert float(err) <= 1e-4 * float(ref.abs().max()), float(err)
+    dist = {route: float((outs[torch.bfloat16, route] - ref).norm() / ref.norm())
+            for route in ("kernel", "plain")}
+    print(f"{backbone} bf16 against fp32, normwise: {dist}")
+    assert dist["kernel"] <= 1.25 * dist["plain"]
+
+
+def test_serving_generators_launch_k11_once_per_batchnorm(dev):
+    """A request of RALF (its encode) and of LayoutDM (the whole sample) at
+    the presets' sizes in bf16: 53 K11 launches, one a BatchNorm of the
+    ResNet50 encoder, and no `bn.eval.plain`."""
+    import numpy as np
+
+    from ralf_tpu_torch.core.sampling import SamplingConfig
+    from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer, TokenizerConfig
+    from ralf_tpu_torch.data.dataset import BatchLoader, DatasetConfig, SyntheticPosterDataset
+    from ralf_tpu_torch.models.base import GeneratorConfig
+    from ralf_tpu_torch.models.ralf import RALFGenerator
+    from ralf_tpu_torch.retrieval.retriever import Retriever
+    from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
+    from ralf_tpu_torch.utils import tracing
+
+    tok = LayoutSequenceTokenizer(TokenizerConfig(num_labels=3, max_seq_length=10, num_bin=128))
+    ralf = RALFGenerator(tok, GeneratorConfig(dtype=torch.bfloat16), "uncond", top_k=16,
+                         device="cuda", seed=0)
+    gallery = SyntheticPosterDataset(DatasetConfig(name="synthetic"), size=32, seed=1,
+                                     image_hw=ralf.image_hw)
+    retriever = Retriever.build(gallery, device="cuda")
+    ds = SyntheticPosterDataset(DatasetConfig(name="synthetic"), size=8, seed=0,
+                                image_hw=ralf.image_hw)
+    batch = next(iter(RetrievalAugmentedLoader(
+        BatchLoader(ds, 8, shuffle=False), retriever, top_k=16,
+        feats_table=ralf.precompute_retrieved_feats(retriever.layouts))))
+    layoutdm, dm_batch = _layoutdm_bf16(dev)
+    runs = {
+        "ralf": lambda: ralf.encode_memory(ralf.build_condition(batch, np.random.default_rng(0))[0]),
+        "layoutdm": lambda: layoutdm.sample(
+            layoutdm.build_condition(dm_batch, np.random.default_rng(0), task="uncond")[0],
+            SamplingConfig(name="deterministic", temperature=0.0), return_tokens=True),
+    }
+    for name, run in runs.items():
+        n = bna.batchnorm_act.launches
+        with tracing.traced():
+            run()
+            plain = tracing.counters().get("bn.eval.plain", 0)
+        assert (bna.batchnorm_act.launches - n, plain) == (53, 0), name
+
+
+def test_train_step_launches_no_k11(dev, tmp_path):
+    """A RALF train step on the card (fp32, ResNet50 with BatchNorm in train
+    mode, batch 4) goes nowhere near K11."""
+    import numpy as np
+
+    from ralf_tpu_torch.core.tokenizer import LayoutSequenceTokenizer, TokenizerConfig
+    from ralf_tpu_torch.data.dataset import BatchLoader, DatasetConfig, SyntheticPosterDataset
+    from ralf_tpu_torch.models.base import GeneratorConfig
+    from ralf_tpu_torch.models.ralf import RALFGenerator
+    from ralf_tpu_torch.retrieval.retriever import Retriever
+    from ralf_tpu_torch.retrieval.wrapper import RetrievalAugmentedLoader
+    from ralf_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    tok = LayoutSequenceTokenizer(TokenizerConfig(num_labels=3, max_seq_length=10, num_bin=128))
+    ds = SyntheticPosterDataset(DatasetConfig(name="synthetic"), size=64, seed=0)
+    batch = next(iter(RetrievalAugmentedLoader(BatchLoader(ds, 4, shuffle=False),
+                                               Retriever.build(ds, device="cpu"), 16,
+                                               is_train_split=True)))
+    gen = RALFGenerator(tok, GeneratorConfig(num_encoder_layers=1, num_decoder_layers=1),
+                        "uncond", device="cuda", seed=0)
+    trainer = Trainer(gen, TrainConfig(job_dir=str(tmp_path)))
+    state = trainer.init_state()
+    inputs, targets = gen.preprocess(batch, np.random.default_rng(0))
+    n = bna.batchnorm_act.launches
+    loss = float(trainer.train_step(state, inputs, targets)["loss"])
+    assert np.isfinite(loss) and bna.batchnorm_act.launches == n
 
 
 # ---- the evaluation metrics and the CLIs on the card --------------------------

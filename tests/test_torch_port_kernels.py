@@ -1,5 +1,7 @@
-"""The port's kernels K1-K9 against the JAX package's Pallas kernels, and
-K10's plain version and dispatch against the einsum path it replaces.
+"""The port's kernels K1-K9 against the JAX package's Pallas kernels, K10's
+plain version and dispatch against the einsum path it replaces, and K11's
+plain version and the eval-mode BatchNorm's dispatch against the unfused
+sequence it replaces.
 
 On the CPU each wrapper of `ralf_tpu_torch.ops` runs its plain PyTorch
 version; here that version is held against the Pallas kernel run with
@@ -34,6 +36,8 @@ from ralf_tpu.ops.pallas.encoder_attention import (
 )
 from ralf_tpu.ops.pallas.encoder_ffn import fused_ffn as jax_fused_ffn
 from ralf_tpu_torch.models import nn as tnn
+from ralf_tpu_torch.models import resnet
+from ralf_tpu_torch.ops import batchnorm_act as bna
 from ralf_tpu_torch.ops import cross_attention as xa
 from ralf_tpu_torch.ops import decode_attention as da
 from ralf_tpu_torch.ops import encoder_attention as ea
@@ -559,3 +563,191 @@ def test_cross_attention_dispatch(monkeypatch, case):
     assert len(calls) == int(takes)
     assert plain == (0 if takes or case == "train" else 1)
     np.testing.assert_allclose(got.detach().numpy(), want.numpy(), **TOL)
+
+
+# ---- K11: eval-mode BatchNorm, residual add and ReLU in one pass ---------------------
+
+
+def _randomize_bn(module, seed):
+    """Random BatchNorm statistics and affine parameters, so that no
+    BatchNorm is the identity."""
+    g = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if isinstance(m, resnet.BatchNorm):
+            C = m.weight.shape[0]
+            with torch.no_grad():
+                m.weight.copy_(1 + 0.2 * torch.randn(C, generator=g))
+                m.bias.copy_(0.2 * torch.randn(C, generator=g))
+                m.running_mean.copy_(0.3 * torch.randn(C, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(C, generator=g))
+    return module
+
+
+def _channels_last(N, C, H, W, seed, dtype=torch.float32):
+    """[N, C, H, W] viewing NHWC storage, as the trunk's activations are."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(N, H, W, C, generator=g).to(dtype).permute(0, 3, 1, 2)
+
+
+def _old_bn(bn, x):
+    """The eval-mode BatchNorm's expression before K11 (train mode: its own)."""
+    if bn.training:
+        return bn._train_forward(x)
+    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    shift = bn.bias.float() - bn.running_mean.float() * scale
+    return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+def _old_block(m, x):
+    """Bottleneck's and BasicBlock's forward before K11: separate residual add
+    and ReLUs."""
+    relu = torch.nn.functional.relu
+    y = relu(_old_bn(m.bn1, m.conv1(x)))
+    if isinstance(m, resnet.Bottleneck):
+        y = relu(_old_bn(m.bn2, m.conv2(y)))
+        y = _old_bn(m.bn3, m.conv3(y))
+    else:
+        y = _old_bn(m.bn2, m.conv2(y))
+    residual = _old_bn(m.down_bn, m.down_conv(x)) if m.has_down else x
+    return relu(y + residual)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["eval", "train"])
+@pytest.mark.parametrize("block,cin,features,stride", [
+    ("Bottleneck", 16, 4, 1),   # residual = x
+    ("Bottleneck", 8, 4, 2),    # the downsample's BatchNorm on the residual
+    ("BasicBlock", 8, 8, 1),
+    ("BasicBlock", 8, 16, 2),
+])
+def test_blocks_plain_path_is_the_unfused_sequence_bit_for_bit(dtype, mode, block, cin,
+                                                               features, stride):
+    """On the plain path (the CPU) a block that hands its residual and ReLUs to
+    its BatchNorms computes what it did before, bit for bit, in eval and in
+    train mode (the running statistics too), in fp32 and bf16."""
+    import copy
+
+    new = _randomize_bn(getattr(resnet, block)(cin, features, stride), cin + stride).to(dtype)
+    old = copy.deepcopy(new)
+    for m in (new, old):
+        m.train(mode == "train")
+    x = _channels_last(2, cin, 9, 7, 3, dtype)
+    with torch.set_grad_enabled(mode == "train"):
+        got, want = new(x), _old_block(old, x)
+    assert got.dtype == dtype and torch.equal(got, want)
+    for a, b in zip(new.buffers(), old.buffers()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual,relu", [(False, False), (False, True), (True, False),
+                                           (True, True)])
+def test_batchnorm_plain_path_is_the_unfused_sequence_bit_for_bit(dtype, residual, relu):
+    """`BatchNorm(x, residual, relu)` on the plain path: today's expression,
+    then `+ residual`, then relu, in x's dtype."""
+    bn = _randomize_bn(resnet.BatchNorm(16), 1).eval()
+    x = _channels_last(2, 16, 5, 3, 4, dtype)
+    r = _channels_last(2, 16, 5, 3, 5, dtype) if residual else None
+    with torch.no_grad():
+        want = _old_bn(bn, x)
+        want = want + r if residual else want
+        want = torch.relu(want) if relu else want
+        got = bn(x, r, relu)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["kernel", "kernel_residual", "train", "grad", "cpu", "nchw",
+                                  "residual_nchw", "channels", "float16"])
+def test_batchnorm_dispatch(monkeypatch, case):
+    """An eval-mode BatchNorm goes to K11 only with grad off, on the card, in
+    fp32 or bf16, x (and the residual) channels_last with C a multiple of 8;
+    any other eval-mode call counts `bn.eval.plain`, a train-mode call
+    nothing.  The card is stood in for: `on_card` patched true (but in
+    "cpu") and the kernel recorded, running its plain version."""
+    calls = []
+
+    def recorded(*args):
+        calls.append(args)
+        return bna.batchnorm_act_plain(*args)
+
+    if case != "cpu":
+        monkeypatch.setattr(resnet, "on_card", lambda t: True)
+    monkeypatch.setattr(resnet, "batchnorm_act", recorded)
+    C = 12 if case == "channels" else 16
+    dtype = torch.float16 if case == "float16" else torch.float32
+    bn = _randomize_bn(resnet.BatchNorm(C), 2).train(case == "train")
+    x = _channels_last(2, C, 5, 3, 6, dtype)
+    if case == "nchw":
+        x = x.contiguous()
+    r = None
+    if case in ("kernel_residual", "residual_nchw"):
+        r = _channels_last(2, C, 5, 3, 7, dtype)
+        r = r.contiguous() if case == "residual_nchw" else r
+    with tracing.traced(), torch.set_grad_enabled(case == "grad"):
+        got = bn(x, r, relu=True)
+        plain = tracing.counters().get("bn.eval.plain", 0)
+    takes = case.startswith("kernel")
+    assert len(calls) == int(takes)
+    assert plain == (0 if takes or case == "train" else 1)
+    with torch.no_grad():
+        want = _old_bn(bn.eval(), x) if case != "train" else got
+        want = torch.relu(want + r if r is not None else want)
+    np.testing.assert_allclose(got.detach().float().numpy(), want.float().numpy(),
+                               **({} if dtype == torch.float32 else dict(rtol=1e-3)))
+
+
+@pytest.mark.parametrize("backbone,launches", [("resnet50", 53), ("resnet18", 20)])
+def test_trunk_calls_k11_once_per_batchnorm(monkeypatch, backbone, launches):
+    """With the card stood in for, the eval-mode trunk with grad off calls K11
+    once per BatchNorm (ResNet50: the stem, 16 x 3 and 4 downsamples;
+    ResNet18: 1 + 8 x 2 + 3), counts no `bn.eval.plain`, and in fp32 gives the
+    plain path's maps bit for bit (both compute in fp32 with the same
+    roundings there)."""
+    calls = []
+
+    def recorded(*args):
+        calls.append(args)
+        return bna.batchnorm_act_plain(*args)
+
+    trunk = _randomize_bn(resnet.ResNetTrunk(backbone), 3).eval()
+    x = _channels_last(1, 4, 48, 40, 8)
+    with torch.no_grad():
+        want = trunk(x)
+        monkeypatch.setattr(resnet, "on_card", lambda t: True)
+        monkeypatch.setattr(resnet, "batchnorm_act", recorded)
+        with tracing.traced():
+            got = trunk(x)
+            plain = tracing.counters().get("bn.eval.plain", 0)
+    assert (len(calls), plain) == (launches, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual,relu", [(False, False), (True, True), (True, False),
+                                           (False, True)])
+def test_batchnorm_act_plain_is_the_formula_in_fp32(dtype, residual, relu):
+    """K11's plain version is the formula worked in fp32 and rounded once to
+    x's dtype, the parameters read in whatever dtype they are stored."""
+    rng = np.random.default_rng(9)
+    C = 24
+    x = _channels_last(3, C, 4, 5, 10, dtype)
+    r = _channels_last(3, C, 4, 5, 11, dtype) if residual else None
+    w, b, m = (torch.from_numpy(rng.normal(size=C).astype(np.float32)) for _ in range(3))
+    v = torch.from_numpy(rng.uniform(0.5, 2.0, size=C).astype(np.float32))
+    params = (w.bfloat16(), b, m.bfloat16(), v)  # mixed storage dtypes
+    eps = 1e-3
+    launches = bna.batchnorm_act.launches
+    got = bna.batchnorm_act_plain(x, *params, eps, r, relu)
+    pf = [p.float().numpy() for p in params]
+    s = pf[0] * (np.float32(1) / np.sqrt(pf[3] + np.float32(eps)))
+    t = pf[1] - pf[2] * s
+    y = x.float().numpy() * s[:, None, None] + t[:, None, None]
+    if residual:
+        y = y + r.float().numpy()
+    if relu:
+        y = np.maximum(y, np.float32(0))
+    want = torch.from_numpy(y.astype(np.float32)).to(dtype)
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=1e-6, atol=1e-6)
+    assert bna.batchnorm_act(x, *params, eps, r, relu).equal(got)  # the CPU wrapper: plain
+    assert bna.batchnorm_act.launches == launches
